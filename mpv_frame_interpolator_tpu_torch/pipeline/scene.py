@@ -1,0 +1,31 @@
+"""Scene-change detection (counterpart of the JAX package's
+``pipeline/scene.py``).
+
+When the mean per-pixel luma difference between consecutive source frames,
+measured at the flow's calc resolution, exceeds a threshold, the engine
+folds a cut into the warp: the flow is zeroed and every blend position
+snaps to the nearer source frame.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cut_score(y1: torch.Tensor, y2: torch.Tensor,
+              res_scalar: int) -> torch.Tensor:
+    """Mean |y1 - y2| over the stride-2**res_scalar subsample of two
+    (H, stride) uint8 luma planes, as a 0-dim float32 tensor on their
+    device (no host sync).
+
+    The sum is taken exactly in int64 and divided once in float32.  The
+    JAX package reduces in float32 in XLA's order, so the two agree
+    exactly while the sum stays below 2**24 and within an ulp or so
+    above it; the cut decision is the same wherever the score is not
+    within an ulp of the threshold."""
+    s = 1 << res_scalar
+    a = y1[::s, ::s].to(torch.int32)
+    b = y2[::s, ::s].to(torch.int32)
+    total = (a - b).abs_().sum(dtype=torch.int64)
+    return total.to(torch.float32) / a.numel()
+
