@@ -5,6 +5,8 @@ Examples:
   python -m mpv_frame_interpolator_tpu_torch synthetic:moving_box \
       --width 3840 --height 2160 --display-fps 120 --search-radius 16 \
       --untimed -o out.y4m
+  python -m mpv_frame_interpolator_tpu_torch synthetic:moving_box --p010 \
+      --black-level 16 --white-level 235 --warp-sampling fused -o out.y4m
   python -m mpv_frame_interpolator_tpu_torch input.y4m --device cpu -o out.y4m
 
 The device is explicit: ``--device cuda`` (the default) needs a card and
@@ -20,15 +22,14 @@ import time
 
 import torch
 
-from mpv_frame_interpolator_tpu.frame import NV12
-from mpv_frame_interpolator_tpu.io import synthetic, y4m
-from mpv_frame_interpolator_tpu.pipeline.present import PresentClock
-from mpv_frame_interpolator_tpu.utils import get_logger
-from mpv_frame_interpolator_tpu.utils.logging import set_verbosity
-from mpv_frame_interpolator_tpu_torch.io import sinks
+from mpv_frame_interpolator_tpu_torch.frame import NV12, P010
+from mpv_frame_interpolator_tpu_torch.io import sinks, synthetic, y4m
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 from mpv_frame_interpolator_tpu_torch.pipeline.player import Pipeline
+from mpv_frame_interpolator_tpu_torch.pipeline.present import PresentClock
+from mpv_frame_interpolator_tpu_torch.utils import get_logger
+from mpv_frame_interpolator_tpu_torch.utils.logging import set_verbosity
 
 log = get_logger("cli")
 
@@ -48,6 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="synthetic source fps")
     p.add_argument("--frames", type=int, default=96,
                    help="max source frames to process (0 = all)")
+    p.add_argument("--p010", action="store_true",
+                   help="run the 10-bit pipeline")
     p.add_argument("--display-fps", type=float, default=60.0,
                    help="target display rate")
     p.add_argument("--search-radius", type=int, default=5,
@@ -55,6 +58,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-auto-quality", action="store_true",
                    help="disable the auto search-radius controller")
     p.add_argument("--no-scene-detection", action="store_true")
+    p.add_argument("--black-level", type=float, default=0.0)
+    p.add_argument("--white-level", type=float, default=255.0)
+    p.add_argument("--warp-sampling", default="pair",
+                   choices=("pair", "shift", "gather", "fused"),
+                   help="warp kernel: pair/shift/gather = every blend "
+                        "position of a pair in one launch (identical "
+                        "outputs), fused = one launch per position")
     p.add_argument("--untimed", action="store_true",
                    help="do not pace output to the display clock")
     p.add_argument("-o", "--output", default="",
@@ -75,7 +85,8 @@ def make_source(args):
         if gen is None:
             raise SystemExit(f"unknown synthetic source {name!r}")
         cfg = synthetic.SyntheticConfig(width=args.width, height=args.height,
-                                        fps=args.fps)
+                                        fps=args.fps,
+                                        pixfmt=P010 if args.p010 else NV12)
         return gen(cfg, args.frames or 1 << 30), cfg.width, cfg.height
     if args.source.endswith(".y4m"):
         rdr = y4m.Y4MReader(open(args.source, "rb"))
@@ -100,9 +111,12 @@ def main(argv=None) -> int:
         auto_quality=not args.no_auto_quality,
         initial_search_radius=args.search_radius,
         scene_detection=not args.no_scene_detection,
+        black_level=args.black_level,
+        white_level=args.white_level,
+        warp_sampling=args.warp_sampling,
         device=args.device))
     sink = (sinks.Y4MFileSink(args.output, width, height, args.display_fps,
-                              NV12)
+                              P010 if args.p010 else NV12)
             if args.output else sinks.NullSink())
     present = PresentClock(args.display_fps, untimed=args.untimed)
     pipe = Pipeline(source, engine, sink, present)

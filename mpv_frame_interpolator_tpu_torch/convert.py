@@ -15,14 +15,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame
+from mpv_frame_interpolator_tpu_torch.frame import FrameFormat, VideoFrame
 
-# Knobs that only pick a TPU/XLA mechanism: which Pallas kernel or XLA
-# sampler runs, how the warp batch is looped, which layer counts are
-# compiled, how compiles are cached and warmed, and how a relay's
+# Knobs that only pick a TPU/XLA mechanism: which Pallas kernel runs the
+# flow step or the blur, how the warp batch is looped, which layer counts
+# are compiled, how compiles are cached and warmed, and how a relay's
 # dispatch acknowledgements are timed.  None changes an output; on the
-# port they are accepted with any value and ignored.
-NO_OP_KNOBS = ("flow_kernel", "pallas_blur", "warp_loop", "warp_sampling",
+# port they are accepted with any value and ignored.  (`warp_sampling` is
+# not among them: it picks a kernel of the port as well, and the port's
+# EngineConfig validates it.)
+NO_OP_KNOBS = ("flow_kernel", "pallas_blur", "warp_loop",
                "layer_buckets", "batch_shapes", "precompile",
                "background_precompile", "compilation_cache_dir",
                "timing_source", "timing_sync_period")
@@ -43,7 +45,7 @@ def engine_config_from_jax(mapping: dict, device: str = "cuda"):
     ``dataclasses.asdict(jax_config)``.
 
     Fields both configs have are copied (the port's own validation then
-    raises NotImplementedError for a mode, model or levels it does not
+    raises NotImplementedError for a mode, model or sampler it does not
     cover); TPU mechanism knobs are dropped; omitted mechanisms must sit
     at their JAX default.  An unknown key raises KeyError."""
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
@@ -69,8 +71,9 @@ def engine_config_from_jax(mapping: dict, device: str = "cuda"):
 @dataclasses.dataclass
 class DeviceFrame:
     """A source frame whose planes live on a device: luma (H, stride) and
-    interleaved chroma (H/2, stride) as uploaded, plus the planar chroma
-    (H/2, stride/2) the flow reads, split once per frame."""
+    interleaved chroma (H/2, stride) as uploaded (uint8 NV12 or uint16
+    P010), plus the planar chroma (H/2, stride/2) the flow reads, split
+    once per frame."""
 
     y: torch.Tensor
     uv: torch.Tensor
@@ -82,8 +85,8 @@ class DeviceFrame:
 
 
 def frame_to_device(frame: VideoFrame, device) -> DeviceFrame:
-    """Copy a host frame's numpy planes to `device` (uint8 stays uint8)
-    and split its chroma there.  The host buffers are handed back to
+    """Copy a host frame's numpy planes to `device` as they are (uint8
+    stays uint8, P010's uint16 stays uint16) and split its chroma there.  The host buffers are handed back to
     their pool (``frame.recycle``) once copied."""
     device = torch.device(device)
     y = torch.from_numpy(np.ascontiguousarray(frame.y)).to(device, copy=True)

@@ -10,7 +10,8 @@
 // adj = signed_square(l - radius/2).  Per low-res pixel c:
 //   sad     = |y1 - y2| + |u1 - u2| + |v1 - v2|, f1 read at
 //             mirror_inside((c << rs) + offset + adj), f2 the probe
-//   partial = (sad << ds) + |probe| + (neighbour bias << nbs)   (uint32)
+//   partial = ((sad >> luma_shift) << ds) + |probe|
+//             + (neighbour bias << nbs)                         (uint32)
 // summed over window x window blocks mod 2^32; the first minimum over the
 // layers in unsigned order wins and its signed square is committed to the
 // stepped axis of every pixel of the block.
@@ -28,6 +29,12 @@
 // order-independent, so the atomics are bit-exact.  A second launch takes
 // each pixel's window argmin (radius reads of an L2-resident array) and
 // writes the committed axis.
+//
+// The delta-sum kernel is templated on the sample type: uint8_t for NV12,
+// uint16_t for P010.  Under P010 three 16-bit differences reach ~2^17.6,
+// so the SAD is shifted right by luma_shift (8) before << ds, in the order
+// of the TPU kernel (flow_step.py:310-315); shifting after would wrap the
+// window sums differently.
 //
 // None of the TPU kernel's machinery is needed here: no phase stacks, no
 // distinct-offset budget, no `valid` flag and fallback -- f1 is read at
@@ -51,14 +58,15 @@ __device__ __forceinline__ int signed_square(int v) {
   return v > 0 ? v * v : -(v * v);
 }
 
+template <typename T>
 __global__ void delta_sums_kernel(
-    const uint8_t* __restrict__ f1y, const uint8_t* __restrict__ f1u,
-    const uint8_t* __restrict__ f1v, const uint8_t* __restrict__ y2,
-    const uint8_t* __restrict__ u2, const uint8_t* __restrict__ v2,
+    const T* __restrict__ f1y, const T* __restrict__ f1u,
+    const T* __restrict__ f1v, const T* __restrict__ y2,
+    const T* __restrict__ u2, const T* __restrict__ v2,
     const int* __restrict__ off_x, const int* __restrict__ off_y,
     unsigned* __restrict__ sums, int is_y, int radius, int ds, int nbs,
     int window, int nb_enabled, int rs, int H, int W, int lh, int lw,
-    int ypitch, int cpitch, int nwy, int nwx) {
+    int ypitch, int cpitch, int nwy, int nwx, int luma_shift) {
   const int x = blockIdx.x * kBX + threadIdx.x;
   const int y = blockIdx.y * kBY + threadIdx.y;
   const int l = blockIdx.z;
@@ -76,7 +84,7 @@ __global__ void delta_sums_kernel(
     const int sad = abs((int)f1y[(size_t)ncy * ypitch + ncx] - (int)y2[i]) +
                     abs((int)f1u[ci] - (int)u2[i]) +
                     abs((int)f1v[ci] - (int)v2[i]);
-    partial = ((unsigned)sad << ds) + (unsigned)abs(probe);
+    partial = (((unsigned)sad >> luma_shift) << ds) + (unsigned)abs(probe);
     if (nb_enabled) {
       // neighbour bias at +-2*window, clamped to the field
       const int* prev = is_y ? off_y : off_x;
@@ -124,16 +132,34 @@ __global__ void commit_kernel(const unsigned* __restrict__ sums,
   plane_out[i] = plane_in[i] + signed_square(best_l - radius / 2);
 }
 
+template <typename T>
+void launch_delta_sums(dim3 grid, dim3 block, cudaStream_t s, const void* f1y,
+                       const void* f1u, const void* f1v, const void* y2,
+                       const void* u2, const void* v2, const void* off_x,
+                       const void* off_y, void* sums, int is_y, int radius,
+                       int ds, int nbs, int window, int nb_enabled, int rs,
+                       int H, int W, int lh, int lw, int ypitch, int cpitch,
+                       int nwy, int nwx, int luma_shift) {
+  delta_sums_kernel<T><<<grid, block, 0, s>>>(
+      static_cast<const T*>(f1y), static_cast<const T*>(f1u),
+      static_cast<const T*>(f1v), static_cast<const T*>(y2),
+      static_cast<const T*>(u2), static_cast<const T*>(v2),
+      static_cast<const int*>(off_x), static_cast<const int*>(off_y),
+      static_cast<unsigned*>(sums), is_y, radius, ds, nbs, window, nb_enabled,
+      rs, H, W, lh, lw, ypitch, cpitch, nwy, nwx, luma_shift);
+}
+
 }  // namespace
 
 // sums: (radius, nwy, nwx) uint32 scratch; out: the stepped axis' new plane.
+// sample_bytes: 1 (uint8 planes) or 2 (uint16); ypitch/cpitch in samples.
 extern "C" int mfi_flow_step(const void* f1y, const void* f1u, const void* f1v,
                              const void* y2, const void* u2, const void* v2,
                              const void* off_x, const void* off_y, void* out,
                              void* sums, int is_y, int radius, int ds, int nbs,
                              int window, int nb_enabled, int rs, int H, int W,
                              int lh, int lw, int ypitch, int cpitch,
-                             void* stream) {
+                             int sample_bytes, int luma_shift, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nwy = (lh + window - 1) / window;
   const int nwx = (lw + window - 1) / window;
@@ -144,13 +170,16 @@ extern "C" int mfi_flow_step(const void* f1y, const void* f1u, const void* f1v,
   }
   const dim3 block(kBX, kBY);
   const dim3 grid((lw + kBX - 1) / kBX, (lh + kBY - 1) / kBY, radius);
-  delta_sums_kernel<<<grid, block, 0, s>>>(
-      static_cast<const uint8_t*>(f1y), static_cast<const uint8_t*>(f1u),
-      static_cast<const uint8_t*>(f1v), static_cast<const uint8_t*>(y2),
-      static_cast<const uint8_t*>(u2), static_cast<const uint8_t*>(v2),
-      static_cast<const int*>(off_x), static_cast<const int*>(off_y),
-      static_cast<unsigned*>(sums), is_y, radius, ds, nbs, window,
-      nb_enabled, rs, H, W, lh, lw, ypitch, cpitch, nwy, nwx);
+  if (sample_bytes == 2)
+    launch_delta_sums<uint16_t>(grid, block, s, f1y, f1u, f1v, y2, u2, v2,
+                                off_x, off_y, sums, is_y, radius, ds, nbs,
+                                window, nb_enabled, rs, H, W, lh, lw, ypitch,
+                                cpitch, nwy, nwx, luma_shift);
+  else
+    launch_delta_sums<uint8_t>(grid, block, s, f1y, f1u, f1v, y2, u2, v2,
+                               off_x, off_y, sums, is_y, radius, ds, nbs,
+                               window, nb_enabled, rs, H, W, lh, lw, ypitch,
+                               cpitch, nwy, nwx, luma_shift);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid2((lw + kBX - 1) / kBX, (lh + kBY - 1) / kBY);

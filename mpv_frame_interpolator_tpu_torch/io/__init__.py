@@ -1,2 +1,2 @@
-"""Frame sinks of the port.  Sources (synthetic clips, y4m readers) are
-the JAX package's host modules, imported as they are."""
+"""Host IO of the port: synthetic sources, the y4m reader and writer, and
+the frame sinks."""

@@ -1,11 +1,10 @@
 """Frame sinks of the port (counterpart of the JAX package's
-``io/sinks.py``): a y4m file writer over the JAX package's jax-free
-``io.y4m.Y4MWriter``, and a null sink."""
+``io/sinks.py``): a y4m file writer (8-bit or P010) and a null sink."""
 
 from __future__ import annotations
 
-from mpv_frame_interpolator_tpu.frame import NV12
-from mpv_frame_interpolator_tpu.io.y4m import Y4MWriter
+from mpv_frame_interpolator_tpu_torch.frame import NV12
+from mpv_frame_interpolator_tpu_torch.io.y4m import Y4MWriter
 
 
 class NullSink:

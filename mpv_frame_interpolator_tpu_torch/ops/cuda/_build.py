@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All kernels are compiled by one nvcc call from the package's own
-``csrc/*.cu`` into ``libmfi_torch_kernels.so`` and loaded with ctypes:
+Each of the package's own ``csrc/*.cu`` (with the headers beside them)
+is compiled by its own nvcc process, all started together, and the
+objects are linked into ``libmfi_torch_kernels.so``, loaded with ctypes:
 plain C entry points, no PyTorch headers, so the build takes seconds.
 The library lands in ``build/mfi_torch_kernels/<hash>/`` beside the
 package, keyed by a hash of the sources and the command line, and is
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -27,14 +29,14 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
-SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu")
+SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu")
+HEADERS = ("warp_common.cuh",)
 
 # --fmad=false: no multiply-add contraction, so the warp's f32
 # round(flow * t) is the product rounded once, as in the reference;
 # -Xptxas=-v: ptxas reports each kernel's registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -42,13 +44,17 @@ I = ctypes.c_int
 # C signature of every entry point: (argtypes); restype is int
 _SIGNATURES = {
     # f1y f1u f1v y2 u2 v2 off_x off_y out sums | is_y radius ds nbs
-    # window nb_enabled rs H W lh lw f1y_pitch f1c_pitch | stream
-    "mfi_flow_step": (P,) * 10 + (I,) * 13 + (P,),
+    # window nb_enabled rs H W lh lw f1y_pitch f1c_pitch sample_bytes
+    # luma_shift | stream
+    "mfi_flow_step": (P,) * 10 + (I,) * 15 + (P,),
     # in out | planes lh lw | stream
     "mfi_blur_flow": (P, P, I, I, I, P),
     # f1y f1uv f2y f2uv blurred ts out_y out_uv | n H Wa pitch lh lw rs
-    # | stream
-    "mfi_pair_blend": (P,) * 8 + (I,) * 7 + (P,),
+    # scale_shift black white | stream
+    "mfi_pair_blend": (P,) * 8 + (I,) * 10 + (P,),
+    # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
+    # scale_shift black white | stream
+    "mfi_fused_blend": (P,) * 8 + (I,) * 9 + (P,),
 }
 
 
@@ -60,10 +66,13 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def nvcc_command(nvcc: str, out: Path) -> list:
-    """The one compile command: every source under csrc/, nothing else."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out),
-            *(str(CSRC_DIR / s) for s in SOURCES)]
+def nvcc_commands(nvcc: str, out: Path, objdir: Path):
+    """One compile command per source under csrc/ (objects into
+    `objdir`), and the command that links them into `out`."""
+    objs = [objdir / (Path(s).stem + ".o") for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / s), "-o", str(o)]
+                for s, o in zip(SOURCES, objs)]
+    return compiles, [nvcc, "-shared", "-o", str(out), *map(str, objs)]
 
 
 def build_log() -> str:
@@ -74,10 +83,24 @@ def build_log() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update(s.encode())
         h.update((CSRC_DIR / s).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _start(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(cmd, proc: subprocess.Popen) -> str:
+    """Wait for one nvcc process; its output, or raise if it failed."""
+    text = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{text}")
+    return text
 
 
 @functools.lru_cache(maxsize=1)
@@ -87,19 +110,23 @@ def load() -> ctypes.CDLL:
     out = build_dir() / LIB_NAME
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        # build to a private name and rename: a concurrent process never
-        # sees a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = nvcc_command(_nvcc(), Path(tmp))
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        # build in a private directory and rename: a concurrent process
+        # never sees a half-written library
+        tmp = Path(tempfile.mkdtemp(dir=out.parent))
+        procs = []
+        try:
+            compiles, link = nvcc_commands(_nvcc(), tmp / LIB_NAME, tmp)
+            procs = [_start(c) for c in compiles]
+            log = "".join(_finish(c, p) for c, p in zip(compiles, procs))
+            log += _finish(link, _start(link))
+            (out.parent / "build.log").write_text(log)
+            os.replace(tmp / LIB_NAME, out)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

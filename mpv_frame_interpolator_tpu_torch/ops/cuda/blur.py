@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
-from mpv_frame_interpolator_tpu_torch.ops.flow import BLUR_RADIUS
+from mpv_frame_interpolator_tpu_torch.ops.flow import BLUR_KERNEL_RADIUS
 
 counts = _build.LaunchCounts()
 
@@ -31,7 +31,7 @@ def symmetric_index(n: int, r: int, device) -> torch.Tensor:
 
 
 def blur_flow_plain(offset: torch.Tensor) -> torch.Tensor:
-    r = BLUR_RADIUS
+    r = BLUR_KERNEL_RADIUS
     _, lh, lw = offset.shape
     iy = symmetric_index(lh, r, offset.device)
     ix = symmetric_index(lw, r, offset.device)

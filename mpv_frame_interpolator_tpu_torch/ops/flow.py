@@ -13,22 +13,61 @@ program per layer count) have no counterpart here: nothing is compiled per
 radius.
 
 Frames are planar on the device: y (H, stride) and u, v (H//2, stride//2),
-all uint8.  H is the frame height and the flow mirrors against the stride
-(`FlowGeometry.stride`), as the reference does.
+uint8 for NV12 or uint16 for P010.  H is the frame height and the flow
+mirrors against the stride (`FlowGeometry.stride`), as the reference does.
+Under P010 each candidate's SAD is shifted right by `luma_shift` (8)
+before the delta scalar, so 8-bit content << 8 gives the 8-bit flow.
+
+The geometry helpers and constants below are the reference's
+(opticalFlowCalc.c, config.h), as the JAX package's ``ops/oracle.py``
+states them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
 
-from mpv_frame_interpolator_tpu.ops import oracle
+FIRST_NEIGHBOR_ITERATION = 4    # config.h:1 (calcDeltaSumsKernel.cl:1)
+MAX_CALC_RES = 270              # config.h:2
+MAX_SEARCH_RADIUS = 16          # config.h:7
+BLUR_KERNEL_RADIUS = 4          # blurFlowKernel.cl:2
 
-FIRST_NEIGHBOR_ITERATION = oracle.FIRST_NEIGHBOR_ITERATION
-BLUR_RADIUS = oracle.BLUR_KERNEL_RADIUS
-MAX_SEARCH_RADIUS = oracle.MAX_SEARCH_RADIUS
+
+def res_scalar_for(height: int, max_calc_res: int = MAX_CALC_RES) -> int:
+    """opticalFlowCalc.c:331-334."""
+    rs = 0
+    while (height >> rs) > max_calc_res:
+        rs += 1
+    return rs
+
+
+def low_dims_for(height: int, stride: int, rs: int):
+    """opticalFlowCalc.c:335-336 (frameWidth is the stride)."""
+    return math.ceil(height / (2 ** rs)), math.ceil(stride / (2 ** rs))
+
+
+def start_window_size(lh: int, lw: int) -> int:
+    """opticalFlowCalc.c:132-143: next power of two of max(lowdim), halved."""
+    max_dim = max(lw, lh)
+    if max_dim and (max_dim & (max_dim - 1)) == 0:
+        window = max_dim
+    else:
+        while max_dim & (max_dim - 1):
+            max_dim &= max_dim - 1
+        window = max_dim << 1
+    return window // 2
+
+
+def num_iterations(window_size: int, num_iter_cfg: int = 0) -> int:
+    """opticalFlowCalc.c:146-149."""
+    it = int(math.log2(window_size)) if window_size > 1 else 0
+    if num_iter_cfg == 0 or num_iter_cfg > it:
+        return it
+    return num_iter_cfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +87,12 @@ class FlowGeometry:
 
     @classmethod
     def create(cls, height: int, stride: int, actual_width: int,
-               max_calc_res: int = oracle.MAX_CALC_RES,
+               max_calc_res: int = MAX_CALC_RES,
                num_iter_cfg: int = 0) -> "FlowGeometry":
-        rs = oracle.res_scalar_for(height, max_calc_res)
-        lh, lw = oracle.low_dims_for(height, stride, rs)
-        window = oracle.start_window_size(lh, lw)
-        iters = oracle.num_iterations(window, num_iter_cfg)
+        rs = res_scalar_for(height, max_calc_res)
+        lh, lw = low_dims_for(height, stride, rs)
+        window = start_window_size(lh, lw)
+        iters = num_iterations(window, num_iter_cfg)
         return cls(height, stride, actual_width, rs, lh, lw, window, iters)
 
     def window_schedule(self) -> Tuple[int, ...]:
@@ -80,15 +119,21 @@ def signed_square(v: torch.Tensor) -> torch.Tensor:
 
 def subsampled_f2(geom: FlowGeometry, f2y: torch.Tensor, f2u: torch.Tensor,
                   f2v: torch.Tensor):
-    """Frame-2 probe samples at the low-res grid, as contiguous uint8
-    planes (lh, lw): y2[cy, cx] = f2y[cy << rs, cx << rs] and
-    u2/v2[cy, cx] = f2u/v[(cy << rs) >> 1, (cx << rs) >> 1]."""
+    """Frame-2 probe samples at the low-res grid, as contiguous planes
+    (lh, lw) of the frame's dtype: y2[cy, cx] = f2y[cy << rs, cx << rs]
+    and u2/v2[cy, cx] = f2u/v[(cy << rs) >> 1, (cx << rs) >> 1].  Only
+    slices and copies, which every dtype supports (uint16 has little
+    else)."""
     rs, lh, lw = geom.res_scalar, geom.low_h, geom.low_w
     s = 1 << rs
     y2 = f2y[::s, ::s][:lh, :lw]
     if rs == 0:
-        u2 = f2u.repeat_interleave(2, 0).repeat_interleave(2, 1)[:lh, :lw]
-        v2 = f2v.repeat_interleave(2, 0).repeat_interleave(2, 1)[:lh, :lw]
+        def up2(p):
+            h, w = p.shape
+            return p[:, None, :, None].expand(h, 2, w, 2).reshape(
+                2 * h, 2 * w)
+        u2 = up2(f2u)[:lh, :lw]
+        v2 = up2(f2v)[:lh, :lw]
     else:
         t = 1 << (rs - 1)
         u2 = f2u[::t, ::t][:lh, :lw]
@@ -97,10 +142,12 @@ def subsampled_f2(geom: FlowGeometry, f2y: torch.Tensor, f2u: torch.Tensor,
 
 
 def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
-         delta_scalar: int = 8, neighbor_bias_scalar: int = 6):
+         delta_scalar: int = 8, neighbor_bias_scalar: int = 6,
+         luma_shift: int = 0):
     """The whole pyramid plus the blur.  f1 is the OLDER frame, f2 the
-    newer.  Returns (offset (2, lh, lw) int32, blurred (2, lh, lw) int32),
-    plane 0 the x offsets and plane 1 the y offsets."""
+    newer; `luma_shift` is 8 for P010 and 0 for NV12.  Returns (offset
+    (2, lh, lw) int32, blurred (2, lh, lw) int32), plane 0 the x offsets
+    and plane 1 the y offsets."""
     from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
         flow_step)
     if not 1 <= radius <= MAX_SEARCH_RADIUS:
@@ -116,7 +163,7 @@ def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
                 f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y, radius,
                 delta_scalar, neighbor_bias_scalar, window,
                 iteration >= FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
-                geom.height, geom.stride)
+                geom.height, geom.stride, luma_shift)
     offset = torch.stack([off_x, off_y])
     return offset, blur_flow(offset)
 

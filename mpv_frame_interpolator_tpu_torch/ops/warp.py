@@ -1,25 +1,33 @@
 """Bidirectional warp + blend, blended mode only (counterpart of the JAX
 package's ``ops/warp.py``).
 
-The pieces of the reference's warpFrameKernel.cl for output mode 2 on
-8-bit NV12, as plain tensor functions: the flow lookup at each output
-pixel's low-res cell (``upsample_y`` / ``upsample_uv``), the reverse flow
-read back through it (``reverse_fields``), the two mirrored nearest
-samples (``mirror_edge2``, ``iround``), the 24-bit fixed-point blend
-(``blend_fix``) and the default-levels clip (``levels_clip``).  Chroma is
-sampled in the interleaved NV12 plane directly (``nv12_column``), so its
-output comes out interleaved.  The kernel that runs all of it on the card
-is ops/cuda/warp_pair.py; its plain version composes these functions.
+The pieces of the reference's warpFrameKernel.cl for output mode 2, as
+plain tensor functions: the flow lookup at each output pixel's low-res
+cell (``upsample_y`` / ``upsample_uv``), the reverse flow read back
+through it (``reverse_fields``), the two mirrored nearest samples
+(``mirror_edge2``, ``iround``), the fixed-point blend (``blend_weights``,
+``blend_fix``) and the exact-integer black/white level maps
+(``levels_y``, ``levels_uv``).  Chroma is sampled in the interleaved
+NV12/P010 plane directly (``nv12_column``), so its output comes out
+interleaved.
 
-Other output modes, non-default levels and P010 are not ported yet.
+8-bit NV12 has scale_shift 0; 10-bit P010 (uint16 samples, value in the
+top bits) has scale_shift 8: the blend keeps 16 fraction bits instead of
+24 so the weighted sum fits uint32, levels are given on the 8-bit scale,
+and the output cap is 255 << scale_shift.
+
+The kernels that run all of it on the card are ops/cuda/warp_pair.py
+(every blend position of a pair) and ops/cuda/warp_fused.py (one
+position); their plain versions compose these functions.  Other output
+modes are not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BLENDED_FRAME = 2
-BLEND_FRACTION_BITS = 24
 
 
 def mirror_edge2(pos: torch.Tensor, dim: int) -> torch.Tensor:
@@ -71,21 +79,51 @@ def nv12_column(ncx: torch.Tensor, cx: torch.Tensor) -> torch.Tensor:
     return (ncx & ~1) + (cx & 1)
 
 
-def blend_weights(ts: torch.Tensor):
+def blend_fraction_bits(scale_shift: int) -> int:
+    """24 fraction bits for 8-bit samples, 16 for 16-bit ones, so the
+    weighted sum fits uint32 (ops/warp._blend_fix)."""
+    return 24 - (8 if scale_shift else 0)
+
+
+def blend_weights(ts: torch.Tensor, scale_shift: int = 0):
     """(w1, T) int64 per blend position: T = clip(round_half_even(t *
-    2^24), 0, 2^24) and w1 = 2^24 - T (ops/oracle.blend_weights)."""
-    one = 1 << BLEND_FRACTION_BITS
+    2^frac), 0, 2^frac) in float32 and w1 = 2^frac - T."""
+    one = 1 << blend_fraction_bits(scale_shift)
     T = torch.round(ts.to(torch.float32) * one).clamp(0, one).to(torch.int64)
     return one - T, T
 
 
 def blend_fix(s12: torch.Tensor, s21: torch.Tensor, w1: torch.Tensor,
-              T: torch.Tensor) -> torch.Tensor:
-    """(s12 * w1 + s21 * T) >> 24, exact in int64 (it fits uint32)."""
+              T: torch.Tensor, scale_shift: int = 0) -> torch.Tensor:
+    """(s12 * w1 + s21 * T) >> frac, exact in int64 (it fits uint32)."""
     return (s12.to(torch.int64) * w1 + s21.to(torch.int64) * T) \
-        >> BLEND_FRACTION_BITS
+        >> blend_fraction_bits(scale_shift)
 
 
-def levels_clip(b: torch.Tensor) -> torch.Tensor:
-    """The level mapping at the default black 0 / white 255: a clip."""
-    return b.clamp(0, 255)
+def level_ints(black: float, white: float):
+    """(k, w): the black and white levels rounded half to even in float32,
+    as ``jnp.round`` rounds the JAX engine's float32 level scalars (so
+    16.5 maps to 16 and 235.5 to 236)."""
+    return (int(np.rint(np.float32(black))),
+            int(np.rint(np.float32(white))))
+
+
+def levels_y(b: torch.Tensor, k: int, w: int, scale_shift: int = 0):
+    """Exact-integer luma level map (ops/warp._levels_y): floor(max((b -
+    (k << ss)) * 255, 0) / max(w - k, 1)), capped at 255 << ss.  At the
+    default levels (0, 255) it is the clip to the cap."""
+    d = max(w - k, 1)
+    n = ((b.to(torch.int64) - (k << scale_shift)) * 255).clamp(min=0)
+    return torch.div(n, d, rounding_mode="floor").clamp(
+        max=255 << scale_shift)
+
+
+def levels_uv(b: torch.Tensor, w: int, scale_shift: int = 0):
+    """Exact-integer chroma level map (ops/warp._levels_uv): with the
+    chroma mid m = 128 << ss, floor(max((b - m) * 255 + m * w, 0) /
+    max(w, 1)), capped at 255 << ss."""
+    w = max(w, 1)
+    m = 128 << scale_shift
+    n = ((b.to(torch.int64) - m) * 255 + m * w).clamp(min=0)
+    return torch.div(n, w, rounding_mode="floor").clamp(
+        max=255 << scale_shift)

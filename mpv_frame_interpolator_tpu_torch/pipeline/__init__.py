@@ -1,4 +1,3 @@
-"""Host pipeline of the port: the interpolation engine, scene-cut score and
-the source -> engine -> sink loop.  The cadence engine, the quality
-controller and the present clock are the JAX package's own host modules,
-imported as they are."""
+"""Host pipeline of the port: the interpolation engine, scene-cut score,
+output cadence, quality controller, present clock and the source ->
+engine -> sink loop."""

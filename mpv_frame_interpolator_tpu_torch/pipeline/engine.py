@@ -1,6 +1,6 @@
 """InterpolationEngine of the port (counterpart of the JAX package's
-``pipeline/engine.py``), for the main path only: 8-bit NV12, model
-``hopper``, blended output (mode 2), default levels.
+``pipeline/engine.py``): model ``hopper``, blended output (mode 2), 8-bit
+NV12 or 10-bit P010, any black/white levels.
 
 Per source pair, on the engine's device and without a host sync:
 
@@ -10,21 +10,33 @@ Per source pair, on the engine's device and without a host sync:
 3. the cut folded in on the device: where the score exceeds the
    threshold the flow is zeroed and the blend positions snap to the
    nearer source (``torch.where``, no host branch);
-4. every blend position of the pair in one call of the pair-blend kernel
-   (``ops/cuda/warp_pair.py``), luma and interleaved NV12 chroma.
+4. the blended outputs, luma and interleaved chroma: under
+   ``warp_sampling`` "pair" (the default), "shift" or "gather" every blend
+   position of the pair in one call of the pair-blend kernel
+   (``ops/cuda/warp_pair.py``); under "fused" one call of the fused kernel
+   (``ops/cuda/warp_fused.py``) per blend position.  In the JAX package
+   "pair", "shift" and "gather" are XLA or Pallas sampling strategies with
+   identical outputs, so here they share one kernel; "fused" has its own,
+   as the JAX package's has.  "pallas" (the JAX package's tiled sampler,
+   K5) is not ported yet.
 
-The host side -- output cadence (``CadenceEngine``) and the auto-quality
-controller (``QualityController``) -- is the JAX package's own code.  The
-duration the controller reads is the pair's calc time: CUDA events from
-before the pair's first launch is enqueued to after its last kernel
-completes, so it holds the host's enqueue time as well as the card's work
-(wall time on the CPU).  It is read back at the next push so that no push
+P010 frames run with scale_shift 8 (the JAX engine's ``_scale_shift``):
+the flow's SAD and the cut score are shifted back to the 8-bit scale, the
+blend keeps 16 fraction bits, and the outputs are uint16 capped at
+255 << 8.  Black/white levels are rounded half to even once, when the
+engine is made.
+
+The host side -- output cadence (``CadenceEngine``), the auto-quality
+controller (``QualityController``) and the stats -- are the port's copies
+of the JAX package's modules.  The duration the controller reads is the
+pair's calc time: CUDA events from before the pair's first launch is
+enqueued to after its last kernel completes, so it holds the host's
+enqueue time as well as the card's work (wall time on the CPU).  It is read back at the next push so that no push
 waits for its own pair.
 
-Not in this slice: degradation rungs (the controller runs with
-``max_level=0``), ``push_many``, split timing, background precompile and
-the compile cache.  A configuration the slice does not cover raises
-``NotImplementedError``.
+Not ported yet: degradation rungs, ``push_many``, split timing,
+background precompile and the compile cache.  A configuration the port
+does not cover raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,17 +48,20 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from mpv_frame_interpolator_tpu.frame import NV12, FrameFormat, VideoFrame
-from mpv_frame_interpolator_tpu.pipeline.cadence import (
-    CadenceEngine, InterpolationState)
-from mpv_frame_interpolator_tpu.pipeline.quality import QualityController
-from mpv_frame_interpolator_tpu.utils import StatsRegistry, get_logger
 from mpv_frame_interpolator_tpu_torch.convert import (
     DeviceFrame, frame_to_device)
+from mpv_frame_interpolator_tpu_torch.frame import (
+    NV12, FrameFormat, VideoFrame)
 from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
+from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_fused import fused_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_pair import pair_blend
 from mpv_frame_interpolator_tpu_torch.pipeline import scene as scene_mod
+from mpv_frame_interpolator_tpu_torch.pipeline.cadence import (
+    CadenceEngine, InterpolationState)
+from mpv_frame_interpolator_tpu_torch.pipeline.quality import (
+    QualityController)
+from mpv_frame_interpolator_tpu_torch.utils import StatsRegistry, get_logger
 
 log = get_logger("engine")
 
@@ -73,6 +88,9 @@ class EngineConfig:
     measure_timing: bool = True
     playback_speed: float = 1.0
     model: str = "hopper"
+    # "pair", "shift", "gather": every position of a pair in one K2 call;
+    # "fused": one K4 call per position; "pallas": not ported (K5)
+    warp_sampling: str = "pair"
     device: str = "cuda"
 
     def __post_init__(self):
@@ -92,6 +110,10 @@ class EngineConfig:
                 not 0 <= self.neighbor_bias_scalar <= 31:
             raise ValueError("delta and neighbour-bias scalars must be in "
                              "[0, 31]")
+        if self.warp_sampling not in ("shift", "gather", "pallas", "pair",
+                                      "fused"):
+            raise ValueError(
+                "warp_sampling must be shift|gather|pallas|pair|fused")
         if self.frame_output_mode != warp_ops.BLENDED_FRAME:
             raise NotImplementedError(
                 f"output mode {self.frame_output_mode}: the port covers "
@@ -99,9 +121,11 @@ class EngineConfig:
         if self.model != "hopper":
             raise NotImplementedError(
                 f"model {self.model!r}: the port covers 'hopper' only")
-        if round(self.black_level) != 0 or round(self.white_level) != 255:
+        if self.warp_sampling == "pallas":
             raise NotImplementedError(
-                "non-default black/white levels are not ported yet")
+                "warp_sampling 'pallas' runs the TPU's tiled sampler "
+                "(K5, ops/pallas/warp_sample.py), which is not ported yet; "
+                "'pair', 'shift', 'gather' and 'fused' are")
         if self.initial_search_radius > flow_ops.MAX_SEARCH_RADIUS:
             raise NotImplementedError(
                 f"search radius above {flow_ops.MAX_SEARCH_RADIUS} is not "
@@ -117,8 +141,9 @@ def _to_numpy(plane) -> np.ndarray:
 class OutputFrame:
     """A produced frame; planes may live on the device until materialized.
 
-    Warped outputs of one source pair share one batched tensor; `index`
-    selects this frame's slice lazily."""
+    Warped outputs of one source pair share one batched tensor (or, from
+    the fused kernel, one list of per-position planes); `index` selects
+    this frame's planes lazily."""
 
     __slots__ = ("pts", "fmt", "_y", "_uv", "_index")
 
@@ -132,8 +157,9 @@ class OutputFrame:
 
     def block(self):
         """Wait until the frame's planes are computed."""
-        if isinstance(self._uv, torch.Tensor) and self._uv.is_cuda:
-            torch.cuda.current_stream(self._uv.device).synchronize()
+        uv = self.device_planes()[1]
+        if isinstance(uv, torch.Tensor) and uv.is_cuda:
+            torch.cuda.current_stream(uv.device).synchronize()
         return self
 
     def device_planes(self):
@@ -148,28 +174,36 @@ class OutputFrame:
                           pts=self.pts)
 
 
-def _flow_stage(geom, scene_enabled: bool, f1: DeviceFrame,
-                f2: DeviceFrame, radius: int, ds: int, nbs: int):
+def _flow_stage(geom, scale_shift: int, scene_enabled: bool,
+                f1: DeviceFrame, f2: DeviceFrame, radius: int, ds: int,
+                nbs: int):
     """Scene score + hierarchical flow of one pair: (blurred flow,
     cut_score or None)."""
-    score = (scene_mod.cut_score(f1.y, f2.y, geom.res_scalar)
+    score = (scene_mod.cut_score(f1.y, f2.y, geom.res_scalar, scale_shift)
              if scene_enabled else None)
     _, blurred = flow_ops.flow(geom, f1.y, f1.u, f1.v, f2.y, f2.u, f2.v,
-                               radius, ds, nbs)
+                               radius, ds, nbs, scale_shift)
     return blurred, score
 
 
-def _warp_stage(geom, cut_policy: str, f1: DeviceFrame, f2: DeviceFrame,
-                blurred, cut, ts):
-    """Cut folding + every blend position of the pair: (y (N, H, Wa),
-    uv (N, H/2, Wa)).  `cut` is a 0-dim bool tensor or None."""
+def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
+                fused: bool, f1: DeviceFrame, f2: DeviceFrame, blurred,
+                cut, ts):
+    """Cut folding + every blend position of the pair: (y, uv), each
+    indexable by position -- (N, H, Wa) and (N, H/2, Wa) tensors from one
+    pair-blend call, or lists of N planes from N fused calls.  `cut` is a
+    0-dim bool tensor or None."""
     if cut is not None:
         blurred = blurred.masked_fill(cut, 0)
         ts_cut = ((ts >= 0.5).to(torch.float32) if cut_policy == "nearest"
                   else torch.zeros_like(ts))
         ts = torch.where(cut, ts_cut, ts)
-    return pair_blend(f1.y, f1.uv, f2.y, f2.uv, blurred, ts,
-                      geom.res_scalar, geom.actual_width)
+    args = (f1.y, f1.uv, f2.y, f2.uv, blurred)
+    rest = (geom.res_scalar, geom.actual_width, scale_shift, levels)
+    if not fused:
+        return pair_blend(*args, ts, *rest)
+    outs = [fused_blend(*args, ts[i], *rest) for i in range(ts.shape[0])]
+    return [y for y, _ in outs], [uv for _, uv in outs]
 
 
 class InterpolationEngine:
@@ -185,11 +219,13 @@ class InterpolationEngine:
         self.quality = QualityController(
             enabled=self.config.auto_quality,
             search_radius=self.config.initial_search_radius,
-            too_slow_patience=self.config.too_slow_patience,
-            max_level=0)
+            too_slow_patience=self.config.too_slow_patience)
         self.stats = StatsRegistry()
+        self.levels = warp_ops.level_ints(self.config.black_level,
+                                          self.config.white_level)
 
         self.geom: Optional[flow_ops.FlowGeometry] = None
+        self._scale_shift = 0
         self._fmt: Optional[FrameFormat] = None
         self._prev: Optional[DeviceFrame] = None
         self._cur: Optional[DeviceFrame] = None
@@ -225,19 +261,17 @@ class InterpolationEngine:
                 self._fmt.height, self._fmt.stride, self._fmt.width,
                 self._fmt.pixfmt):
             return
-        if fmt.pixfmt != NV12:
-            raise NotImplementedError(
-                f"pixel format {fmt.pixfmt!r}: the port covers 8-bit NV12 "
-                "only")
         self.geom = flow_ops.FlowGeometry.create(
             fmt.height, fmt.stride, fmt.width, self.config.max_calc_res,
             self.config.num_iterations)
+        self._scale_shift = 0 if fmt.pixfmt == NV12 else 8
         self._fmt = fmt
         self._prev = None
         self._cur = None
         self._warm = False
         self.cadence.reset()
-        log.info("flow geometry: %s (device %s)", self.geom, self.device)
+        log.info("flow geometry: %s (pixfmt=%s, device %s)", self.geom,
+                 fmt.pixfmt, self.device)
 
     def _ts_for(self, blends: tuple) -> torch.Tensor:
         """Device blend vector, cached by value: fixed-rate cadences
@@ -311,7 +345,7 @@ class InterpolationEngine:
         t0 = time.perf_counter()
 
         blurred, score = _flow_stage(
-            geom, self.config.scene_detection, f1, f2,
+            geom, self._scale_shift, self.config.scene_detection, f1, f2,
             self.quality.search_radius,
             self.config.delta_scalar, self.config.neighbor_bias_scalar)
         cut = None
@@ -319,8 +353,10 @@ class InterpolationEngine:
             cut = score > self.config.scene_threshold
             self._cuts = cut.to(torch.int32) if self._cuts is None \
                 else self._cuts + cut
-        y, uv = _warp_stage(geom, self.config.cut_policy, f1, f2, blurred,
-                            cut, ts)
+        y, uv = _warp_stage(geom, self._scale_shift, self.levels,
+                            self.config.cut_policy,
+                            self.config.warp_sampling == "fused", f1, f2,
+                            blurred, cut, ts)
 
         if not timed:
             self._last_calc_duration = 0.0

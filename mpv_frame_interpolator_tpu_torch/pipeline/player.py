@@ -11,10 +11,10 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
-from mpv_frame_interpolator_tpu.frame import VideoFrame
-from mpv_frame_interpolator_tpu.pipeline.present import PresentClock
+from mpv_frame_interpolator_tpu_torch.frame import VideoFrame
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     InterpolationEngine)
+from mpv_frame_interpolator_tpu_torch.pipeline.present import PresentClock
 
 
 class Pipeline:

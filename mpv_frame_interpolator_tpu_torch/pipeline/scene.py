@@ -12,13 +12,15 @@ from __future__ import annotations
 import torch
 
 
-def cut_score(y1: torch.Tensor, y2: torch.Tensor,
-              res_scalar: int) -> torch.Tensor:
-    """Mean |y1 - y2| over the stride-2**res_scalar subsample of two
-    (H, stride) uint8 luma planes, as a 0-dim float32 tensor on their
-    device (no host sync).
+def cut_score(y1: torch.Tensor, y2: torch.Tensor, res_scalar: int,
+              bit_shift: int = 0) -> torch.Tensor:
+    """Mean |y1 - y2| >> bit_shift over the stride-2**res_scalar
+    subsample of two (H, stride) luma planes (uint8 NV12, or uint16 P010
+    with bit_shift 8, so the score stays on the 8-bit scale), as a 0-dim
+    float32 tensor on their device (no host sync).
 
-    The sum is taken exactly in int64 and divided once in float32.  The
+    Each difference is shifted before the sum, as the JAX package does;
+    the sum is taken exactly in int64 and divided once in float32.  The
     JAX package reduces in float32 in XLA's order, so the two agree
     exactly while the sum stays below 2**24 and within an ulp or so
     above it; the cut decision is the same wherever the score is not
@@ -26,6 +28,6 @@ def cut_score(y1: torch.Tensor, y2: torch.Tensor,
     s = 1 << res_scalar
     a = y1[::s, ::s].to(torch.int32)
     b = y2[::s, ::s].to(torch.int32)
-    total = (a - b).abs_().sum(dtype=torch.int64)
+    total = ((a - b).abs_() >> bit_shift).sum(dtype=torch.int64)
     return total.to(torch.float32) / a.numel()
 

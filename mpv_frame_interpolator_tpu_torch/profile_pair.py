@@ -1,9 +1,11 @@
 """Device breakdown of the engine's source pairs on the card.
 
     python -m mpv_frame_interpolator_tpu_torch.profile_pair [--trace t.json]
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --p010 \
+        --warp-sampling fused --black-level 16 --white-level 235
 
 Stages a synthetic ``moving_box`` clip at the main path's shape (4K,
-24 -> 120 fps, radius 16) on the card, pushes WARM pairs through the
+24 -> 120 fps, radius 16; 8-bit NV12, or P010 with --p010) on the card, pushes WARM pairs through the
 engine, then pushes PAIRS more under ``torch.profiler`` with one
 synchronise at the end.  Prints the wall per pair, the card's own time
 per pair (the sum of every kernel's and memset's device time as CUPTI
@@ -48,6 +50,11 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--trace", default="",
                    help="write a Chrome trace of the profiled pairs here")
+    p.add_argument("--p010", action="store_true", help="10-bit frames")
+    p.add_argument("--warp-sampling", default="pair",
+                   choices=("pair", "fused"))
+    p.add_argument("--black-level", type=float, default=0.0)
+    p.add_argument("--white-level", type=float, default=255.0)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pair: CUDA is not available")
@@ -55,10 +62,13 @@ def main(argv=None) -> int:
 
     eng = InterpolationEngine(EngineConfig(
         display_fps=DISPLAY_FPS, auto_quality=False,
-        initial_search_radius=RADIUS, device="cuda"))
+        initial_search_radius=RADIUS, warp_sampling=args.warp_sampling,
+        black_level=args.black_level, white_level=args.white_level,
+        device="cuda"))
     src = cli.make_source(cli.build_parser().parse_args(
         ["synthetic:moving_box", "--width", str(WIDTH), "--height",
-         str(HEIGHT), "--fps", "24", "--frames", str(1 + WARM + PAIRS)]))[0]
+         str(HEIGHT), "--fps", "24", "--frames", str(1 + WARM + PAIRS)]
+        + (["--p010"] if args.p010 else [])))[0]
     staged = [eng.stage(f) for f in src]
     for f in staged[:1 + WARM]:
         eng.push(f)
@@ -80,8 +90,10 @@ def main(argv=None) -> int:
                          "activity")
     device_ms = sum(r[2] for r in rows) / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"{WIDTH}x{HEIGHT} -> {DISPLAY_FPS:g} fps, radius {RADIUS}: "
-          f"{PAIRS} pairs under the profiler")
+    print(f"{WIDTH}x{HEIGHT} {'P010' if args.p010 else 'NV12'} -> "
+          f"{DISPLAY_FPS:g} fps, radius {RADIUS}, warp_sampling "
+          f"{args.warp_sampling}, levels ({args.black_level:g}, "
+          f"{args.white_level:g}): {PAIRS} pairs under the profiler")
     print(f"wall {wall * 1e3:.3f} ms = {wall / PAIRS * 1e3:.3f} ms/pair")
     print(f"device {device_ms:.3f} ms = {device_ms / PAIRS:.3f} ms/pair; "
           f"busy share {device_ms / (wall * 1e3):.3f}")

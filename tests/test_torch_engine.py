@@ -34,7 +34,8 @@ def _same_outputs(ref_outs, port_outs):
     for r, p in zip(ref_outs, port_outs):
         assert p.pts == r.pts
         rf, pf = r.to_video_frame(), p.to_video_frame()
-        assert pf.fmt == rf.fmt
+        # each package has its own FrameFormat class: compare the fields
+        assert dataclasses.asdict(pf.fmt) == dataclasses.asdict(rf.fmt)
         np.testing.assert_array_equal(pf.y, rf.y)
         np.testing.assert_array_equal(pf.uv, rf.uv)
 
@@ -124,7 +125,7 @@ def test_cli_needs_cuda_for_cuda_device(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(frame_output_mode=0),
                                 dict(model="hopperq"),
-                                dict(black_level=16.0),
+                                dict(warp_sampling="pallas"),
                                 dict(initial_search_radius=24)])
 def test_uncovered_configurations_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -132,11 +133,20 @@ def test_uncovered_configurations_raise(kw):
 
 
 def test_p010_raises(small_cfg):
+    """P010 runs on every ported sampler; what still raises for it is the
+    one that is not ported (K5, warp_sampling "pallas"), and an unknown
+    sampler is refused outright."""
     cfg = dataclasses.replace(small_cfg, pixfmt="p010")
-    port = port_engine.InterpolationEngine(port_engine.EngineConfig(
-        device="cpu"))
-    with pytest.raises(NotImplementedError):
-        port.push(next(synthetic.moving_box(cfg, 1)))
+    for ws in ("pair", "fused"):
+        port = port_engine.InterpolationEngine(port_engine.EngineConfig(
+            device="cpu", warp_sampling=ws))
+        for frame in synthetic.moving_box(cfg, 2):
+            outs = port.push(frame)
+        assert outs and outs[0].to_video_frame().y.dtype == np.uint16
+    with pytest.raises(NotImplementedError, match="K5"):
+        port_engine.EngineConfig(device="cpu", warp_sampling="pallas")
+    with pytest.raises(ValueError):
+        port_engine.EngineConfig(device="cpu", warp_sampling="tiles")
 
 
 def test_engine_errors_propagate_through_the_pipeline(small_cfg):

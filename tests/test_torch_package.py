@@ -1,8 +1,10 @@
 """Package-level properties of the port: it never imports jax (or triton)
-and touches no CUDA state on its CPU path, its kernels build from its own
-sources for sm_90a, its wrappers never fall back to the plain version for
-a tensor that is not on the CPU, and what carries across from the JAX
-package (config, geometry, frames) carries across unchanged."""
+and touches no CUDA state on its CPU path, it imports nothing of the JAX
+package (its host modules are its own copies, each held here against its
+original), its kernels build from its own sources for sm_90a, its
+wrappers never fall back to the plain version for a tensor that is not on
+the CPU, and what carries across from the JAX package (config, geometry,
+frames) carries across unchanged."""
 
 import ast
 import dataclasses
@@ -16,16 +18,28 @@ import numpy as np
 import pytest
 import torch
 
+from mpv_frame_interpolator_tpu import frame as jax_frame
 from mpv_frame_interpolator_tpu.io import synthetic
+from mpv_frame_interpolator_tpu.io import y4m as jax_y4m
 from mpv_frame_interpolator_tpu.ops import flow as jax_flow
+from mpv_frame_interpolator_tpu.pipeline import cadence as jax_cadence
 from mpv_frame_interpolator_tpu.pipeline import engine as jax_engine
+from mpv_frame_interpolator_tpu.pipeline import present as jax_present
+from mpv_frame_interpolator_tpu.pipeline import quality as jax_quality
 from mpv_frame_interpolator_tpu_torch import convert
+from mpv_frame_interpolator_tpu_torch import frame as port_frame
+from mpv_frame_interpolator_tpu_torch.io import synthetic as port_synthetic
+from mpv_frame_interpolator_tpu_torch.io import y4m as port_y4m
 from mpv_frame_interpolator_tpu_torch.ops import flow as port_flow
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+from mpv_frame_interpolator_tpu_torch.pipeline import cadence as port_cadence
 from mpv_frame_interpolator_tpu_torch.pipeline import engine as port_engine
+from mpv_frame_interpolator_tpu_torch.pipeline import present as port_present
+from mpv_frame_interpolator_tpu_torch.pipeline import quality as port_quality
 
 torch.set_num_threads(1)
 
@@ -120,14 +134,24 @@ def test_chip_smoke_counts_y4m_frames(tmp_path):
 
 
 def test_nvcc_command_line():
-    cmd = _build.nvcc_command("nvcc", Path("/tmp/lib.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "--fmad=false" in cmd and "-shared" in cmd
-    sources = [Path(a) for a in cmd if a.endswith(".cu")]
-    assert sources and all(s.parent == _build.CSRC_DIR for s in sources)
+    compiles, link = _build.nvcc_commands("nvcc", Path("/tmp/lib.so"),
+                                          Path("/tmp/obj"))
+    sources = []
+    for cmd in compiles:      # one nvcc process per source
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "--fmad=false" in cmd and "-c" in cmd
+        sources += [Path(a) for a in cmd if a.endswith(".cu")]
+    assert len(sources) == len(compiles)
+    assert all(s.parent == _build.CSRC_DIR for s in sources)
     assert sorted(s.name for s in sources) == sorted(
         p.name for p in _build.CSRC_DIR.glob("*.cu"))
     assert all(s.exists() for s in sources)
+    assert "-shared" in link and link[link.index("-o") + 1] == "/tmp/lib.so"
+    assert sorted(a for a in link if a.endswith(".o")) == sorted(
+        c[c.index("-o") + 1] for c in compiles)
+    # the headers the sources include are part of the build's key
+    assert sorted(_build.HEADERS) == sorted(
+        p.name for p in _build.CSRC_DIR.glob("*.cuh"))
 
 
 def test_build_directory_is_keyed_by_the_sources():
@@ -137,7 +161,8 @@ def test_build_directory_is_keyed_by_the_sources():
     assert d == _build.build_dir()
 
 
-@pytest.mark.parametrize("call", ["flow_step", "blur_flow", "pair_blend"])
+@pytest.mark.parametrize("call", ["flow_step", "blur_flow", "pair_blend",
+                                  "fused_blend"])
 def test_no_fallback_off_the_cpu(call):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper's checks reject it (here a meta tensor; a CUDA tensor goes on
@@ -154,11 +179,14 @@ def test_no_fallback_off_the_cpu(call):
         counts, fn = KB.counts, KB.blur_flow
         args = (torch.empty((2, 6, 8), dtype=torch.int32, **meta),)
     else:
-        counts, fn = KW.counts, KW.pair_blend
-        u8 = lambda *s: torch.empty(s, dtype=torch.uint8, **meta)  # noqa
-        args = (u8(48, 64), u8(24, 64), u8(48, 64), u8(24, 64),
+        counts, fn = ((KW.counts, KW.pair_blend) if call == "pair_blend"
+                      else (KF.counts, KF.fused_blend))
+        u16 = lambda *s: torch.empty(s, dtype=torch.uint16, **meta)  # noqa
+        args = (u16(48, 64), u16(24, 64), u16(48, 64), u16(24, 64),
                 torch.empty((2, 48, 64), dtype=torch.int32, **meta),
-                torch.empty((2,), dtype=torch.float32, **meta), 0, 64)
+                torch.empty((2 if call == "pair_blend" else 1,),
+                            dtype=torch.float32, **meta), 0, 64, 8,
+                (16, 235))
     before = (counts.kernel, counts.plain)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(*args)
@@ -188,7 +216,7 @@ def test_engine_config_from_jax_round_trip():
 @pytest.mark.parametrize("kw,err", [
     (dict(frame_output_mode=0), NotImplementedError),
     (dict(model="hopperx"), NotImplementedError),
-    (dict(white_level=200.0), NotImplementedError),
+    (dict(warp_sampling="pallas"), NotImplementedError),
     (dict(subpel_flow=True), NotImplementedError),
     (dict(split_timing="always"), NotImplementedError),
     (dict(degrade_rungs=()), NotImplementedError)])
@@ -243,3 +271,202 @@ def test_engine_stage_and_push_accept_staged_frames(small_cfg):
     outs = [o for f in frames for o in eng.push(eng.stage(f))]
     assert len(outs) == 1 + 3 + 2
     assert eng.stats.summary()["source_frame_time"]["count"] == 1
+
+
+# --- the port stands on its own -------------------------------------------
+
+OLD = "mpv_frame_interpolator_tpu"
+
+
+def _old_package_imports(path: Path):
+    """Every import in `path` of the JAX package or a module of it (the
+    port's own package, whose name only starts the same, does not
+    count)."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        found += [n for n in names if n == OLD or n.startswith(OLD + ".")]
+    return found
+
+
+def test_the_port_imports_nothing_of_the_jax_package():
+    files = sorted((REPO / "mpv_frame_interpolator_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = {str(f.relative_to(REPO)): _old_package_imports(f) for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_the_import_check_sees_old_package_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import mpv_frame_interpolator_tpu_torch.cli\n"
+                     "from mpv_frame_interpolator_tpu_torch import frame\n"
+                     "from mpv_frame_interpolator_tpu.frame import NV12\n"
+                     "import mpv_frame_interpolator_tpu\n"
+                     "from . import sibling\n")
+    assert _old_package_imports(probe) == [
+        "mpv_frame_interpolator_tpu.frame", "mpv_frame_interpolator_tpu"]
+
+
+_BLOCKED = r"""
+import sys
+sys.modules["mpv_frame_interpolator_tpu"] = None
+import mpv_frame_interpolator_tpu_torch.cli
+import mpv_frame_interpolator_tpu_torch.pipeline.engine
+import mpv_frame_interpolator_tpu_torch.io.sinks
+print("STANDS")
+"""
+
+
+def test_the_port_imports_with_the_jax_package_blocked():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("STANDS")
+
+
+# --- each copied host module against its original --------------------------
+
+# (display fps, source pts sequence, nominal fps): fixed rates, an
+# irregular pts run that trips the drift re-anchor, and a variable rate
+_PTS_CASES = [
+    (60.0, [i / 24 for i in range(40)], 24.0),
+    (120.0, [i / 24 for i in range(40)], 24.0),
+    (60.0, [0.0, 0.04, 0.09, 0.125, 0.3, 0.33, 0.37, 0.41, 0.9, 0.95], 24.0),
+    (120.0, list(np.cumsum(np.random.default_rng(3).uniform(0.02, 0.06,
+                                                            50))), 0.0),
+]
+
+
+@pytest.mark.parametrize("display,pts,nominal", _PTS_CASES)
+def test_cadence_copy_plans_as_the_original(display, pts, nominal):
+    ref = jax_cadence.CadenceEngine(display)
+    port = port_cadence.CadenceEngine(display)
+    for i, t in enumerate(pts):
+        if i == len(pts) // 2:
+            for c in (ref, port):
+                c.set_speed(1.25)
+        a = ref.on_source_frame(float(t), nominal)
+        b = port.on_source_frame(float(t), nominal)
+        assert (a.passthrough, a.compute_flow, a.inconsistent_detected) == \
+            (b.passthrough, b.compute_flow, b.inconsistent_detected)
+        assert [(o.pts, o.blend, o.is_source_slot) for o in a.outputs] == \
+            [(o.pts, o.blend, o.is_source_slot) for o in b.outputs]
+        assert ref.state.name == port.state.name
+
+
+def test_quality_copy_decides_as_the_original():
+    rng = np.random.default_rng(7)
+    durations = list(rng.uniform(0.0, 0.05, 200)) + [0.04] * 20 + [0.0] * 3
+    for patience in (1, 3):
+        cad = [jax_cadence.CadenceEngine(60.0),
+               port_cadence.CadenceEngine(60.0)]
+        for c in cad:
+            c.on_source_frame(0.0, 24.0)
+        ref = jax_quality.QualityController(search_radius=9,
+                                            too_slow_patience=patience)
+        port = port_quality.QualityController(search_radius=9,
+                                              too_slow_patience=patience)
+        for d in durations:
+            ref.update(d, cad[0])
+            port.update(d, cad[1])
+            assert ref.search_radius == port.search_radius
+            assert cad[0].state.name == cad[1].state.name
+
+
+def test_present_copy_paces_as_the_original():
+    clocks = [jax_present.PresentClock(60.0, untimed=True),
+              port_present.PresentClock(60.0, untimed=True)]
+    for pts in np.arange(0, 2, 1 / 24):
+        a, b = (c.present(float(pts)) for c in clocks)
+        assert dataclasses.astuple(a)[:2] == dataclasses.astuple(b)[:2]
+
+
+_CLIPS = ["moving_box", "gradient_pan", "noise", "scene_cut",
+          "random_frames"]
+
+
+@pytest.mark.parametrize("pixfmt", ["nv12", "p010"])
+@pytest.mark.parametrize("clip", _CLIPS)
+def test_synthetic_copy_makes_the_original_frames(clip, pixfmt):
+    kw = dict(width=64, height=48, fps=24.0, pixfmt=pixfmt, stride=80)
+    ref = getattr(synthetic, clip)(synthetic.SyntheticConfig(**kw), 7)
+    port = getattr(port_synthetic, clip)(
+        port_synthetic.SyntheticConfig(**kw), 7)
+    n = 0
+    for a, b in zip(ref, port):
+        assert dataclasses.asdict(a.fmt) == dataclasses.asdict(b.fmt)
+        assert (a.pts, a.nominal_fps) == (b.pts, b.nominal_fps)
+        assert a.y.dtype == b.y.dtype == (np.uint16 if pixfmt == "p010"
+                                           else np.uint8)
+        np.testing.assert_array_equal(a.y, b.y)
+        np.testing.assert_array_equal(a.uv, b.uv)
+        n += 1
+    assert n == 7
+
+
+def _frames_of(pixfmt):
+    cfg = port_synthetic.SyntheticConfig(width=64, height=48, fps=24.0,
+                                         pixfmt=pixfmt)
+    return list(port_synthetic.gradient_pan(cfg, 3))
+
+
+@pytest.mark.parametrize("pixfmt,fps", [("nv12", 60.0), ("p010", 23.976),
+                                        ("p010", 59.94)])
+def test_y4m_writer_copy_writes_the_original_bytes(tmp_path, pixfmt, fps):
+    frames = _frames_of(pixfmt)
+    out = []
+    for mod, fmt_mod in ((jax_y4m, jax_frame), (port_y4m, port_frame)):
+        path = tmp_path / f"{mod.__name__}.y4m"
+        with open(path, "wb") as fh:
+            w = mod.Y4MWriter(fh, 64, 48, fps, pixfmt)
+            for f in frames:
+                w.write(fmt_mod.VideoFrame(f.y, f.uv, fmt_mod.FrameFormat(
+                    64, 48, pixfmt), pts=f.pts))
+            w.close()
+        out.append(path.read_bytes())
+    assert out[0] == out[1]
+    assert out[1].count(b"FRAME\n") == 3
+
+
+@pytest.mark.parametrize("pixfmt", ["nv12", "p010"])
+def test_y4m_reader_copy_round_trip(tmp_path, pixfmt):
+    frames = _frames_of(pixfmt)
+    path = tmp_path / "clip.y4m"
+    with open(path, "wb") as fh:
+        w = port_y4m.Y4MWriter(fh, 64, 48, 24.0, pixfmt)
+        for f in frames:
+            w.write(f)
+        w.close()
+    with open(path, "rb") as fh:
+        port = list(port_y4m.Y4MReader(fh))
+    with open(path, "rb") as fh:
+        ref = list(jax_y4m.Y4MReader(fh))
+    assert len(port) == len(ref) == 3
+    for f, p, r in zip(frames, port, ref):
+        assert p.fmt.pixfmt == pixfmt and (p.pts, p.nominal_fps) == (
+            r.pts, r.nominal_fps)
+        # P010 keeps the top 10 bits through y4m's 10-bit samples
+        keep = 0xFFC0 if pixfmt == "p010" else 0xFF
+        np.testing.assert_array_equal(p.y, f.y & keep)
+        np.testing.assert_array_equal(p.uv, f.uv & keep)
+        np.testing.assert_array_equal(p.y, r.y)
+        np.testing.assert_array_equal(p.uv, r.uv)
+
+
+def test_y4m_reader_copy_rejects_what_the_original_rejects():
+    import io
+    for header in (b"YUV4MPEG2 W0 H48 F24:1\n", b"NOTY4M\n",
+                   b"YUV4MPEG2 W64 H48 F24:1 C444\n"):
+        for mod in (jax_y4m, port_y4m):
+            with pytest.raises(ValueError):
+                mod.Y4MReader(io.BytesIO(header))
