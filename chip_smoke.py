@@ -14,11 +14,18 @@ Phases (any failure raises and exits non-zero):
    with the median times of both (CUDA events) -- K1, K2, K3 at 8 bits;
    K1 on uint16 planes with luma_shift 8; K2 with scale_shift 8 and
    levels (16, 235); K4 at 8 bits and at P010, default and non-default
-   levels, t in {0, 0.4, 1};
+   levels, t in {0, 0.4, 1}; K5 at 8 bits and at P010 (65535 samples
+   pass through uncapped), both directions, t in {0, 0.4, 1};
+3b. the toolchain probes through their entry points: P1 (packed bytes)
+   every probe OK, P2 (asynchronous copies) its matrix printed, the
+   aligned control OK under cp.async and TMA and every case that is not
+   REJECTED OK;
 4. the engine on the card against the engine on the CPU (the plain
    versions) on small clips at radius 5 and 16, scene cuts among them:
    8-bit NV12 under the "pair" sampler, and P010 with levels (16.5, 235)
-   under "pair" and "fused": every output frame and pts equal;
+   under "pair" and "fused"; modes 0, 1 and 4 and mode 2 under "pallas"
+   at NV12 and P010: every output frame and pts equal; mode 3 (hsv,
+   float colour math) within the JAX package's tolerance;
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
    the launch counters of K1, K2 and K3 must move during that run and no
@@ -28,7 +35,12 @@ Phases (any failure raises and exits non-zero):
 6. the P010 path end to end through the CLI at the same shape with
    ``--p010 --warp-sampling fused --black-level 16 --white-level 235``:
    the counters of K1, K3 and K4 must move, K2's must not (the fused
-   sampler replaces it) and no plain version's may.
+   sampler replaces it) and no plain version's may;
+7. output mode 0 (``--mode warp12``) through the CLI at the same shape:
+   K1, K3 and K5 must move, K2 and K4 must not, no plain version may;
+   then the engine's rate in that mode with frames staged on the card;
+8. ``--warp-sampling pallas`` (blended) through the CLI at 4K: K5
+   launches exactly twice per interpolated output, K2 and K4 never.
 
 Each path's counters are set to 0 just before it runs and read just
 after.  The port against the NumPy oracle on the card is a test:
@@ -93,12 +105,31 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn) -> float:
+    """The card's own time of one call of fn: the device rows (kernels,
+    memsets, copies) of a torch.profiler trace, as profile_pair counts
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(self_device_us(e) for e in prof.key_averages()) / 1e3
+
+
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by) for work that moves `nbytes` and does `ops`."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def _device(r) -> str:
+    return f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
 
 
 def max_abs_err(a, b) -> int:
@@ -200,6 +231,7 @@ def phase_kernels(dev):
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
 
     rng = np.random.default_rng(SEED)
     geom = F.FlowGeometry.create(H4K, W4K, W4K)
@@ -282,17 +314,123 @@ def phase_kernels(dev):
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
+    # K5: one direction at one position, 8-bit and P010, both directions;
+    # P010 rows of 65535 pass through uncapped
+    for dt in (np.uint8, np.uint16):
+        for plane in (frames[dt][0][0], frames[dt][1][0]):
+            host = plane.cpu().numpy()      # CUDA does not fill uint16
+            host[:4] = np.iinfo(dt).max
+            plane.copy_(torch.from_numpy(host))
+    k5 = {}
+    err = 0
+    for dt in (np.uint8, np.uint16):
+        for direction in (12, 21):
+            for t in (0.0, 0.4, 1.0):
+                tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                args = (*warp_args(dt), tt, direction, rs, geom.actual_width)
+                got = KD.sample_dir(*args)
+                e = max_err(got, KD.sample_dir_plain(*args))
+                top = int(got[0].to(torch.int32).max())
+                log(f"  K5 {W4K}x{H4K} {np.dtype(dt).name} direction="
+                    f"{direction} t={t}: max_abs_err={e}, max sample {top}")
+                check(top == np.iinfo(dt).max,
+                      f"K5 {np.dtype(dt).name}: the top sample came out "
+                      f"as {top}")
+                err = max(err, e)
+                if t == 0.4 and direction == 12:
+                    item = np.dtype(dt).itemsize
+                    out = (H4K + H4K // 2) * W4K
+                    k5[item] = dict(
+                        device_ms=device_ms(lambda: KD.sample_dir(*args)),
+                        ms=cuda_ms(lambda: KD.sample_dir(*args), 20),
+                        plain_ms=cuda_ms(lambda: KD.sample_dir_plain(*args),
+                                         5),
+                        # one plane pair written, as many source samples
+                        # read, the flow read once; ~15 scalar operations
+                        # per sample (two products, two roundings, two
+                        # mirrors, the flow and source addresses)
+                        bound=bound(2 * out * item + blurred.numel() * 4,
+                                    15 * out))
+    results["sample_dir"] = dict(k5[1], max_abs_err=err, p010=k5[2])
+
     for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
-            f"max_abs_err {r['max_abs_err']}")
+        log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}), max_abs_err {r['max_abs_err']}")
         if "p010" in r:
             q = r["p010"]
-            log(f"  {name} P010: kernel {q['ms']:.4f} ms, plain "
+            log(f"  {name} P010: kernel {q['ms']:.4f} ms{_device(q)}, plain "
                 f"{q['plain_ms']:.4f} ms, bound {q['bound'][0]:.4f} ms "
                 f"({q['bound'][1]})")
         check(r["max_abs_err"] == 0, f"{name} disagrees with its plain "
               f"version (max_abs_err {r['max_abs_err']})")
+    return results
+
+
+def phase_probes(dev):
+    """Phase 3b: P1 and P2 through their entry points (their counters set
+    to 0 just before and read just after), then each timed against its
+    plain version on the same card inputs."""
+    from mpv_frame_interpolator_tpu_torch.tools import dma_probe as DP
+    from mpv_frame_interpolator_tpu_torch.tools import pack_probe as PP
+    results = {}
+    for name, mod in (("pack_probe", PP), ("dma_probe", DP)):
+        log(f"  python -m mpv_frame_interpolator_tpu_torch.tools.{name}:")
+        mod.counts.reset()
+        rc = mod.main([])
+        launches, plain = mod.counts.kernel, mod.counts.plain
+        check(rc == 0, f"{name} failed (exit code {rc})")
+        check(launches > 0 and plain == 0,
+              f"{name}: {launches} launches, {plain} plain calls")
+        results[name] = dict(launches=launches)
+
+    x = PP.make_inputs(0, dev)
+    got = PP.run_all(x)
+    want = [PP.plain(p, m, x) for p, _, m in PP.PROBES]
+    # every input read once, every output written once
+    nbytes = sum(t.numel() for t in x.values()) + sum(
+        t.numel() * t.element_size() for t in got)
+    results["pack_probe"].update(
+        max_abs_err=max_err(got, want),
+        device_ms=device_ms(lambda: PP.run_all(x)),
+        ms=cuda_ms(lambda: PP.run_all(x), 20),
+        plain_ms=cuda_ms(lambda: [PP.plain(p, m, x)
+                                  for p, _, m in PP.PROBES], 20),
+        bound=bound(nbytes, 0))
+
+    # the cases that run in this process and are OK, each through its
+    # mechanism
+    runs = []
+    for case in DP.CASES:
+        for mech in DP.MECHANISMS:
+            if not DP.in_child(mech, case[0], case[2]) \
+                    and DP.run_case(mech, *case, dev) == "OK":
+                runs.append((DP.cp_async_window if mech == "cp.async"
+                             else DP.tma_window,
+                             DP.source(case[0], dev), *case[1:]))
+    got = [fn(src, *w) for fn, src, *w in runs]
+    want = [DP.window_plain(src, *w) for _, src, *w in runs]
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in got)
+    results["dma_probe"].update(
+        max_abs_err=max_err(got, want),
+        device_ms=device_ms(lambda: [fn(src, *w) for fn, src, *w in runs]),
+        ms=cuda_ms(lambda: [fn(src, *w) for fn, src, *w in runs], 20),
+        plain_ms=cuda_ms(lambda: [DP.window_plain(src, *w)
+                                  for _, src, *w in runs], 20),
+        # one PyTorch call a case computes the same function: the slice
+        # copy (which is also the plain version)
+        library_ms=cuda_ms(lambda: [src[dy:dy + r, dx:dx + c].clone()
+                                    for _, src, dy, dx, r, c in runs], 20),
+        bound=bound(nbytes, 0))
+    for name, r in results.items():
+        log(f"  {name}: kernels {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
+            f"ms), plain {r['plain_ms']:.4f} ms, "
+            + (f"library {r['library_ms']:.4f} ms, " if "library_ms" in r
+               else "")
+            + f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"max_abs_err {r['max_abs_err']}, launches {r['launches']}")
+        check(r["max_abs_err"] == 0, f"{name} disagrees with its plain "
+              "version")
     return results
 
 
@@ -307,6 +445,17 @@ def synthetic_frames(name: str, width: int, height: int, frames: int,
     return list(cli.make_source(args)[0])
 
 
+def same_frame(a, b) -> bool:
+    return np.array_equal(a.y, b.y) and np.array_equal(a.uv, b.uv)
+
+
+def near_frame(a, b) -> bool:
+    """Mode 3's tolerance, the JAX package's own for its float colour
+    math: under 0.5% of the samples of each plane differ by more than 2."""
+    return all(np.mean(np.abs(p.astype(int) - q.astype(int)) > 2) < 0.005
+               for p, q in ((a.y, b.y), (a.uv, b.uv)))
+
+
 def phase_reference(dev):
     """Phase 4: the engine on the card against the engine on the CPU (the
     plain versions, which the CPU tests hold bit-exact against the JAX
@@ -314,35 +463,47 @@ def phase_reference(dev):
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
         EngineConfig, InterpolationEngine)
 
-    # (clip, width, height, radius, display fps, P010, sampler, levels):
-    # res scalars 0 and 1, a width that is not a multiple of a warp, scene
-    # cuts, 8-bit and P010, both samplers, levels that round half to even
+    # (clip, width, height, radius, display fps, P010, sampler, levels,
+    # output mode): res scalars 0 and 1, a width that is not a multiple of
+    # a warp, scene cuts, 8-bit and P010, every sampler, levels that round
+    # half to even, modes 0-4
     tv = (16.5, 235.0)
-    for name, w, h, radius, display, p010, sampling, levels in [
-            ("gradient_pan", 320, 180, 5, 120.0, False, "pair", (0, 255)),
-            ("moving_box", 640, 360, 16, 120.0, False, "pair", (0, 255)),
-            ("moving_box", 202, 118, 16, 60.0, False, "pair", (0, 255)),
-            ("scene_cut", 320, 180, 16, 60.0, False, "pair", (0, 255)),
-            ("moving_box", 202, 118, 16, 120.0, True, "fused", tv),
-            ("scene_cut", 320, 180, 16, 60.0, True, "pair", tv),
-            ("scene_cut", 320, 180, 16, 60.0, True, "fused", tv)]:
+    dl = (0, 255)
+    for name, w, h, radius, display, p010, sampling, levels, mode in [
+            ("gradient_pan", 320, 180, 5, 120.0, False, "pair", dl, 2),
+            ("moving_box", 640, 360, 16, 120.0, False, "pair", dl, 2),
+            ("moving_box", 202, 118, 16, 60.0, False, "pair", dl, 2),
+            ("scene_cut", 320, 180, 16, 60.0, False, "pair", dl, 2),
+            ("moving_box", 202, 118, 16, 120.0, True, "fused", tv, 2),
+            ("scene_cut", 320, 180, 16, 60.0, True, "pair", tv, 2),
+            ("scene_cut", 320, 180, 16, 60.0, True, "fused", tv, 2),
+            ("moving_box", 202, 118, 16, 120.0, False, "pair", dl, 0),
+            ("scene_cut", 320, 180, 16, 60.0, True, "pallas", tv, 0),
+            ("scene_cut", 320, 180, 16, 60.0, False, "pallas", dl, 1),
+            ("moving_box", 202, 118, 16, 120.0, True, "pair", tv, 1),
+            ("scene_cut", 320, 180, 16, 60.0, False, "pair", tv, 4),
+            ("moving_box", 202, 118, 16, 120.0, True, "pallas", dl, 4),
+            ("scene_cut", 320, 180, 16, 60.0, False, "pallas", tv, 2),
+            ("moving_box", 202, 118, 16, 120.0, True, "pallas", tv, 2),
+            ("gradient_pan", 320, 180, 5, 60.0, False, "pair", dl, 3),
+            ("scene_cut", 320, 180, 16, 60.0, True, "pallas", tv, 3)]:
         t0 = time.perf_counter()
         engines = [InterpolationEngine(EngineConfig(
-            display_fps=display, auto_quality=False,
+            display_fps=display, frame_output_mode=mode, auto_quality=False,
             initial_search_radius=radius, warp_sampling=sampling,
             black_level=levels[0], white_level=levels[1], device=d))
             for d in ("cpu", str(dev))]
         n = 0
-        what = (f"{name} {w}x{h} {'P010' if p010 else 'NV12'} {sampling} "
-                f"levels {levels} radius {radius}")
+        what = (f"mode {mode} {name} {w}x{h} {'P010' if p010 else 'NV12'} "
+                f"{sampling} levels {levels} radius {radius}")
         for frame in synthetic_frames(name, w, h, 7, p010):
             outs = [e.push(frame) for e in engines]
             check(len(outs[0]) == len(outs[1]),
                   f"{what}: output counts differ on the card and the CPU")
             for a, b in zip(*outs):
                 fa, fb = a.to_video_frame(), b.to_video_frame()
-                check(a.pts == b.pts and np.array_equal(fa.y, fb.y)
-                      and np.array_equal(fa.uv, fb.uv),
+                same = same_frame if mode != 3 else near_frame
+                check(a.pts == b.pts and same(fa, fb),
                       f"{what}: output at pts {a.pts} differs between the "
                       "card and the CPU")
                 check(fb.y.shape == (h, w) and fb.uv.shape == (h // 2, w),
@@ -387,8 +548,10 @@ def kernel_counts():
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
     return {"flow_step": KS.counts, "blur_flow": KB.counts,
-            "pair_blend": KW.counts, "fused_blend": KF.counts}
+            "pair_blend": KW.counts, "fused_blend": KF.counts,
+            "sample_dir": KD.counts}
 
 
 def run_cli(dev, frames: int, extra):
@@ -447,7 +610,8 @@ def phase_main_path(dev):
     on_path = ("flow_step", "blur_flow", "pair_blend")
     check(all(launches[k] > 0 for k in on_path),
           f"a kernel of the main path never launched: {launches}")
-    check(launches["fused_blend"] == 0, "K4 ran on the pair sampler's path")
+    check(launches["fused_blend"] == 0 and launches["sample_dir"] == 0,
+          f"K4 or K5 ran on the pair sampler's path: {launches}")
     return launches
 
 
@@ -459,19 +623,48 @@ def phase_p010_path(dev):
     on_path = ("flow_step", "blur_flow", "fused_blend")
     check(all(launches[k] > 0 for k in on_path),
           f"a kernel of the P010 fused path never launched: {launches}")
-    check(launches["pair_blend"] == 0,
-          f"K2 ran on the fused sampler's path: {launches}")
+    check(launches["pair_blend"] == 0 and launches["sample_dir"] == 0,
+          f"K2 or K5 ran on the fused sampler's path: {launches}")
     return launches
 
 
-def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair"):
+def phase_warp12_path(dev):
+    """Phase 7: output mode 0 (warp12), CLI at 4K 24 -> 120, radius 16."""
+    launches = run_cli(dev, 6, ["--mode", "warp12"])
+    on_path = ("flow_step", "blur_flow", "sample_dir")
+    check(all(launches[k] > 0 for k in on_path),
+          f"a kernel of the warp12 path never launched: {launches}")
+    check(launches["pair_blend"] == 0 and launches["fused_blend"] == 0,
+          f"K2 or K4 ran on the warp12 path: {launches}")
+    check(launches["sample_dir"] == 5 * (6 - 1),
+          f"K5 launched {launches['sample_dir']} times for 25 outputs")
+    return launches
+
+
+def phase_pallas_path(dev):
+    """Phase 8: mode 2 under the "pallas" sampler, CLI at 4K."""
+    frames = 4
+    launches = run_cli(dev, frames, ["--warp-sampling", "pallas"])
+    outputs = 5 * (frames - 1)
+    check(launches["sample_dir"] == 2 * outputs,
+          f"K5 launched {launches['sample_dir']} times for {outputs} "
+          "blended outputs, not twice each")
+    check(launches["pair_blend"] == 0 and launches["fused_blend"] == 0
+          and launches["flow_step"] > 0 and launches["blur_flow"] > 0,
+          f"the pallas path's launches: {launches}")
+    return launches
+
+
+def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
+                      mode: int = 2):
     """Steady-state engine throughput at 4K 24 -> 120, radius 16, frames
     pre-staged on the card, each pair synchronised (no sink)."""
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
         EngineConfig, InterpolationEngine)
     levels = (16, 235) if p010 else (0, 255)
     eng = InterpolationEngine(EngineConfig(
-        display_fps=120.0, auto_quality=False, initial_search_radius=16,
+        display_fps=120.0, frame_output_mode=mode, auto_quality=False,
+        initial_search_radius=16,
         warp_sampling=sampling, black_level=levels[0],
         white_level=levels[1], device=str(dev)))
     staged = [eng.stage(f)
@@ -486,7 +679,8 @@ def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair"):
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     pairs = len(staged) - 3
-    log(f"  engine {'P010' if p010 else 'NV12'} {sampling} levels "
+    log(f"  engine mode {mode} {'P010' if p010 else 'NV12'} {sampling} "
+        f"levels "
         f"{levels}: {pairs} pairs, {n} outputs in {dt * 1e3:.1f} ms = "
         f"{dt / pairs * 1e3:.3f} ms/pair wall, {n / dt:.1f} out-fps")
 
@@ -516,6 +710,8 @@ def main() -> int:
 
     log("phase 3: kernels vs plain versions at 4K shapes")
     results = phase_kernels(dev)
+    log("phase 3b: toolchain probes P1 and P2")
+    probes = phase_probes(dev)
     log("phase 4: engine on the card vs engine on the CPU, small clips")
     phase_reference(dev)
     log("phase 5: main path end to end (cli, 4K 24->120, radius 16)")
@@ -525,33 +721,57 @@ def main() -> int:
         "levels 16/235)")
     p010_launches = phase_p010_path(dev)
     phase_engine_rate(dev, p010=True, sampling="fused")
+    log("phase 7: output mode 0 end to end (cli --mode warp12, 4K 24->120, "
+        "radius 16)")
+    warp12_launches = phase_warp12_path(dev)
+    phase_engine_rate(dev, mode=0)
+    log("phase 8: blended output on the pallas sampler (cli "
+        "--warp-sampling pallas, 4K 24->120, radius 16)")
+    pallas_launches = phase_pallas_path(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
-    # main path, K4 on the P010 fused path
-    sources = {"flow_step": ("flow_step.cu", "flow_step.py:350",
+    # main path, K4 on the P010 fused path, K5 on the warp12 path, the
+    # probes through their own entry points
+    pallas = "mpv_frame_interpolator_tpu/ops/pallas/"
+    results.update(probes)
+    sources = {"flow_step": ("flow_step.cu", pallas + "flow_step.py:350",
                              main_launches),
-               "blur_flow": ("blur.cu", "blur.py:41", main_launches),
-               "pair_blend": ("warp_pair.cu", "warp_pair.py:189",
+               "blur_flow": ("blur.cu", pallas + "blur.py:41",
+                             main_launches),
+               "pair_blend": ("warp_pair.cu", pallas + "warp_pair.py:189",
                               main_launches),
-               "fused_blend": ("warp_fused.cu", "warp_fused.py:188",
-                               p010_launches)}
+               "fused_blend": ("warp_fused.cu", pallas + "warp_fused.py:188",
+                               p010_launches),
+               "sample_dir": ("warp_sample.cu", pallas + "warp_sample.py:128",
+                              warp12_launches),
+               "pack_probe": ("pack_probe.cu",
+                              "tools/pallas_pack_probe.py:22",
+                              {"pack_probe": probes["pack_probe"]
+                               ["launches"]}),
+               "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",
+                             {"dma_probe": probes["dma_probe"]
+                              ["launches"]})}
     kernels = []
     for name, (src, replaces, launches) in sources.items():
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mpv_frame_interpolator_tpu_torch/csrc/{src}",
-            "replaces": f"mpv_frame_interpolator_tpu/ops/pallas/{replaces}",
+            "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            # no single PyTorch call computes any of these functions (mod
-            # 2^32 window sums with an unsigned argmin, mirrored nearest
-            # gathers with the fixed-point blend, a symmetric-pad integer
-            # blur truncated toward zero)
-            "library_ms": None})
+            # no single PyTorch call computes K1-K5 or P1 (mod 2^32 window
+            # sums with an unsigned argmin, mirrored nearest gathers with
+            # the fixed-point blend, a symmetric-pad integer blur truncated
+            # toward zero, a nearest sample at a mirrored coordinate
+            # rounded half away from zero -- grid_sample rounds half to
+            # even and reflects otherwise -- a set of probes); P2's is the
+            # slice copy
+            "library_ms": r.get("library_ms")})
     log(f"launches on the 8-bit main path {main_launches}, on the P010 "
-        f"fused path {p010_launches}")
+        f"fused path {p010_launches}, on the warp12 path {warp12_launches}, "
+        f"on the pallas blend path {pallas_launches}")
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

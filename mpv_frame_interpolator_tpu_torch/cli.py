@@ -7,6 +7,8 @@ Examples:
       --untimed -o out.y4m
   python -m mpv_frame_interpolator_tpu_torch synthetic:moving_box --p010 \
       --black-level 16 --white-level 235 --warp-sampling fused -o out.y4m
+  python -m mpv_frame_interpolator_tpu_torch synthetic:moving_box \
+      --mode hsv -o flow.y4m
   python -m mpv_frame_interpolator_tpu_torch input.y4m --device cpu -o out.y4m
 
 The device is explicit: ``--device cuda`` (the default) needs a card and
@@ -32,6 +34,11 @@ from mpv_frame_interpolator_tpu_torch.utils import get_logger
 from mpv_frame_interpolator_tpu_torch.utils.logging import set_verbosity
 
 log = get_logger("cli")
+
+# the JAX CLI's output modes (vf_HopperRender.c:21); sbs1 and sbs2 are not
+# ported and raise
+MODES = {"warp12": 0, "warp21": 1, "blend": 2, "hsv": 3, "grey": 4,
+         "sbs1": 5, "sbs2": 6}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,11 +67,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-scene-detection", action="store_true")
     p.add_argument("--black-level", type=float, default=0.0)
     p.add_argument("--white-level", type=float, default=255.0)
+    p.add_argument("--mode", default="blend",
+                   help="output mode: warp12|warp21|blend|hsv|grey or "
+                        "FrameOutput integer 0-4 (sbs1/sbs2, 5/6, are not "
+                        "ported)")
     p.add_argument("--warp-sampling", default="pair",
-                   choices=("pair", "shift", "gather", "fused"),
-                   help="warp kernel: pair/shift/gather = every blend "
-                        "position of a pair in one launch (identical "
-                        "outputs), fused = one launch per position")
+                   choices=("pair", "shift", "gather", "pallas", "fused"),
+                   help="blend-mode warp kernel: pair/shift/gather = every "
+                        "blend position of a pair in one launch, fused = "
+                        "one launch per position, pallas = two one-"
+                        "direction launches per position with the blend "
+                        "as tensor ops, the slowest route (identical "
+                        "outputs)")
     p.add_argument("--untimed", action="store_true",
                    help="do not pace output to the display clock")
     p.add_argument("-o", "--output", default="",
@@ -105,9 +119,17 @@ def main(argv=None) -> int:
                          "this machine (pass --device cpu to run the plain "
                          "PyTorch path)")
 
+    try:
+        mode = int(args.mode)
+    except ValueError:
+        mode = MODES.get(args.mode)
+        if mode is None:
+            raise SystemExit(f"unknown mode {args.mode!r}")
+
     source, width, height = make_source(args)
     engine = InterpolationEngine(EngineConfig(
         display_fps=args.display_fps,
+        frame_output_mode=mode,
         auto_quality=not args.no_auto_quality,
         initial_search_radius=args.search_radius,
         scene_detection=not args.no_scene_detection,

@@ -1,5 +1,6 @@
 // The per-pixel step of the blended warp, shared by K2 (warp_pair.cu, every
-// blend position of a pair) and K4 (warp_fused.cu, one position).
+// blend position of a pair) and K4 (warp_fused.cu, one position), and the
+// one-direction raw sample of K5 (warp_sample.cu, sample_dir_pixel).
 //
 // The semantics are those of the JAX blended warp (ops/warp._warp_sample,
 // mode 2), i.e. the reference's warpFrameKernel.cl with the fixed-point
@@ -129,6 +130,35 @@ __device__ __forceinline__ T blend_pixel(const T* __restrict__ f1,
   const unsigned tw = blend_weight(t12, frac);
   const unsigned b = (s12 * ((1u << frac) - tw) + s21 * tw) >> frac;
   return (T)(kChroma ? levels_uv(b, ss, w) : levels_y(b, ss, k, w));
+}
+
+// One raw nearest sample of ONE direction (K5, warp_sample.cu): direction 12
+// reads f1 at mirror_edge2(p + iround(flow12 * t)), direction 21 reads f2 at
+// mirror_edge2(p - iround(flow21 * (1 - t))), with chroma's vertical
+// product halved and its column addressed as in blend_pixel.  The products
+// are those of blend_pixel, one __fmul_rn each; no blend, no levels, no cap.
+template <typename T, bool kChroma>
+__device__ __forceinline__ T sample_dir_pixel(const int* __restrict__ blurred,
+                                              const T* __restrict__ src,
+                                              int pitch, int rows, int Wa,
+                                              int cx, int cy, int lh, int lw,
+                                              int rs, float t12, bool dir21) {
+  float fx12, fy12, fx21, fy21;
+  flow_at<kChroma>(blurred, cx, cy, lh, lw, rs, &fx12, &fy12, &fx21, &fy21);
+  const float s = dir21 ? __fsub_rn(1.0f, t12) : t12;
+  const float fx = dir21 ? fx21 : fx12;
+  float dy = __fmul_rn(dir21 ? fy21 : fy12, s);
+  if (kChroma) dy = __fmul_rn(dy, 0.5f);
+  int ddx = iround(__fmul_rn(fx, s));
+  int ddy = iround(dy);
+  if (dir21) {
+    ddx = -ddx;
+    ddy = -ddy;
+  }
+  int x = mirror_edge2(cx + ddx, Wa);
+  const int y = mirror_edge2(cy + ddy, rows);
+  if (kChroma) x = (x & ~1) + (cx & 1);
+  return src[(size_t)y * pitch + x];
 }
 
 }  // namespace mfi

@@ -29,7 +29,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
-SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu")
+SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu",
+           "warp_sample.cu", "pack_probe.cu", "dma_probe.cu")
 HEADERS = ("warp_common.cuh",)
 
 # --fmad=false: no multiply-add contraction, so the warp's f32
@@ -55,6 +56,21 @@ _SIGNATURES = {
     # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
     # scale_shift black white | stream
     "mfi_fused_blend": (P,) * 8 + (I,) * 9 + (P,),
+    # src_y src_uv blurred t out_y out_uv | H Wa pitch lh lw rs direction
+    # sample_bytes | stream
+    "mfi_sample_dir": (P,) * 6 + (I,) * 8 + (P,),
+    # in out | n_words | stream
+    "mfi_probe_b32": (P, P, I, P),
+    # in out | R C shift method | stream
+    "mfi_probe_vec16": (P, P, I, I, I, I, P),
+    # idx val acc out | n_words method | stream
+    "mfi_probe_bytesel": (P,) * 4 + (I, I, P),
+    # lo out | stream
+    "mfi_probe_rep8": (P, P, P),
+    # src | src_row_bytes dy dx_bytes rows row_bytes width | out stream
+    "mfi_dma_cp_async": (P,) + (I,) * 6 + (P, P),
+    # src | item H W dy dx rows cols | max_polls | load | out stream
+    "mfi_dma_tma": (P,) + (I,) * 7 + (ctypes.c_longlong, I, P, P),
 }
 
 

@@ -36,18 +36,8 @@ def _plane_plain(f1, f2, fields, ts, rs: int, rows: int, wa: int,
     ox12, oy12, ox21, oy21 = (up(p, rs, rows, wa).to(torch.float32)[None]
                               for p in fields)
     t12 = ts.to(torch.float32)[:, None, None]
-    t21 = 1.0 - t12
-    dy12, dy21 = oy12 * t12, oy21 * t21
-    if chroma:
-        dy12, dy21 = dy12 * 0.5, dy21 * 0.5
-    cy = torch.arange(rows, device=f1.device)[:, None]
-    cx = torch.arange(wa, device=f1.device)[None, :]
-    x12 = W.mirror_edge2(cx + W.iround(ox12 * t12), wa)
-    x21 = W.mirror_edge2(cx - W.iround(ox21 * t21), wa)
-    y12 = W.mirror_edge2(cy + W.iround(dy12), rows)
-    y21 = W.mirror_edge2(cy - W.iround(dy21), rows)
-    if chroma:
-        x12, x21 = W.nv12_column(x12, cx), W.nv12_column(x21, cx)
+    y12, x12 = W.sample_coords(ox12, oy12, t12, False, rows, wa, chroma)
+    y21, x21 = W.sample_coords(ox21, oy21, 1.0 - t12, True, rows, wa, chroma)
     w1, T = W.blend_weights(ts, scale_shift)
     # widened before indexing: CUDA does not index uint16
     s12 = f1.to(torch.int32)[y12, x12]

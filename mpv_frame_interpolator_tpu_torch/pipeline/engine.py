@@ -1,6 +1,6 @@
 """InterpolationEngine of the port (counterpart of the JAX package's
-``pipeline/engine.py``): model ``hopper``, blended output (mode 2), 8-bit
-NV12 or 10-bit P010, any black/white levels.
+``pipeline/engine.py``): model ``hopper``, output modes 0-4, 8-bit NV12 or
+10-bit P010, any black/white levels.
 
 Per source pair, on the engine's device and without a host sync:
 
@@ -10,15 +10,26 @@ Per source pair, on the engine's device and without a host sync:
 3. the cut folded in on the device: where the score exceeds the
    threshold the flow is zeroed and the blend positions snap to the
    nearer source (``torch.where``, no host branch);
-4. the blended outputs, luma and interleaved chroma: under
-   ``warp_sampling`` "pair" (the default), "shift" or "gather" every blend
-   position of the pair in one call of the pair-blend kernel
-   (``ops/cuda/warp_pair.py``); under "fused" one call of the fused kernel
-   (``ops/cuda/warp_fused.py``) per blend position.  In the JAX package
-   "pair", "shift" and "gather" are XLA or Pallas sampling strategies with
-   identical outputs, so here they share one kernel; "fused" has its own,
-   as the JAX package's has.  "pallas" (the JAX package's tiled sampler,
-   K5) is not ported yet.
+4. the outputs, luma and interleaved chroma, by output mode:
+
+   * mode 2 (blended) under ``warp_sampling`` "pair" (the default),
+     "shift" or "gather": every blend position of the pair in one call of
+     the pair-blend kernel (``ops/cuda/warp_pair.py``); under "fused" one
+     call of the fused kernel (``ops/cuda/warp_fused.py``) per position;
+     under "pallas" two calls of the one-direction sampler
+     (``ops/cuda/warp_sample.py``) per position, blended and level-mapped
+     as tensor ops.  In the JAX package "pair", "shift", "gather" and
+     "pallas" are sampling strategies with identical outputs, and "fused"
+     and "pallas" have kernels of their own, as here;
+   * modes 0 / 1 (warp12 / warp21), under any sampler: one call of the
+     one-direction sampler per position, its raw samples as they are;
+   * mode 3 (hsv): two calls per position, blended, recoloured by the
+     flow (``ops/warp.hsv_planes``) and level-mapped as tensor ops;
+   * mode 4 (grey): the flow's magnitude as tensor ops; nothing sampled.
+
+   The blend, the colour math and the levels around the sampler are
+   tensor ops because the JAX package computes them in XLA, outside its
+   sampling kernel.
 
 P010 frames run with scale_shift 8 (the JAX engine's ``_scale_shift``):
 the flow's SAD and the cut score are shifted back to the 8-bit scale, the
@@ -34,8 +45,9 @@ enqueued to after its last kernel completes, so it holds the host's
 enqueue time as well as the card's work (wall time on the CPU).  It is read back at the next push so that no push
 waits for its own pair.
 
-Not ported yet: degradation rungs, ``push_many``, split timing,
-background precompile and the compile cache.  A configuration the port
+Not ported yet: the side-by-side modes 5 and 6, models other than
+``hopper``, degradation rungs, ``push_many``, split timing, background
+precompile and the compile cache.  A configuration the port
 does not cover raises ``NotImplementedError``.
 """
 
@@ -56,6 +68,7 @@ from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_fused import fused_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_pair import pair_blend
+from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_sample import sample_dir
 from mpv_frame_interpolator_tpu_torch.pipeline import scene as scene_mod
 from mpv_frame_interpolator_tpu_torch.pipeline.cadence import (
     CadenceEngine, InterpolationState)
@@ -88,8 +101,9 @@ class EngineConfig:
     measure_timing: bool = True
     playback_speed: float = 1.0
     model: str = "hopper"
-    # "pair", "shift", "gather": every position of a pair in one K2 call;
-    # "fused": one K4 call per position; "pallas": not ported (K5)
+    # mode 2: "pair", "shift", "gather": every position of a pair in one
+    # K2 call; "fused": one K4 call per position; "pallas": two K5 calls
+    # per position.  Modes 0, 1 and 3 always run on K5, mode 4 on none
     warp_sampling: str = "pair"
     device: str = "cuda"
 
@@ -114,18 +128,13 @@ class EngineConfig:
                                       "fused"):
             raise ValueError(
                 "warp_sampling must be shift|gather|pallas|pair|fused")
-        if self.frame_output_mode != warp_ops.BLENDED_FRAME:
+        if self.frame_output_mode > warp_ops.GREY_FLOW:
             raise NotImplementedError(
-                f"output mode {self.frame_output_mode}: the port covers "
-                "mode 2 (blended) only")
+                f"output mode {self.frame_output_mode}: the side-by-side "
+                "modes 5 and 6 are not ported; the port covers modes 0-4")
         if self.model != "hopper":
             raise NotImplementedError(
                 f"model {self.model!r}: the port covers 'hopper' only")
-        if self.warp_sampling == "pallas":
-            raise NotImplementedError(
-                "warp_sampling 'pallas' runs the TPU's tiled sampler "
-                "(K5, ops/pallas/warp_sample.py), which is not ported yet; "
-                "'pair', 'shift', 'gather' and 'fused' are")
         if self.initial_search_radius > flow_ops.MAX_SEARCH_RADIUS:
             raise NotImplementedError(
                 f"search radius above {flow_ops.MAX_SEARCH_RADIUS} is not "
@@ -141,8 +150,8 @@ def _to_numpy(plane) -> np.ndarray:
 class OutputFrame:
     """A produced frame; planes may live on the device until materialized.
 
-    Warped outputs of one source pair share one batched tensor (or, from
-    the fused kernel, one list of per-position planes); `index` selects
+    Warped outputs of one source pair share one batched tensor (from the
+    pair-blend kernel) or one list of per-position planes; `index` selects
     this frame's planes lazily."""
 
     __slots__ = ("pts", "fmt", "_y", "_uv", "_index")
@@ -187,23 +196,56 @@ def _flow_stage(geom, scale_shift: int, scene_enabled: bool,
 
 
 def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
-                fused: bool, f1: DeviceFrame, f2: DeviceFrame, blurred,
-                cut, ts):
-    """Cut folding + every blend position of the pair: (y, uv), each
-    indexable by position -- (N, H, Wa) and (N, H/2, Wa) tensors from one
-    pair-blend call, or lists of N planes from N fused calls.  `cut` is a
-    0-dim bool tensor or None."""
+                mode: int, sampling: str, f1: DeviceFrame, f2: DeviceFrame,
+                blurred, cut, ts):
+    """Cut folding + every output of the pair: (y, uv), each indexable by
+    position -- (N, H, Wa) and (N, H/2, Wa) tensors from one pair-blend
+    call, or lists of N planes.  `cut` is a 0-dim bool tensor or None."""
     if cut is not None:
         blurred = blurred.masked_fill(cut, 0)
         ts_cut = ((ts >= 0.5).to(torch.float32) if cut_policy == "nearest"
                   else torch.zeros_like(ts))
         ts = torch.where(cut, ts_cut, ts)
+    rs, wa = geom.res_scalar, geom.actual_width
     args = (f1.y, f1.uv, f2.y, f2.uv, blurred)
-    rest = (geom.res_scalar, geom.actual_width, scale_shift, levels)
-    if not fused:
-        return pair_blend(*args, ts, *rest)
-    outs = [fused_blend(*args, ts[i], *rest) for i in range(ts.shape[0])]
+    n = ts.shape[0]
+    if mode == warp_ops.GREY_FLOW:
+        y, uv = warp_ops.grey_planes(blurred, rs, geom.height, wa,
+                                     scale_shift, f1.y.dtype)
+        return [y] * n, [uv] * n
+    if mode == warp_ops.BLENDED_FRAME and sampling not in ("fused",
+                                                           "pallas"):
+        return pair_blend(*args, ts, rs, wa, scale_shift, levels)
+    if mode == warp_ops.BLENDED_FRAME and sampling == "fused":
+        outs = [fused_blend(*args, ts[i], rs, wa, scale_shift, levels)
+                for i in range(n)]
+    elif mode in (warp_ops.WARPED_FRAME_12, warp_ops.WARPED_FRAME_21):
+        direction = 12 if mode == warp_ops.WARPED_FRAME_12 else 21
+        outs = [sample_dir(*args, ts[i], direction, rs, wa)
+                for i in range(n)]
+    else:
+        outs = [_blended_from_samples(mode, scale_shift, levels, rs, wa,
+                                      args, ts[i]) for i in range(n)]
     return [y for y, _ in outs], [uv for _, uv in outs]
+
+
+def _blended_from_samples(mode: int, scale_shift: int, levels, rs: int,
+                          wa: int, args, t):
+    """Mode 2 under "pallas" and mode 3 at one position: the two
+    directions' raw samples (K5), the fixed-point blend, for mode 3 the
+    flow's colours, and the level maps."""
+    y12, uv12 = sample_dir(*args, t, 12, rs, wa)
+    y21, uv21 = sample_dir(*args, t, 21, rs, wa)
+    w1, T = warp_ops.blend_weights(t, scale_shift)
+    b_y = warp_ops.blend_fix(y12, y21, w1, T, scale_shift)
+    b_uv = warp_ops.blend_fix(uv12, uv21, w1, T, scale_shift)
+    if mode == warp_ops.HSV_FLOW:
+        b_y, b_uv = warp_ops.hsv_planes(b_y, b_uv, args[4], rs, wa,
+                                        scale_shift)
+    k, w = levels
+    dtype = y12.dtype
+    return (warp_ops.levels_y(b_y, k, w, scale_shift).to(dtype),
+            warp_ops.levels_uv(b_uv, w, scale_shift).to(dtype))
 
 
 class InterpolationEngine:
@@ -355,8 +397,9 @@ class InterpolationEngine:
                 else self._cuts + cut
         y, uv = _warp_stage(geom, self._scale_shift, self.levels,
                             self.config.cut_policy,
-                            self.config.warp_sampling == "fused", f1, f2,
-                            blurred, cut, ts)
+                            self.config.frame_output_mode,
+                            self.config.warp_sampling, f1, f2, blurred, cut,
+                            ts)
 
         if not timed:
             self._last_calc_duration = 0.0

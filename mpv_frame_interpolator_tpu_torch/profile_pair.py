@@ -3,9 +3,13 @@
     python -m mpv_frame_interpolator_tpu_torch.profile_pair [--trace t.json]
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --p010 \
         --warp-sampling fused --black-level 16 --white-level 235
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --mode warp12
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair \
+        --warp-sampling pallas
 
 Stages a synthetic ``moving_box`` clip at the main path's shape (4K,
-24 -> 120 fps, radius 16; 8-bit NV12, or P010 with --p010) on the card, pushes WARM pairs through the
+24 -> 120 fps, radius 16; 8-bit NV12, or P010 with --p010; output mode
+--mode, blend by default) on the card, pushes WARM pairs through the
 engine, then pushes PAIRS more under ``torch.profiler`` with one
 synchronise at the end.  Prints the wall per pair, the card's own time
 per pair (the sum of every kernel's and memset's device time as CUPTI
@@ -31,7 +35,7 @@ WIDTH, HEIGHT, DISPLAY_FPS, RADIUS = 3840, 2160, 120.0, 16
 WARM, PAIRS = 3, 10
 
 
-def _self_device_us(evt) -> float:
+def self_device_us(evt) -> float:
     """Device time of a kernel, memset or copy row; 0 for a host row (an
     aten op or a CUDA runtime call also carries the device time of what
     it launched, which would count that work twice)."""
@@ -51,8 +55,10 @@ def main(argv=None) -> int:
     p.add_argument("--trace", default="",
                    help="write a Chrome trace of the profiled pairs here")
     p.add_argument("--p010", action="store_true", help="10-bit frames")
+    p.add_argument("--mode", default="blend",
+                   choices=[m for m, i in cli.MODES.items() if i <= 4])
     p.add_argument("--warp-sampling", default="pair",
-                   choices=("pair", "fused"))
+                   choices=("pair", "fused", "pallas"))
     p.add_argument("--black-level", type=float, default=0.0)
     p.add_argument("--white-level", type=float, default=255.0)
     args = p.parse_args(argv)
@@ -61,7 +67,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     eng = InterpolationEngine(EngineConfig(
-        display_fps=DISPLAY_FPS, auto_quality=False,
+        display_fps=DISPLAY_FPS, frame_output_mode=cli.MODES[args.mode],
+        auto_quality=False,
         initial_search_radius=RADIUS, warp_sampling=args.warp_sampling,
         black_level=args.black_level, white_level=args.white_level,
         device="cuda"))
@@ -82,8 +89,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    rows = sorted(((e.key, e.count, _self_device_us(e))
-                   for e in prof.key_averages() if _self_device_us(e) > 0),
+    rows = sorted(((e.key, e.count, self_device_us(e))
+                   for e in prof.key_averages() if self_device_us(e) > 0),
                   key=lambda r: -r[2])
     if not rows:
         raise SystemExit("profile_pair: the profiler recorded no device "
@@ -91,7 +98,8 @@ def main(argv=None) -> int:
     device_ms = sum(r[2] for r in rows) / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"{WIDTH}x{HEIGHT} {'P010' if args.p010 else 'NV12'} -> "
-          f"{DISPLAY_FPS:g} fps, radius {RADIUS}, warp_sampling "
+          f"{DISPLAY_FPS:g} fps, radius {RADIUS}, mode {args.mode}, "
+          f"warp_sampling "
           f"{args.warp_sampling}, levels ({args.black_level:g}, "
           f"{args.white_level:g}): {PAIRS} pairs under the profiler")
     print(f"wall {wall * 1e3:.3f} ms = {wall / PAIRS * 1e3:.3f} ms/pair")

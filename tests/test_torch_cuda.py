@@ -2,11 +2,13 @@
 card, at small and odd shapes the 4K smoke test does not reach (widths
 that are not a multiple of a warp, planes smaller than the blur's reach,
 stride wider than the picture, res_scalar 0 and 2), for 8-bit NV12 and
-10-bit P010 with black/white levels; the port's flow and blend on the
-card against the NumPy oracle (``ops/oracle``, 8-bit; P010 content that
-is 8-bit << 8 gives the oracle's flow, and its blend >> 8 the oracle's
-blend at blend positions whose 16-bit weight is exact); and the whole
-engine on the card against the engine on the CPU.  Bit-exact.
+10-bit P010 with black/white levels; the port's flow, blend and
+one-direction samples (modes 0 and 1) on the card against the NumPy
+oracle (``ops/oracle``, 8-bit; P010 content that is 8-bit << 8 gives the
+oracle's flow, and its blend >> 8 the oracle's blend at blend positions
+whose 16-bit weight is exact); the toolchain probes; and the whole engine
+on the card against the engine on the CPU, output modes 0-4.  Bit-exact,
+except mode 3's float colours (the JAX package's tolerance).
 
 These tests need an NVIDIA card (marker ``gpu``) and skip without one.
 They import no jax, so on a machine without it they run as
@@ -27,7 +29,10 @@ from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
 from mpv_frame_interpolator_tpu_torch.pipeline import engine as E
+from mpv_frame_interpolator_tpu_torch.tools import dma_probe as DP
+from mpv_frame_interpolator_tpu_torch.tools import pack_probe as PP
 
 pytestmark = pytest.mark.gpu
 
@@ -274,6 +279,110 @@ def test_engine_on_the_card_equals_the_cpu(cuda, source, scene, pixfmt,
             np.testing.assert_array_equal(fa.y, fb.y)
             np.testing.assert_array_equal(fa.uv, fb.uv)
     assert engines[0].scene_cuts() == engines[1].scene_cuts()
+
+
+@pytest.mark.parametrize("scale_shift", [0, 8])
+@pytest.mark.parametrize("h,w,stride", [(48, 64, 80), (544, 96, 96),
+                                        (118, 202, 202)])
+def test_sample_dir(cuda, scale_shift, h, w, stride):
+    rng = np.random.default_rng(h + w + scale_shift + 1)
+    dt = np.uint16 if scale_shift else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w)
+    f1 = _frames(rng, h, stride, cuda, dt)
+    f2 = _frames(rng, h, stride, cuda, dt)
+    blurred = torch.from_numpy(rng.integers(
+        -70, 71, (2, geom.low_h, geom.low_w)).astype(np.int32)).to(cuda)
+    for direction in (12, 21):
+        for t in (0.0, 0.4, 1.0):
+            args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                    torch.tensor(t, device=cuda), direction,
+                    geom.res_scalar, w)
+            before = KD.counts.kernel
+            got = KD.sample_dir(*args)
+            assert KD.counts.kernel == before + 1
+            _equal(got, KD.sample_dir_plain(*args))
+
+
+@pytest.mark.parametrize("w,h,stride,radius", [(320, 180, None, 16),
+                                               (202, 118, None, 5),
+                                               (320, 180, 352, 16)])
+def test_sample_dir_equals_the_oracle(cuda, w, h, stride, radius):
+    """Modes 0 and 1 are K5's raw samples: the oracle's warp12 / warp21."""
+    cfg = synthetic.SyntheticConfig(width=w, height=h, stride=stride)
+    a, b = list(synthetic.gradient_pan(cfg, 2, vx=3, vy=1))
+    geom = F.FlowGeometry.create(h, a.fmt.stride, w)
+    _, blur_o = oracle.calculate_optical_flow(
+        a.y, a.uv, b.y, b.uv, radius, geom.res_scalar, geom.low_h,
+        geom.low_w)
+    da, db = frame_to_device(a, cuda), frame_to_device(b, cuda)
+    blurred = torch.from_numpy(blur_o.astype(np.int32)).to(cuda)
+    for mode, direction in ((oracle.WARPED_FRAME_12, 12),
+                            (oracle.WARPED_FRAME_21, 21)):
+        for t in (0.0, 0.25, 0.5, 0.75):
+            y, uv = KD.sample_dir(da.y, da.uv, db.y, db.uv, blurred,
+                                  torch.tensor(t, device=cuda), direction,
+                                  geom.res_scalar, w)
+            ry, ruv = oracle.warp_frame(a.y, a.uv, b.y, b.uv, blur_o, t,
+                                        mode, geom.res_scalar, w)
+            np.testing.assert_array_equal(y.cpu().numpy(), ry[:, :w])
+            np.testing.assert_array_equal(uv.cpu().numpy(), ruv[:, :w])
+
+
+def test_pack_probe(cuda):
+    PP.counts.reset()
+    assert PP.main([]) == 0
+    assert PP.counts.kernel == len(PP.PROBES) and PP.counts.plain == 0
+
+
+def test_dma_probe(cuda):
+    rows = DP.matrix(cuda)
+    assert DP.passed(rows)
+    # what the host's rule lets through runs on the card, and is right
+    for (dtype, _, dx, _, cols), res in rows:
+        item = torch.empty((), dtype=dtype).element_size()
+        legal = DP.cp_async_width(dx * item, cols * item, DP.W * item)
+        assert (res["cp.async"] == "OK") == (legal is not None)
+
+
+def test_dma_stall_by_construction_traps(cuda):
+    """A TMA load that never starts leaves its barrier waiting: the
+    bounded wait traps and the child's context dies."""
+    res = DP._finish_child(DP._start_child("TMA", 0, 1 << 16, False))
+    assert res.startswith("REJECTED by the card"), res
+
+
+@pytest.mark.parametrize("source,pixfmt,sampling,levels,mode", [
+    ("moving_box", "nv12", "pair", (0.0, 255.0), 0),
+    ("scene_cut", "p010", "pallas", (16.5, 235.0), 0),
+    ("scene_cut", "nv12", "pallas", (0.0, 255.0), 1),
+    ("moving_box", "p010", "pair", (0.0, 255.0), 1),
+    ("scene_cut", "nv12", "pallas", (16.5, 235.0), 2),
+    ("moving_box", "p010", "pallas", (16.0, 235.0), 2),
+    ("scene_cut", "p010", "pair", (16.5, 235.0), 3),
+    ("moving_box", "nv12", "pair", (0.0, 255.0), 4),
+    ("scene_cut", "p010", "pallas", (0.0, 255.0), 4)])
+def test_engine_modes_on_the_card_equal_the_cpu(cuda, source, pixfmt,
+                                                sampling, levels, mode):
+    cfg = synthetic.SyntheticConfig(width=64, height=48, fps=24.0,
+                                    pixfmt=pixfmt)
+    engines = [E.InterpolationEngine(E.EngineConfig(
+        device=d, display_fps=60.0, frame_output_mode=mode,
+        auto_quality=False, initial_search_radius=16,
+        warp_sampling=sampling, black_level=levels[0],
+        white_level=levels[1]))
+        for d in ("cpu", str(cuda))]
+    for frame in getattr(synthetic, source)(cfg, 8):
+        outs = [e.push(frame) for e in engines]
+        assert len(outs[0]) == len(outs[1])
+        for a, b in zip(*outs):
+            assert a.pts == b.pts
+            fa, fb = a.to_video_frame(), b.to_video_frame()
+            for p, q in ((fa.y, fb.y), (fa.uv, fb.uv)):
+                if mode == 3:     # float colours: the JAX tolerance
+                    assert np.mean(np.abs(p.astype(int) - q.astype(int))
+                                   > 2) < 0.005
+                else:
+                    np.testing.assert_array_equal(p, q)
 
 
 def test_frame_to_device_keeps_the_chroma_split(cuda):

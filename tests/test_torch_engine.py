@@ -123,9 +123,9 @@ def test_cli_needs_cuda_for_cuda_device(monkeypatch):
         port_cli.main(["synthetic:moving_box", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("kw", [dict(frame_output_mode=0),
+@pytest.mark.parametrize("kw", [dict(frame_output_mode=5),
                                 dict(model="hopperq"),
-                                dict(warp_sampling="pallas"),
+                                dict(frame_output_mode=6),
                                 dict(initial_search_radius=24)])
 def test_uncovered_configurations_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -133,18 +133,19 @@ def test_uncovered_configurations_raise(kw):
 
 
 def test_p010_raises(small_cfg):
-    """P010 runs on every ported sampler; what still raises for it is the
-    one that is not ported (K5, warp_sampling "pallas"), and an unknown
-    sampler is refused outright."""
+    """P010 runs on every sampler; what still raises for it is a mode
+    that is not ported (side by side), and an unknown sampler is refused
+    outright."""
     cfg = dataclasses.replace(small_cfg, pixfmt="p010")
-    for ws in ("pair", "fused"):
+    for ws in ("pair", "fused", "pallas"):
         port = port_engine.InterpolationEngine(port_engine.EngineConfig(
             device="cpu", warp_sampling=ws))
         for frame in synthetic.moving_box(cfg, 2):
             outs = port.push(frame)
         assert outs and outs[0].to_video_frame().y.dtype == np.uint16
-    with pytest.raises(NotImplementedError, match="K5"):
-        port_engine.EngineConfig(device="cpu", warp_sampling="pallas")
+    with pytest.raises(NotImplementedError, match="side-by-side"):
+        port_engine.EngineConfig(device="cpu", warp_sampling="pallas",
+                                 frame_output_mode=5)
     with pytest.raises(ValueError):
         port_engine.EngineConfig(device="cpu", warp_sampling="tiles")
 

@@ -61,6 +61,25 @@ def test_level_ints_round_half_to_even():
 
 @pytest.mark.parametrize("scale_shift", [0, 8])
 @pytest.mark.parametrize("black,white", LEVELS)
+def test_level_maps_equal_the_jax_maps(scale_shift, black, white):
+    """The port's level maps, the default levels' clip shortcut included,
+    against the JAX package's full maps on every blended value (and past
+    both ends of the range)."""
+    b = np.arange(-300, (256 << scale_shift) + 300, dtype=np.int32)
+    k, w = TW.level_ints(black, white)
+    tb = torch.from_numpy(b)
+    np.testing.assert_array_equal(
+        TW.levels_y(tb, k, w, scale_shift).numpy(),
+        np.asarray(W._levels_y(jnp.asarray(b), jnp.float32(black),
+                               jnp.float32(white), scale_shift)))
+    np.testing.assert_array_equal(
+        TW.levels_uv(tb, w, scale_shift).numpy(),
+        np.asarray(W._levels_uv(jnp.asarray(b), jnp.float32(white),
+                                scale_shift)))
+
+
+@pytest.mark.parametrize("scale_shift", [0, 8])
+@pytest.mark.parametrize("black,white", LEVELS)
 def test_pair_blend_levels(scale_shift, black, white):
     h, w = 48, 64
     geom = F.FlowGeometry.create(h, w, w)

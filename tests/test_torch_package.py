@@ -36,6 +36,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
 from mpv_frame_interpolator_tpu_torch.pipeline import cadence as port_cadence
 from mpv_frame_interpolator_tpu_torch.pipeline import engine as port_engine
 from mpv_frame_interpolator_tpu_torch.pipeline import present as port_present
@@ -162,7 +163,7 @@ def test_build_directory_is_keyed_by_the_sources():
 
 
 @pytest.mark.parametrize("call", ["flow_step", "blur_flow", "pair_blend",
-                                  "fused_blend"])
+                                  "fused_blend", "sample_dir"])
 def test_no_fallback_off_the_cpu(call):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper's checks reject it (here a meta tensor; a CUDA tensor goes on
@@ -179,14 +180,16 @@ def test_no_fallback_off_the_cpu(call):
         counts, fn = KB.counts, KB.blur_flow
         args = (torch.empty((2, 6, 8), dtype=torch.int32, **meta),)
     else:
-        counts, fn = ((KW.counts, KW.pair_blend) if call == "pair_blend"
-                      else (KF.counts, KF.fused_blend))
+        counts, fn = {"pair_blend": (KW.counts, KW.pair_blend),
+                      "fused_blend": (KF.counts, KF.fused_blend),
+                      "sample_dir": (KD.counts, KD.sample_dir)}[call]
         u16 = lambda *s: torch.empty(s, dtype=torch.uint16, **meta)  # noqa
         args = (u16(48, 64), u16(24, 64), u16(48, 64), u16(24, 64),
                 torch.empty((2, 48, 64), dtype=torch.int32, **meta),
                 torch.empty((2 if call == "pair_blend" else 1,),
-                            dtype=torch.float32, **meta), 0, 64, 8,
-                (16, 235))
+                            dtype=torch.float32, **meta))
+        args += ((21, 0, 64) if call == "sample_dir"
+                 else (0, 64, 8, (16, 235)))
     before = (counts.kernel, counts.plain)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(*args)
@@ -199,7 +202,9 @@ def test_engine_config_from_jax_round_trip():
                      display_fps=120.0, initial_search_radius=16,
                      scene_detection=False, cut_policy="hold",
                      auto_quality=False, flow_kernel="xla",
-                     warp_sampling="shift", layer_buckets=(16,))):
+                     warp_sampling="shift", layer_buckets=(16,)),
+                 jax_engine.EngineConfig(frame_output_mode=3,
+                                         warp_sampling="pallas")):
         mapping = dataclasses.asdict(jcfg)
         pcfg = convert.engine_config_from_jax(mapping, device="cpu")
         assert pcfg.device == "cpu"
@@ -214,9 +219,9 @@ def test_engine_config_from_jax_round_trip():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(frame_output_mode=0), NotImplementedError),
+    (dict(frame_output_mode=5), NotImplementedError),
     (dict(model="hopperx"), NotImplementedError),
-    (dict(warp_sampling="pallas"), NotImplementedError),
+    (dict(frame_output_mode=6), NotImplementedError),
     (dict(subpel_flow=True), NotImplementedError),
     (dict(split_timing="always"), NotImplementedError),
     (dict(degrade_rungs=()), NotImplementedError)])
@@ -224,6 +229,21 @@ def test_engine_config_from_jax_rejects(kw, err):
     mapping = dataclasses.asdict(jax_engine.EngineConfig(**kw))
     with pytest.raises(err):
         convert.engine_config_from_jax(mapping)
+
+
+@pytest.mark.parametrize("mode", range(7))
+@pytest.mark.parametrize("sampling", ["pair", "pallas"])
+def test_engine_config_from_jax_modes(mode, sampling):
+    """Modes 0-4 convert under every sampler; the side-by-side modes 5
+    and 6 are not ported and raise."""
+    mapping = dataclasses.asdict(jax_engine.EngineConfig(
+        frame_output_mode=mode, warp_sampling=sampling))
+    if mode >= 5:
+        with pytest.raises(NotImplementedError, match="side-by-side"):
+            convert.engine_config_from_jax(mapping, device="cpu")
+        return
+    pcfg = convert.engine_config_from_jax(mapping, device="cpu")
+    assert (pcfg.frame_output_mode, pcfg.warp_sampling) == (mode, sampling)
 
 
 def test_engine_config_from_jax_unknown_key():
