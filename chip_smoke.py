@@ -11,9 +11,12 @@ Phases (any failure raises and exits non-zero):
    with ptxas' resource report);
 3. each kernel against its plain PyTorch version on the card, at the 4K
    shapes of the paths below, inputs made from a numpy seed: bit-exact,
-   with the median times of both (CUDA events) -- K1, K2, K3 at 8 bits;
-   K1 on uint16 planes with luma_shift 8; K2 with scale_shift 8 and
-   levels (16, 235); K4 at 8 bits and at P010, default and non-default
+   with the median times of both (CUDA events) -- K1 (eight single steps,
+   each window of the pyramid timed as one step, and the whole radius-16
+   pyramid in one launch), K2, K3 at 8 bits; K1 on uint16 planes with
+   luma_shift 8; K2 with scale_shift 8 and levels (16, 235), and with
+   flows that push cells past every edge and odd chroma displacements,
+   t in {0, 0.4, 1}; K4 at 8 bits and at P010, default and non-default
    levels, t in {0, 0.4, 1}; K5 at 8 bits and at P010 (65535 samples
    pass through uncapped), both directions, t in {0, 0.4, 1};
 3b. the toolchain probes through their entry points: P1 (packed bytes)
@@ -28,8 +31,9 @@ Phases (any failure raises and exits non-zero):
    float colour math) within the JAX package's tolerance;
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
-   the launch counters of K1, K2 and K3 must move during that run and no
-   plain version's may, the y4m must hold that many 4K frames, and the
+   the launch counters of K1, K2 and K3 must move during that run (K1
+   exactly once a pair) and no plain version's may, the y4m must hold
+   that many 4K frames, and the
    scene cut must never fire on the smooth clip; then the engine's rate
    with frames staged on the card;
 6. the P010 path end to end through the CLI at the same shape with
@@ -161,7 +165,9 @@ def random_planes(rng, dev, dt):
 
 def phase_flow_step(dev, rng, geom, dt, luma_shift: int):
     """K1 at 4K: single steps over (window, neighbour bias, axis, radius),
-    then the whole 16-step radius-16 pyramid; returns the result entry."""
+    each window of the pyramid timed as one step, then the whole 16-step
+    radius-16 pyramid in one launch; returns the result entry (times per
+    pyramid, the unit the main path launches)."""
     from mpv_frame_interpolator_tpu_torch.ops import flow as F
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
     lh, lw, rs = geom.low_h, geom.low_w, geom.res_scalar
@@ -183,45 +189,74 @@ def phase_flow_step(dev, rng, geom, dt, luma_shift: int):
             f"radius={radius}: max_abs_err={e}")
         err = max(err, e)
 
-    def pyramid(step):
-        ox = torch.zeros((lh, lw), dtype=torch.int32, device=dev)
-        oy = torch.zeros_like(ox)
-        for it, window in enumerate(geom.window_schedule()):
-            for is_y in (0, 1):
-                ox, oy = step(f1y, f1u, f1v, *probe, ox, oy, is_y, 16, 8, 6,
-                              window, it >= F.FIRST_NEIGHBOR_ITERATION, rs,
-                              geom.height, geom.stride, luma_shift)
-        return ox, oy
+    # where a step's time goes: each window of the schedule as one step
+    # (one launch), both axes, the neighbour bias as the pyramid has it
+    windows = geom.window_schedule()
+    ox = torch.from_numpy(block_field(rng, lh, lw, 8, 6, 64)).to(dev)
+    oy = torch.from_numpy(block_field(rng, lh, lw, 8, 6, 64)).to(dev)
+    per_window = {}
+    for it, window in enumerate(windows + (1,)):
+        steps = [(f1y, f1u, f1v, *probe, ox, oy, is_y, 16, 8, 6, window,
+                  it >= F.FIRST_NEIGHBOR_ITERATION, rs, geom.height,
+                  geom.stride, luma_shift) for is_y in (0, 1)]
 
-    e = max_err(pyramid(KS.flow_step), pyramid(KS.flow_step_plain))
-    log(f"  K1 {tag} whole radius-16 pyramid ({2 * geom.iterations} "
-        f"steps): max_abs_err={e}")
+        def both(steps=steps):
+            return [KS.flow_step(*a) for a in steps]
+
+        per_window[window] = (device_ms(both) / 2, cuda_ms(both, 10) / 2)
+    log(f"  K1 {tag} one step per window, device / event ms: " + ", ".join(
+        f"{w}: {d:.4f} / {e:.4f}" for w, (d, e) in per_window.items()))
+
+    args = (f1y, f1u, f1v, *probe, 16, 8, 6, windows,
+            F.FIRST_NEIGHBOR_ITERATION, rs, geom.height, geom.stride,
+            luma_shift)
+    before = KS.counts.kernel
+    got = KS.flow_pyramid(*args)
+    check(KS.counts.kernel == before + 1, "flow_pyramid took more than one "
+          "launch")
+    e = max_err([got], [KS.flow_pyramid_plain(*args)])
     steps = 2 * geom.iterations
-    # per radius-16 step: each candidate reads three gathered samples
-    # (at most radius * lh * lw distinct ones a plane), the probe and the
-    # field, and writes the stepped axis; ~35 integer operations each
+    log(f"  K1 {tag} whole radius-16 pyramid ({steps} steps, one launch): "
+        f"max_abs_err={e}")
+    # inside the launch: the card's clock after each barrier (median of
+    # 10 launches), the window sums (phase A) and the commit (phase B)
+    stamps = torch.zeros((10, 2 + 2 * steps), dtype=torch.int64, device=dev)
+    for row in stamps:
+        KS.flow_pyramid(*args, timeline=row)
+    d = stamps.diff(dim=1).median(dim=0).values.cpu().numpy() / 1e3
+    log(f"  K1 {tag} inside the pyramid launch, us: prologue {d[0]:.2f}; "
+        "per step (window axis): phase A sums + phase B commit: " + "; ".join(
+            f"{w} {'xy'[s % 2]}: {d[1 + 2 * s]:.2f} + {d[2 + 2 * s]:.2f}"
+            for s, w in enumerate(np.repeat(windows, 2))))
+    # the pyramid reads each f1 sample its candidates reach once (at most
+    # steps * radius * lh * lw a plane) and the probe, and writes the
+    # field; each radius-16 step does ~35 integer operations a candidate
     # (three |differences|, shifts, the offset and neighbour biases,
     # mirrored coordinates)
     item = np.dtype(dt).itemsize
-    cand = 16 * lh * lw
-    gathered = (min(f1y.numel(), cand) + min(f1u.numel(), cand)
-                + min(f1v.numel(), cand)) * item
-    nbytes = gathered + 3 * lh * lw * item + 3 * lh * lw * 4
+    cand = steps * 16 * lh * lw
+    nbytes = (sum(min(p.numel(), cand) for p in (f1y, f1u, f1v)) * item
+              + 3 * lh * lw * item + 2 * lh * lw * 4)
     return dict(max_abs_err=max(err, e),
-                ms=cuda_ms(lambda: pyramid(KS.flow_step), 10) / steps,
-                plain_ms=cuda_ms(lambda: pyramid(KS.flow_step_plain), 3)
-                / steps,
+                device_ms=device_ms(lambda: KS.flow_pyramid(*args)),
+                ms=cuda_ms(lambda: KS.flow_pyramid(*args), 20),
+                plain_ms=cuda_ms(lambda: KS.flow_pyramid_plain(*args), 3),
                 bound=bound(nbytes, 35 * cand))
 
 
-def warp_bound(n: int, item: int):
+def warp_bound(n: int, item: int, rs: int):
     """Bytes and operations of n blended 4K outputs (luma + chroma): the
-    two source frames read once, the outputs written once; ~30 scalar
-    operations per output sample (four products, four roundings, four
-    mirrors, the blend and the level map)."""
+    two source frames read once, the outputs written once; per output
+    sample ~6 scalar operations (the two weighted products, the add and
+    shift, the level map, the pack), and per flow cell and position ~30
+    (four products, four roundings, the edge tests) -- the displacement
+    depends on the cell alone (a luma cell is 2^rs x 2^rs samples, a
+    chroma cell 2^rs rows of 2^(rs+1) interleaved samples)."""
     out = n * (H4K + H4K // 2) * W4K
+    cells = n * ((H4K >> rs) * (W4K >> rs)
+                 + ((H4K // 2) >> rs) * (W4K >> (rs + 1)))
     nbytes = 2 * (H4K + H4K // 2) * W4K * item + out * item
-    return bound(nbytes, 30 * out)
+    return bound(nbytes, 6 * out + 30 * cells)
 
 
 def phase_kernels(dev):
@@ -270,18 +305,40 @@ def phase_kernels(dev):
     # default levels (the main path) and P010 with levels (16, 235)
     ts = torch.tensor([0.0, 0.2, 0.4, 0.6, 0.8], dtype=torch.float32,
                       device=dev)
+    # edge and odd-chroma cases: flows that push cells past every edge of
+    # the frame, and odd flows (odd chroma displacements in both
+    # directions at t = 0.4, where both weigh), at t in {0, 0.4, 1}
+    far = torch.from_numpy(np.stack([
+        block_field(rng, lh, lw, 8, 12, 400), block_field(rng, lh, lw, 8,
+                                                          12, 400)])).to(dev)
+    odd = torch.from_numpy(2 * np.stack([
+        block_field(rng, lh, lw, 8, 12, 48), block_field(rng, lh, lw, 8, 12,
+                                                         48)]) + 1).to(dev)
+    t3 = torch.tensor([0.0, 0.4, 1.0], dtype=torch.float32, device=dev)
     k2 = {}
     for dt, ss, levels in ((np.uint8, 0, (0, 255)),
                            (np.uint16, 8, W.level_ints(16, 235))):
+        (f1y, f1uv, _, _), (f2y, f2uv, _, _) = frames[dt]
+        check(KW.vector_path((f1y, f1uv, f2y, f2uv), geom.actual_width),
+              "the 4K planes do not take K2's 16-byte path")
+        err = 0
+        for name, flow in (("edge", far), ("odd", odd)):
+            args = (f1y, f1uv, f2y, f2uv, flow, t3, rs, geom.actual_width,
+                    ss, levels)
+            e = max_err(KW.pair_blend(*args), KW.pair_blend_plain(*args))
+            log(f"  K2 N=3 {W4K}x{H4K} scale_shift={ss} levels={levels} "
+                f"{name} flow: max_abs_err={e}")
+            err = max(err, e)
         args = (*warp_args(dt), ts, rs, geom.actual_width, ss, levels)
         e = max_err(KW.pair_blend(*args), KW.pair_blend_plain(*args))
         log(f"  K2 N=5 {W4K}x{H4K} scale_shift={ss} levels={levels}: "
             f"max_abs_err={e}")
-        k2[ss] = dict(max_abs_err=e,
+        k2[ss] = dict(max_abs_err=max(err, e),
+                      device_ms=device_ms(lambda: KW.pair_blend(*args)),
                       ms=cuda_ms(lambda: KW.pair_blend(*args), 20),
                       plain_ms=cuda_ms(lambda: KW.pair_blend_plain(*args),
                                        5),
-                      bound=warp_bound(5, np.dtype(dt).itemsize))
+                      bound=warp_bound(5, np.dtype(dt).itemsize, rs))
     results["pair_blend"] = dict(k2[0], max_abs_err=max(
         k2[0]["max_abs_err"], k2[8]["max_abs_err"]), p010=k2[8])
 
@@ -304,7 +361,7 @@ def phase_kernels(dev):
                         ms=cuda_ms(lambda: KF.fused_blend(*args), 20),
                         plain_ms=cuda_ms(
                             lambda: KF.fused_blend_plain(*args), 5),
-                        bound=warp_bound(1, np.dtype(dt).itemsize))
+                        bound=warp_bound(1, np.dtype(dt).itemsize, rs))
     main = k4[(8, W.level_ints(16, 235))]
     results["fused_blend"] = dict(
         main, max_abs_err=err,
@@ -606,10 +663,15 @@ def run_cli(dev, frames: int, extra):
 
 def phase_main_path(dev):
     """Phase 5: the 8-bit main path, CLI at 4K 24 -> 120, radius 16."""
-    launches = run_cli(dev, 8, [])
+    frames = 8
+    launches = run_cli(dev, frames, [])
     on_path = ("flow_step", "blur_flow", "pair_blend")
     check(all(launches[k] > 0 for k in on_path),
           f"a kernel of the main path never launched: {launches}")
+    # the whole pyramid of a pair is one K1 launch
+    check(launches["flow_step"] == frames - 1,
+          f"K1 launched {launches['flow_step']} times for {frames - 1} "
+          "pairs, not once a pair")
     check(launches["fused_blend"] == 0 and launches["sample_dir"] == 0,
           f"K4 or K5 ran on the pair sampler's path: {launches}")
     return launches

@@ -1,52 +1,84 @@
-// One pyramid step of the block-matching flow search, for Hopper (sm_90a).
+// K1: the block-matching flow pyramid -- every step of a pair in one
+// persistent, cooperative launch -- for Hopper (sm_90a).
 //
 // Replaces the TPU kernel mpv_frame_interpolator_tpu/ops/pallas/
-// flow_step.py:flow_step_pallas (with its XLA tail flow_step_commit); the
-// semantics are those of the JAX step branch ops/flow._make_step_branch,
-// i.e. of the reference's calcDeltaSumsKernel.cl +
-// determineLowestLayerKernel.cl + adjustOffsetArrayKernel.cl.
+// flow_step.py:flow_step_pallas (with its XLA tail flow_step_commit) and
+// the lax.scan over it (ops/flow.py); the semantics of one step are those
+// of the JAX step branch ops/flow._make_step_branch, i.e. of the
+// reference's calcDeltaSumsKernel.cl + determineLowestLayerKernel.cl +
+// adjustOffsetArrayKernel.cl.
 //
-// For each layer l < radius the candidate offset on the stepped axis is
-// adj = signed_square(l - radius/2).  Per low-res pixel c:
+// One step on axis is_y: for each layer l < radius the candidate offset on
+// the stepped axis is adj = signed_square(l - radius/2).  Per low-res
+// pixel c:
 //   sad     = |y1 - y2| + |u1 - u2| + |v1 - v2|, f1 read at
 //             mirror_inside((c << rs) + offset + adj), f2 the probe
 //   partial = ((sad >> luma_shift) << ds) + |probe|
 //             + (neighbour bias << nbs)                         (uint32)
 // summed over window x window blocks mod 2^32; the first minimum over the
 // layers in unsigned order wins and its signed square is committed to the
-// stepped axis of every pixel of the block.
+// stepped axis of every pixel of the block.  The neighbour bias reads the
+// stepped axis at +-2*window, clamped to the field, as the previous step
+// committed it.
 //
 // What bounds it: at 4K the low-res field is 270 x 480 and a step has
-// radius x 129,600 candidates, each three byte gathers at mirrored
-// coordinates (mostly coherent: neighbouring pixels share their offset)
-// plus a 32-bit add into a window sum.  That is a few MB of traffic per
-// step, so the step is bound by launch latency and by the atomics of the
-// window sums, not by bandwidth or arithmetic.  The design: one thread per
-// (layer, pixel); each warp covers 32 consecutive pixels of one row and
-// pre-reduces its partials per window with shuffles (windows are powers of
-// two, so a window never straddles a warp unevenly), so only one atomicAdd
-// per window and warp reaches memory.  Unsigned addition mod 2^32 is
-// order-independent, so the atomics are bit-exact.  A second launch takes
-// each pixel's window argmin (radius reads of an L2-resident array) and
-// writes the committed axis.
+// radius x 129,600 candidates, each three byte gathers from an L2-resident
+// frame plus a 32-bit add: a few MB and ~70 M scalar operations a step,
+// ~1.1 us at the card's scalar rate.  What cost the time was around that
+// work: three launches a step from a Python loop (a memset, the sums, the
+// commit), one thread per (layer, pixel) that re-read the pixel's inputs
+// per layer, and ~1,000 same-address atomics per window sum.  The design:
+//   * one launch per pyramid: cudaLaunchCooperativeKernel with every
+//     block resident, grid-wide barriers between the phases of a step,
+//     the schedule (window, axis, neighbour bias per step) a kernel
+//     argument; a single step is a schedule of one;
+//   * one thread per pixel of a 32 x 8 tile, reading its inputs once and
+//     looping over the layers with the partials in registers;
+//   * phase A: each layer's partials are summed per window within the warp
+//     (shuffles), then per window within the tile (shared-memory atomics),
+//     and one value per (tile, layer, window) reaches global memory: a
+//     plain store when the window fits in the tile (window <= 8), else an
+//     atomicAdd (window >= 16: one per tile the window covers, 256 at
+//     window 256);
+//   * barrier; phase B: each pixel takes its window's first unsigned
+//     minimum and commits its stepped axis in place; the same phase zeroes
+//     the other of two ping-pong sums buffers for the next step (last read
+//     before the previous barrier), so no memset is launched;
+//   * window 1 needs no reduction: phase A keeps each pixel's winner.
+// Window sums are unsigned additions mod 2^32, so any order of adds gives
+// the same bits: the result is exact.  Field and sums written during the
+// launch are read with ld.global.cg (L2), never through the read-only or
+// L1 path.  Windows are powers of two, so window indices are shifts.
 //
-// The delta-sum kernel is templated on the sample type: uint8_t for NV12,
-// uint16_t for P010.  Under P010 three 16-bit differences reach ~2^17.6,
-// so the SAD is shifted right by luma_shift (8) before << ds, in the order
-// of the TPU kernel (flow_step.py:310-315); shifting after would wrap the
-// window sums differently.
-//
-// None of the TPU kernel's machinery is needed here: no phase stacks, no
-// distinct-offset budget, no `valid` flag and fallback -- f1 is read at
-// the mirrored coordinates directly, as the reference's OpenCL did.
+// The kernel is templated on the sample type: uint8_t for NV12, uint16_t
+// for P010.  Under P010 three 16-bit differences reach ~2^17.6, so the SAD
+// is shifted right by luma_shift (8) before << ds, in the order of the TPU
+// kernel (flow_step.py:310-315); shifting after would wrap the window sums
+// differently.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBX = 32;  // one warp per row segment
-constexpr int kBY = 8;
+constexpr int kLogTX = 5;  // tile: one warp wide, eight rows
+constexpr int kLogTY = 3;
+constexpr int kTX = 1 << kLogTX;
+constexpr int kTY = 1 << kLogTY;
+constexpr int kThreads = kTX * kTY;
+constexpr int kMaxRadius = 16;
+constexpr int kMaxSteps = 64;
+// windows of one tile: at most (32 / 2) x (8 / 2), at window 2
+constexpr int kMaxLocal = (kTX / 2) * (kTY / 2);
+
+// step code: log2(window) | is_y << 8 | nb_enabled << 9
+struct Schedule {
+  int n;
+  int code[kMaxSteps];
+};
 
 __device__ __forceinline__ int mirror_inside(int pos, int dim) {
   if (pos >= dim) pos = dim - (pos - dim + 1);
@@ -58,134 +90,322 @@ __device__ __forceinline__ int signed_square(int v) {
   return v > 0 ? v * v : -(v * v);
 }
 
+// a window wider than the tile spans tiles, so its sums take atomics and
+// start from zero
+__device__ __forceinline__ bool spans_tiles(int lg) { return lg > kLogTY; }
+
+__device__ __forceinline__ size_t sums_of(int lg, int radius, int lh,
+                                          int lw) {
+  return (size_t)radius * (((lh - 1) >> lg) + 1) * (((lw - 1) >> lg) + 1);
+}
+
+// One pixel's partial of every layer on the stepped axis (kIsY: y).  The
+// axis not stepped gives a fixed row (x step) or column (y step), so each
+// layer mirrors one coordinate and gathers three samples; __sad is
+// |a - b| + c in one instruction.  (bx, by): the pixel's full-resolution
+// position plus its offset; (py, pu, pv): the probe; n[4]: the stepped
+// axis of the four neighbours (nb only).
+template <typename T, bool kIsY>
+__device__ __forceinline__ void layer_partials(
+    const T* __restrict__ f1y, const T* __restrict__ f1u,
+    const T* __restrict__ f1v, int bx, int by, int own, int py, int pu,
+    int pv, const int n[4], bool nb, int radius, int ds, int nbs,
+    int luma_shift, int H, int W, int ypitch, int cpitch,
+    unsigned part[kMaxRadius]) {
+  const int half = radius / 2;
+  const int fixed = kIsY ? mirror_inside(bx, W) : mirror_inside(by, H);
+  const T* ry = f1y + (kIsY ? fixed : fixed * ypitch);
+  const T* ru = f1u + (kIsY ? (fixed >> 1) : (fixed >> 1) * cpitch);
+  const T* rv = f1v + (kIsY ? (fixed >> 1) : (fixed >> 1) * cpitch);
+  // the gathers of every layer are issued without a branch (layers past
+  // the radius re-read the last one's samples), so the loads of many
+  // layers are in flight at once; a layer costs one L2 round trip when
+  // each waits for the last
+#pragma unroll
+  for (int l = 0; l < kMaxRadius; ++l) {
+    const int adj = signed_square(min(l, radius - 1) - half);
+    const int probe = own + adj;
+    const int c = kIsY ? mirror_inside(by + adj, H)
+                       : mirror_inside(bx + adj, W);
+    const int oy = kIsY ? c * ypitch : c;
+    const int oc = kIsY ? (c >> 1) * cpitch : (c >> 1);
+    const unsigned sad =
+        __sad((int)ry[oy], py, __sad((int)ru[oc], pu,
+                                     __sad((int)rv[oc], pv, 0u)));
+    unsigned p = ((sad >> luma_shift) << ds) + (unsigned)abs(probe);
+    if (nb)
+      p += __sad(n[0], probe, __sad(n[1], probe, __sad(n[2], probe,
+                 __sad(n[3], probe, 0u)))) << nbs;
+    part[l] = l < radius ? p : 0u;
+  }
+}
+
+// where a launch's time goes: block 0 writes %globaltimer (ns) at the start
+// and after each barrier, into an optional buffer
+__device__ __forceinline__ void stamp(unsigned long long* timeline, int k) {
+  if (timeline != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    timeline[k] = t;
+  }
+}
+
+__device__ void zero(unsigned* p, size_t n) {
+  const size_t stride = (size_t)gridDim.x * kThreads;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride)
+    p[i] = 0;
+}
+
 template <typename T>
-__global__ void delta_sums_kernel(
+__global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
     const T* __restrict__ f1y, const T* __restrict__ f1u,
     const T* __restrict__ f1v, const T* __restrict__ y2,
-    const T* __restrict__ u2, const T* __restrict__ v2,
-    const int* __restrict__ off_x, const int* __restrict__ off_y,
-    unsigned* __restrict__ sums, int is_y, int radius, int ds, int nbs,
-    int window, int nb_enabled, int rs, int H, int W, int lh, int lw,
-    int ypitch, int cpitch, int nwy, int nwx, int luma_shift) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
-  const int l = blockIdx.z;
-  const bool in = x < lw && y < lh;
-  unsigned partial = 0;
-  if (in) {
-    const int adj = signed_square(l - radius / 2);
-    const int i = y * lw + x;
-    const int cand_x = off_x[i] + (is_y ? 0 : adj);
-    const int cand_y = off_y[i] + (is_y ? adj : 0);
-    const int probe = is_y ? cand_y : cand_x;
-    const int ncx = mirror_inside((x << rs) + cand_x, W);
-    const int ncy = mirror_inside((y << rs) + cand_y, H);
-    const size_t ci = (size_t)(ncy >> 1) * cpitch + (ncx >> 1);
-    const int sad = abs((int)f1y[(size_t)ncy * ypitch + ncx] - (int)y2[i]) +
-                    abs((int)f1u[ci] - (int)u2[i]) +
-                    abs((int)f1v[ci] - (int)v2[i]);
-    partial = (((unsigned)sad >> luma_shift) << ds) + (unsigned)abs(probe);
-    if (nb_enabled) {
-      // neighbour bias at +-2*window, clamped to the field
-      const int* prev = is_y ? off_y : off_x;
-      const int w2 = 2 * window;
-      unsigned nb = (unsigned)abs(prev[y * lw + min(x + w2, lw - 1)] - probe);
-      nb += (unsigned)abs(prev[y * lw + max(x - w2, 0)] - probe);
-      nb += (unsigned)abs(prev[min(y + w2, lh - 1) * lw + x] - probe);
-      nb += (unsigned)abs(prev[max(y - w2, 0) * lw + x] - probe);
-      partial += nb << nbs;
-    }
-  }
-  const size_t plane = (size_t)nwy * nwx;
-  if (window == 1) {
-    if (in) sums[l * plane + (size_t)y * nwx + x] = partial;
-    return;
-  }
-  // segmented warp sum: lane k*seg ends up holding its segment's sum
-  const int seg = window < kBX ? window : kBX;
-  for (int off = seg >> 1; off > 0; off >>= 1)
-    partial += __shfl_down_sync(0xffffffffu, partial, off);
-  if (in && (threadIdx.x & (seg - 1)) == 0)
-    atomicAdd(&sums[l * plane + (size_t)(y / window) * nwx + x / window],
-              partial);
-}
+    const T* __restrict__ u2, const T* __restrict__ v2, const int* in_x,
+    const int* in_y, int* field, unsigned* sums, size_t sums_words,
+    Schedule sched, int radius, int ds, int nbs, int rs, int H, int W,
+    int lh, int lw, int ypitch, int cpitch, int luma_shift,
+    unsigned long long* timeline) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ unsigned s_sums[kMaxRadius * kMaxLocal];
+  __shared__ int s_best[kMaxLocal];
+  stamp(timeline, 0);
+  const int tid = threadIdx.x;
+  const int tx = tid & (kTX - 1), ty = tid >> kLogTX;
+  const int ntx = (lw + kTX - 1) >> kLogTX;
+  const int ntiles = ntx * ((lh + kTY - 1) >> kLogTY);
+  const size_t plane = (size_t)lh * lw;
+  int* fx = field;
+  int* fy = field + plane;
+  const int half = radius / 2;
 
-__global__ void commit_kernel(const unsigned* __restrict__ sums,
-                              const int* __restrict__ plane_in,
-                              int* __restrict__ plane_out, int radius,
-                              int window, int lh, int lw, int nwy, int nwx) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
-  if (x >= lw || y >= lh) return;
-  const size_t plane = (size_t)nwy * nwx;
-  const size_t wi = (size_t)(y / window) * nwx + x / window;
-  unsigned best = sums[wi];
-  int best_l = 0;
-  for (int l = 1; l < radius; ++l) {  // first minimum, unsigned order
-    const unsigned s = sums[l * plane + wi];
-    if (s < best) {
-      best = s;
-      best_l = l;
-    }
+  // prologue: the starting field (zero without one), the first sums
+  const size_t stride = (size_t)gridDim.x * kThreads;
+  for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < plane;
+       i += stride) {
+    fx[i] = in_x ? in_x[i] : 0;
+    fy[i] = in_y ? in_y[i] : 0;
   }
-  const int i = y * lw + x;
-  plane_out[i] = plane_in[i] + signed_square(best_l - radius / 2);
+  if (sched.n > 0 && spans_tiles(sched.code[0] & 31))
+    zero(sums, sums_of(sched.code[0] & 31, radius, lh, lw));
+  grid.sync();
+  stamp(timeline, 1);
+
+  for (int s = 0; s < sched.n; ++s) {
+    const int code = sched.code[s];
+    const int lg = code & 31;
+    const bool is_y = (code >> 8) & 1;
+    const bool nb = (code >> 9) & 1;
+    const int nwy = ((lh - 1) >> lg) + 1, nwx = ((lw - 1) >> lg) + 1;
+    const size_t wplane = (size_t)nwy * nwx;
+    unsigned* cur = sums + (s & 1) * sums_words;
+    int* axis = is_y ? fy : fx;
+
+    // phase A: the window sums of every layer
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
+      const int x = x0 + tx, y = y0 + ty;
+      const bool in = x < lw && y < lh;
+      unsigned part[kMaxRadius];
+#pragma unroll
+      for (int l = 0; l < kMaxRadius; ++l) part[l] = 0;
+      if (in) {
+        const int i = y * lw + x;
+        const int ox = __ldcg(fx + i), oy = __ldcg(fy + i);
+        int n[4] = {0, 0, 0, 0};
+        if (nb) {  // the neighbour bias at +-2*window, clamped
+          const int w2 = 2 * min(1 << lg, 1 << 29);
+          n[0] = __ldcg(axis + y * lw + min(x + w2, lw - 1));
+          n[1] = __ldcg(axis + y * lw + max(x - w2, 0));
+          n[2] = __ldcg(axis + min(y + w2, lh - 1) * lw + x);
+          n[3] = __ldcg(axis + max(y - w2, 0) * lw + x);
+        }
+        const int bx = (x << rs) + ox, by = (y << rs) + oy;
+        if (is_y)
+          layer_partials<T, true>(f1y, f1u, f1v, bx, by, oy, y2[i], u2[i],
+                                  v2[i], n, nb, radius, ds, nbs, luma_shift,
+                                  H, W, ypitch, cpitch, part);
+        else
+          layer_partials<T, false>(f1y, f1u, f1v, bx, by, ox, y2[i], u2[i],
+                                   v2[i], n, nb, radius, ds, nbs, luma_shift,
+                                   H, W, ypitch, cpitch, part);
+      }
+      if (lg == 0) {  // window 1: the pixel's own first minimum
+        if (in) {
+          unsigned best = part[0];
+          int best_l = 0;
+#pragma unroll
+          for (int l = 1; l < kMaxRadius; ++l)
+            if (l < radius && part[l] < best) {
+              best = part[l];
+              best_l = l;
+            }
+          __stcg(cur + y * lw + x, (unsigned)best_l);
+        }
+        continue;  // lg is the same in every thread of the block
+      }
+      const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
+      const int nlx = kTX >> lgx;
+      const int nloc = nlx * (kTY >> lgy);
+      for (int j = tid; j < radius * nloc; j += kThreads) s_sums[j] = 0;
+      __syncthreads();
+      const int seg = 1 << lgx;
+      const int loc = (ty >> lgy) * nlx + (tx >> lgx);
+      // the shuffles of every layer at one distance are independent, so
+      // they are issued together rather than layer after layer
+      for (int off = kTX >> 1; off > 0; off >>= 1) {
+        if (off < seg) {
+#pragma unroll
+          for (int l = 0; l < kMaxRadius; ++l)
+            if (l < radius)
+              part[l] += __shfl_down_sync(0xffffffffu, part[l], off);
+        }
+      }
+      if ((tx & (seg - 1)) == 0) {
+#pragma unroll
+        for (int l = 0; l < kMaxRadius; ++l)
+          if (l < radius) atomicAdd(&s_sums[l * nloc + loc], part[l]);
+      }
+      __syncthreads();
+      for (int j = tid; j < radius * nloc; j += kThreads) {
+        const int l = j / nloc, k = j - l * nloc;
+        const int gy = (y0 >> lg) + k / nlx, gx = (x0 >> lg) + k % nlx;
+        if (gy < nwy && gx < nwx) {
+          unsigned* dst = cur + l * wplane + (size_t)gy * nwx + gx;
+          if (spans_tiles(lg))
+            atomicAdd(dst, s_sums[j]);
+          else
+            __stcg(dst, s_sums[j]);
+        }
+      }
+      __syncthreads();  // s_sums is reused by the block's next tile
+    }
+    grid.sync();
+    stamp(timeline, 2 + 2 * s);
+
+    // phase B: one thread per window of the tile takes its first minimum
+    // (so a large window's sums are read once a tile, not once a pixel),
+    // then every pixel commits its window's winner; zero the next sums
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
+      const int x = x0 + tx, y = y0 + ty;
+      const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
+      const int nlx = kTX >> lgx;
+      if (lg > 0) {
+        if (tid < nlx * (kTY >> lgy)) {
+          const int gy = (y0 >> lg) + tid / nlx, gx = (x0 >> lg) + tid % nlx;
+          int best_l = 0;
+          if (gy < nwy && gx < nwx) {
+            const size_t wi = (size_t)gy * nwx + gx;
+            unsigned v[kMaxRadius];  // all loads in flight at once
+#pragma unroll
+            for (int l = 0; l < kMaxRadius; ++l)
+              v[l] = l < radius ? __ldcg(cur + l * wplane + wi) : 0u;
+            unsigned best = v[0];
+#pragma unroll
+            for (int l = 1; l < kMaxRadius; ++l)  // first minimum, unsigned
+              if (l < radius && v[l] < best) {
+                best = v[l];
+                best_l = l;
+              }
+          }
+          s_best[tid] = best_l;
+        }
+        __syncthreads();
+      }
+      if (x < lw && y < lh) {
+        const int best_l =
+            lg == 0 ? (int)__ldcg(cur + y * lw + x)
+                    : s_best[(ty >> lgy) * nlx + (tx >> lgx)];
+        const int i = y * lw + x;
+        axis[i] = __ldcg(axis + i) + signed_square(best_l - half);
+      }
+      if (lg > 0) __syncthreads();  // s_best is reused by the next tile
+    }
+    if (s + 1 < sched.n) {
+      const int next = sched.code[s + 1] & 31;
+      if (spans_tiles(next))
+        zero(sums + ((s + 1) & 1) * sums_words,
+             sums_of(next, radius, lh, lw));
+    }
+    if (s + 1 < sched.n || timeline != nullptr) grid.sync();
+    stamp(timeline, 3 + 2 * s);
+  }
 }
 
 template <typename T>
-void launch_delta_sums(dim3 grid, dim3 block, cudaStream_t s, const void* f1y,
-                       const void* f1u, const void* f1v, const void* y2,
-                       const void* u2, const void* v2, const void* off_x,
-                       const void* off_y, void* sums, int is_y, int radius,
-                       int ds, int nbs, int window, int nb_enabled, int rs,
-                       int H, int W, int lh, int lw, int ypitch, int cpitch,
-                       int nwy, int nwx, int luma_shift) {
-  delta_sums_kernel<T><<<grid, block, 0, s>>>(
-      static_cast<const T*>(f1y), static_cast<const T*>(f1u),
-      static_cast<const T*>(f1v), static_cast<const T*>(y2),
-      static_cast<const T*>(u2), static_cast<const T*>(v2),
-      static_cast<const int*>(off_x), static_cast<const int*>(off_y),
-      static_cast<unsigned*>(sums), is_y, radius, ds, nbs, window, nb_enabled,
-      rs, H, W, lh, lw, ypitch, cpitch, nwy, nwx, luma_shift);
+int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
+           const void* u2, const void* v2, const void* in_x,
+           const void* in_y, void* field, void* sums, size_t sums_words,
+           const Schedule& sched, int radius, int ds, int nbs, int rs, int H,
+           int W, int lh, int lw, int ypitch, int cpitch, int luma_shift,
+           void* timeline, cudaStream_t s) {
+  int dev, sms, per_sm, coop;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pyramid_kernel<T>, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // every block resident (the barriers need it), at most one per tile
+  const int ntiles = ((lw + kTX - 1) / kTX) * ((lh + kTY - 1) / kTY);
+  const int blocks = ntiles < per_sm * sms ? ntiles : per_sm * sms;
+  const T* a1y = static_cast<const T*>(f1y);
+  const T* a1u = static_cast<const T*>(f1u);
+  const T* a1v = static_cast<const T*>(f1v);
+  const T* a2y = static_cast<const T*>(y2);
+  const T* a2u = static_cast<const T*>(u2);
+  const T* a2v = static_cast<const T*>(v2);
+  const int* ix = static_cast<const int*>(in_x);
+  const int* iy = static_cast<const int*>(in_y);
+  int* out = static_cast<int*>(field);
+  unsigned* sm = static_cast<unsigned*>(sums);
+  unsigned long long* tl = static_cast<unsigned long long*>(timeline);
+  Schedule sc = sched;
+  void* args[] = {&a1y, &a1u, &a1v, &a2y, &a2u, &a2v, &ix, &iy,
+                  &out, &sm, &sums_words, &sc, &radius, &ds, &nbs, &rs,
+                  &H, &W, &lh, &lw, &ypitch, &cpitch, &luma_shift, &tl};
+  e = cudaLaunchCooperativeKernel((const void*)pyramid_kernel<T>,
+                                  dim3(blocks), dim3(kThreads), args, 0, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// sums: (radius, nwy, nwx) uint32 scratch; out: the stepped axis' new plane.
-// sample_bytes: 1 (uint8 planes) or 2 (uint16); ypitch/cpitch in samples.
-extern "C" int mfi_flow_step(const void* f1y, const void* f1u, const void* f1v,
-                             const void* y2, const void* u2, const void* v2,
-                             const void* off_x, const void* off_y, void* out,
-                             void* sums, int is_y, int radius, int ds, int nbs,
-                             int window, int nb_enabled, int rs, int H, int W,
-                             int lh, int lw, int ypitch, int cpitch,
-                             int sample_bytes, int luma_shift, void* stream) {
+// field: (2, lh, lw) int32 out, plane 0 the x offsets and plane 1 the y
+// offsets, started from (in_x, in_y) or from zero when both are null;
+// sums: two buffers of sums_words uint32 each (the wrapper sizes them:
+// radius x windows for the largest step, lh x lw for a window-1 step);
+// steps: n_steps host ints, log2(window) | is_y << 8 | nb_enabled << 9.
+// sample_bytes: 1 (uint8 planes) or 2 (uint16); pitches in samples.
+// timeline: null, or 2 + 2 n_steps uint64 that receive %globaltimer (ns)
+// at the start, after the prologue and after each phase of each step.
+extern "C" int mfi_flow_pyramid(
+    const void* f1y, const void* f1u, const void* f1v, const void* y2,
+    const void* u2, const void* v2, const void* in_x, const void* in_y,
+    void* field, void* sums, const int* steps, int n_steps, int sums_words,
+    int radius, int ds, int nbs, int rs, int H, int W, int lh, int lw,
+    int ypitch, int cpitch, int sample_bytes, int luma_shift, void* timeline,
+    void* stream) {
+  if (n_steps < 0 || n_steps > kMaxSteps || radius < 1 ||
+      radius > kMaxRadius || (in_x == nullptr) != (in_y == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Schedule sched;
+  sched.n = n_steps;
+  for (int i = 0; i < n_steps; ++i) sched.code[i] = steps[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nwy = (lh + window - 1) / window;
-  const int nwx = (lw + window - 1) / window;
-  if (window > 1) {
-    cudaError_t e = cudaMemsetAsync(
-        sums, 0, sizeof(unsigned) * (size_t)radius * nwy * nwx, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 block(kBX, kBY);
-  const dim3 grid((lw + kBX - 1) / kBX, (lh + kBY - 1) / kBY, radius);
   if (sample_bytes == 2)
-    launch_delta_sums<uint16_t>(grid, block, s, f1y, f1u, f1v, y2, u2, v2,
-                                off_x, off_y, sums, is_y, radius, ds, nbs,
-                                window, nb_enabled, rs, H, W, lh, lw, ypitch,
-                                cpitch, nwy, nwx, luma_shift);
-  else
-    launch_delta_sums<uint8_t>(grid, block, s, f1y, f1u, f1v, y2, u2, v2,
-                               off_x, off_y, sums, is_y, radius, ds, nbs,
-                               window, nb_enabled, rs, H, W, lh, lw, ypitch,
-                               cpitch, nwy, nwx, luma_shift);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid2((lw + kBX - 1) / kBX, (lh + kBY - 1) / kBY);
-  commit_kernel<<<grid2, block, 0, s>>>(
-      static_cast<const unsigned*>(sums),
-      static_cast<const int*>(is_y ? off_y : off_x), static_cast<int*>(out),
-      radius, window, lh, lw, nwy, nwx);
-  return (int)cudaGetLastError();
+    return launch<uint16_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field,
+                            sums, (size_t)sums_words, sched, radius, ds, nbs,
+                            rs, H, W, lh, lw, ypitch, cpitch, luma_shift,
+                            timeline, s);
+  return launch<uint8_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field, sums,
+                         (size_t)sums_words, sched, radius, ds, nbs, rs, H,
+                         W, lh, lw, ypitch, cpitch, luma_shift, timeline, s);
 }

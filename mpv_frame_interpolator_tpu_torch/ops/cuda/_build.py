@@ -44,15 +44,16 @@ I = ctypes.c_int
 
 # C signature of every entry point: (argtypes); restype is int
 _SIGNATURES = {
-    # f1y f1u f1v y2 u2 v2 off_x off_y out sums | is_y radius ds nbs
-    # window nb_enabled rs H W lh lw f1y_pitch f1c_pitch sample_bytes
-    # luma_shift | stream
-    "mfi_flow_step": (P,) * 10 + (I,) * 15 + (P,),
+    # f1y f1u f1v y2 u2 v2 in_x in_y field sums | steps (host ints) |
+    # n_steps sums_words radius ds nbs rs H W lh lw f1y_pitch f1c_pitch
+    # sample_bytes luma_shift | timeline stream
+    "mfi_flow_pyramid": (P,) * 10 + (ctypes.POINTER(I),) + (I,) * 14
+    + (P, P),
     # in out | planes lh lw | stream
     "mfi_blur_flow": (P, P, I, I, I, P),
     # f1y f1uv f2y f2uv blurred ts out_y out_uv | n H Wa pitch lh lw rs
-    # scale_shift black white | stream
-    "mfi_pair_blend": (P,) * 8 + (I,) * 10 + (P,),
+    # scale_shift black white vec | stream
+    "mfi_pair_blend": (P,) * 8 + (I,) * 11 + (P,),
     # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
     # scale_shift black white | stream
     "mfi_fused_blend": (P,) * 8 + (I,) * 9 + (P,),

@@ -1,23 +1,31 @@
-"""K1: one pyramid step of the flow search (csrc/flow_step.cu).
+"""K1: the flow pyramid and its single step (csrc/flow_step.cu).
 
 Replaces the TPU kernel ``mpv_frame_interpolator_tpu/ops/pallas/
-flow_step.py:flow_step_pallas`` plus its XLA tail ``flow_step_commit``;
-the output equals the JAX step branch ``ops/flow._make_step_branch``
-whichever branch JAX takes (Pallas, shift or gather fallback).
+flow_step.py:flow_step_pallas`` plus its XLA tail ``flow_step_commit``,
+and the ``lax.scan`` that runs them over the pyramid; the output equals
+the JAX step branch ``ops/flow._make_step_branch`` whichever branch JAX
+takes (Pallas, shift or gather fallback).
 
-Bound on the card: launch latency and the window-sum atomics, not bytes
-(a 4K step touches a few MB); the kernel pre-reduces each warp's partials
-per window with shuffles so one atomic per window and warp reaches memory,
-and a second launch takes the per-window argmin and commits.  See the
-header of csrc/flow_step.cu.  The kernel is templated on the sample type:
-uint8 planes for NV12, uint16 for P010, whose SAD is shifted right by
-`luma_shift` before the delta scalar.
+One kernel serves both entry points: ``flow_pyramid`` runs every step of
+a pair (x then y at each window of the schedule) in one host call and one
+cooperative launch, and ``flow_step`` is that launch with a schedule of
+one step.  A 4K step touches a few MB, so bytes do not bound it; the
+kernel keeps one thread per low-res pixel with the layer partials in
+registers, reduces them per window in the block and commits in place
+between grid-wide barriers (PERF.md times each phase; what bounds the
+window sums is still open).  See the header of csrc/flow_step.cu.  The
+kernel is templated on the sample type: uint8 planes for NV12, uint16
+for P010, whose SAD is shifted right by `luma_shift` before the delta
+scalar.
 
-``flow_step`` dispatches on the device of its tensors: CPU tensors take
-``flow_step_plain``, CUDA tensors launch the kernel (or raise).
+Both entry points dispatch on the device of their tensors: CPU tensors
+take ``flow_step_plain`` / ``flow_pyramid_plain``, CUDA tensors launch the
+kernel (or raise).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,6 +36,8 @@ from mpv_frame_interpolator_tpu_torch.ops.flow import (
 counts = _build.LaunchCounts()
 
 _MASK = 0xFFFFFFFF
+MAX_STEPS = 64          # csrc/flow_step.cu kMaxSteps
+MAX_WINDOW = 1 << 30
 
 
 def flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
@@ -82,6 +92,125 @@ def flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
     return off_x + adj2, off_y
 
 
+def pyramid_steps(windows, first_nb_iteration: int):
+    """(window, is_y, nb_enabled) of every step: the x axis then the y axis
+    at each window, the neighbour bias from iteration `first_nb_iteration`
+    on (ops/flow.py's loop, the JAX package's scan)."""
+    return tuple((window, is_y, iteration >= first_nb_iteration)
+                 for iteration, window in enumerate(windows)
+                 for is_y in (0, 1))
+
+
+def flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int,
+                       nbs: int, windows, first_nb_iteration: int, rs: int,
+                       H: int, W: int, luma_shift: int = 0):
+    """The pyramid in plain PyTorch: the loop of ``flow_step_plain`` from
+    a zero field.  Returns the (2, lh, lw) int32 field."""
+    off_x = torch.zeros(y2.shape, dtype=torch.int32, device=y2.device)
+    off_y = torch.zeros_like(off_x)
+    for window, is_y, nb in pyramid_steps(windows, first_nb_iteration):
+        off_x, off_y = flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x,
+                                       off_y, is_y, radius, ds, nbs, window,
+                                       nb, rs, H, W, luma_shift)
+    return torch.stack([off_x, off_y])
+
+
+def _check_scalars(radius: int, ds: int, nbs: int, luma_shift: int, steps):
+    if not 1 <= radius <= 16:
+        raise ValueError(f"radius {radius} outside [1, 16]")
+    if not (0 <= ds <= 31 and 0 <= nbs <= 31):
+        raise ValueError("delta and neighbour-bias scalars must be in "
+                         "[0, 31]")
+    if not 0 <= luma_shift <= 31:
+        raise ValueError(f"luma_shift {luma_shift} outside [0, 31]")
+    if len(steps) > MAX_STEPS:
+        raise ValueError(f"{len(steps)} steps, at most {MAX_STEPS}")
+    for window, is_y, _ in steps:
+        if is_y not in (0, 1):
+            raise ValueError("is_y must be 0 or 1")
+        if not 1 <= window <= MAX_WINDOW or window & (window - 1):
+            # window indices are shifts; the pyramid's windows are
+            # halvings of a power of two
+            raise ValueError(f"window {window} is not a power of two in "
+                             f"[1, 2^30]")
+
+
+def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
+            ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
+            timeline=None):
+    """One cooperative launch of the pyramid kernel over `steps`, from
+    (off_x, off_y), or from zero when both are None.  Returns the (2, lh,
+    lw) int32 field it wrote."""
+    if timeline is not None:
+        _build.require(timeline, "timeline", torch.int64,
+                       (2 + 2 * len(steps),), y2.device)
+    lh, lw = y2.shape
+    dev = y2.device
+    sample = f1y.dtype
+    if sample not in (torch.uint8, torch.uint16):
+        raise ValueError(f"planes must be uint8 or uint16, got {sample}")
+    for name, t in (("y2", y2), ("u2", u2), ("v2", v2)):
+        _build.require(t, name, sample, (lh, lw), dev)
+    if off_x is not None:
+        _build.require(off_x, "off_x", torch.int32, (lh, lw), dev)
+        _build.require(off_y, "off_y", torch.int32, (lh, lw), dev)
+    _build.require(f1y, "f1y", sample, None, dev)
+    _build.require(f1u, "f1u", sample, None, dev)
+    _build.require(f1v, "f1v", sample, f1u.shape, dev)
+    if f1y.shape[0] < H or f1y.shape[1] < W or \
+            f1u.shape[0] < H // 2 or f1u.shape[1] < W // 2:
+        raise ValueError(f"f1 planes {tuple(f1y.shape)}/"
+                         f"{tuple(f1u.shape)} smaller than {H}x{W}")
+    if (lh - 1) << rs >= H or (lw - 1) << rs >= W:
+        raise ValueError("low-res field does not fit the frame")
+    # one sums buffer holds the largest step's window sums, or a window-1
+    # step's per-pixel winners; the kernel ping-pongs between two
+    words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
+                 if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
+                              else 1])
+    field = torch.empty((2, lh, lw), dtype=torch.int32, device=dev)
+    sums = torch.empty((2, words), dtype=torch.int32, device=dev)
+    codes = (ctypes.c_int * max(len(steps), 1))(*(
+        (w.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
+        for w, is_y, nb in steps))
+    start = (None, None) if off_x is None else (off_x.data_ptr(),
+                                                off_y.data_ptr())
+    rc = _build.load().mfi_flow_pyramid(
+        f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
+        u2.data_ptr(), v2.data_ptr(), *start, field.data_ptr(),
+        sums.data_ptr(), codes, len(steps), words, radius, ds, nbs, rs, H,
+        W, lh, lw, f1y.shape[1], f1u.shape[1], f1y.element_size(),
+        luma_shift, None if timeline is None else timeline.data_ptr(),
+        _build.stream_of(y2))
+    _build.check("flow_pyramid", rc)
+    counts.kernel += 1
+    return field
+
+
+def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
+                 windows, first_nb_iteration: int, rs: int, H: int, W: int,
+                 luma_shift: int = 0, timeline=None):
+    """Every step of one pair's pyramid, from a zero field: the x axis then
+    the y axis at each window of `windows`, the neighbour bias from
+    iteration `first_nb_iteration` on.  Planes as for ``flow_step``.
+    Returns the (2, lh, lw) int32 field, plane 0 the x offsets and plane 1
+    the y offsets.
+
+    `timeline`, for measurement on the card only: an int64 tensor of 2 + 4
+    x len(windows) entries that receives the card's clock in ns at the
+    launch's start, after its prologue and after each phase (sums, then
+    commit) of each step, with a barrier after the last step."""
+    steps = pyramid_steps(windows, first_nb_iteration)
+    _check_scalars(radius, ds, nbs, luma_shift, steps)
+    if y2.device.type == "cpu":
+        counts.plain += 1
+        return flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius, ds, nbs,
+                                  windows, first_nb_iteration, rs, H, W,
+                                  luma_shift)
+    return _launch(f1y, f1u, f1v, y2, u2, v2, None, None, steps, radius, ds,
+                   nbs, rs, H, W, luma_shift, timeline)
+
+
 def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
               radius: int, ds: int, nbs: int, window: int, nb_enabled: bool,
               rs: int, H: int, W: int, luma_shift: int = 0):
@@ -95,54 +224,14 @@ def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
     candidate's SAD is shifted right by `luma_shift` (8 for P010).
     Returns the new (off_x, off_y); the axis not stepped is returned as
     it was given."""
-    if not 1 <= radius <= 16:
-        raise ValueError(f"radius {radius} outside [1, 16]")
-    if not (0 <= ds <= 31 and 0 <= nbs <= 31):
-        raise ValueError("delta and neighbour-bias scalars must be in "
-                         "[0, 31]")
-    if is_y not in (0, 1):
-        raise ValueError("is_y must be 0 or 1")
-    if not 0 <= luma_shift <= 31:
-        raise ValueError(f"luma_shift {luma_shift} outside [0, 31]")
-    if window < 1 or window & (window - 1):
-        # the kernel's per-warp window segments need a power of two; the
-        # pyramid's windows always are (halvings of a power of two)
-        raise ValueError(f"window {window} is not a power of two")
+    _check_scalars(radius, ds, nbs, luma_shift,
+                   ((window, is_y, nb_enabled),))
     if off_x.device.type == "cpu":
         counts.plain += 1
         return flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y,
                                is_y, radius, ds, nbs, window, nb_enabled,
                                rs, H, W, luma_shift)
-    lh, lw = off_x.shape
-    dev = off_x.device
-    i32 = torch.int32
-    sample = f1y.dtype
-    if sample not in (torch.uint8, torch.uint16):
-        raise ValueError(f"planes must be uint8 or uint16, got {sample}")
-    _build.require(off_x, "off_x", i32, (lh, lw), dev)
-    _build.require(off_y, "off_y", i32, (lh, lw), dev)
-    for name, t in (("y2", y2), ("u2", u2), ("v2", v2)):
-        _build.require(t, name, sample, (lh, lw), dev)
-    _build.require(f1y, "f1y", sample, None, dev)
-    _build.require(f1u, "f1u", sample, None, dev)
-    _build.require(f1v, "f1v", sample, f1u.shape, dev)
-    if f1y.shape[0] < H or f1y.shape[1] < W or \
-            f1u.shape[0] < H // 2 or f1u.shape[1] < W // 2:
-        raise ValueError(f"f1 planes {tuple(f1y.shape)}/"
-                         f"{tuple(f1u.shape)} smaller than {H}x{W}")
-    if (lh - 1) << rs >= H or (lw - 1) << rs >= W:
-        raise ValueError("low-res field does not fit the frame")
-    nwy, nwx = -(-lh // window), -(-lw // window)
-    out = torch.empty_like(off_x)
-    sums = torch.empty((radius, nwy, nwx), dtype=i32, device=dev)
-    lib = _build.load()
-    rc = lib.mfi_flow_step(
-        f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
-        u2.data_ptr(), v2.data_ptr(), off_x.data_ptr(), off_y.data_ptr(),
-        out.data_ptr(), sums.data_ptr(), is_y, radius, ds, nbs, window,
-        int(bool(nb_enabled)), rs, H, W, lh, lw, f1y.shape[1],
-        f1u.shape[1], f1y.element_size(), luma_shift,
-        _build.stream_of(off_x))
-    _build.check("flow_step", rc)
-    counts.kernel += 1
-    return (off_x, out) if is_y else (out, off_y)
+    field = _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y,
+                    ((window, is_y, nb_enabled),), radius, ds, nbs, rs, H, W,
+                    luma_shift)
+    return (off_x, field[1]) if is_y else (field[0], off_y)

@@ -9,12 +9,16 @@ samples, scale_shift 8) alike (ops/warp.py holds the pieces).  The TPU
 kernel covers only 8-bit NV12 at the default levels; this one serves
 every case.
 
-Bound on the card: ideally memory traffic (at 4K with N = 5 a pair
+Bound on the card, ideally: memory traffic (at 4K with N = 5 a pair
 writes ~62 MB and reads two nearest source samples per output sample
-from sources that stay in L2); this first form moves one sample per
-access and is bound by the count of those accesses instead.  One thread
-per output pixel keeps the loop over N inside, so the flow and
-reverse-flow lookups are read once per pixel.
+from sources that stay in L2).  One thread per 16-byte output run of a
+row (and, at 8 bits, per position) computes each flow cell's
+displacements once a position and, where no sample of the run is
+mirrored, reads its sources with aligned 16-byte loads and writes one
+16-byte store a position; edge runs take the per-sample step (see the
+header of csrc/warp_pair.cu).
+``vector_path`` says whether a launch may take the 16-byte path at all
+(tests/test_torch_warp_runs.py models the run decomposition on the CPU).
 
 ``pair_blend`` dispatches on the device: CPU tensors take
 ``pair_blend_plain``, CUDA tensors launch the kernel (or raise).
@@ -87,6 +91,20 @@ def check_args(f1y, f1uv, f2y, f2uv, blurred, actual_width: int,
     return H, pitch, sample
 
 
+RUN_BYTES = 16
+
+
+def vector_path(planes, actual_width: int) -> bool:
+    """Whether K2 may read and write 16-byte runs: every plane (sources
+    and outputs) starts 16-byte aligned and both the source rows (pitch)
+    and the output rows (actual_width) are a multiple of 16 bytes.
+    Otherwise the whole launch takes the per-sample path."""
+    item = planes[0].element_size()
+    return (planes[0].shape[-1] * item % RUN_BYTES == 0
+            and actual_width * item % RUN_BYTES == 0
+            and all(p.data_ptr() % RUN_BYTES == 0 for p in planes))
+
+
 def pair_blend(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
                actual_width: int, scale_shift: int = 0, levels=(0, 255)):
     """All blend positions `ts` of one pair.
@@ -119,10 +137,11 @@ def pair_blend(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
     _, lh, lw = blurred.shape
     y = torch.empty((n, H, actual_width), dtype=sample, device=dev)
     uv = torch.empty((n, hc, actual_width), dtype=sample, device=dev)
+    vec = vector_path((f1y, f1uv, f2y, f2uv, y, uv), actual_width)
     rc = _build.load().mfi_pair_blend(
         f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
         blurred.data_ptr(), ts.data_ptr(), y.data_ptr(), uv.data_ptr(),
-        n, H, actual_width, pitch, lh, lw, rs, scale_shift, k, w,
+        n, H, actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(vec),
         _build.stream_of(f1y))
     _build.check("pair_blend", rc)
     counts.kernel += 1

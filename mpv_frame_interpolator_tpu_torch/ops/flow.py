@@ -1,11 +1,11 @@
 """Hierarchical block-matching optical flow (counterpart of the JAX
 package's ``ops/flow.py``).
 
-The pyramid is a Python loop over (iteration, axis): each of the
-2 x iterations steps is one call of the flow-step kernel
-(ops/cuda/flow_step.py), which searches `radius` candidate offsets on one
-axis, sums the biased SAD over window x window blocks and commits the
-winner.  The final field is blurred by the blur kernel (ops/cuda/blur.py).
+The whole pyramid -- 2 x iterations steps, x then y at each window -- is
+one call of the flow-pyramid kernel (ops/cuda/flow_step.py): each step
+searches `radius` candidate offsets on one axis, sums the biased SAD over
+window x window blocks and commits the winner.  The final field is
+blurred by the blur kernel (ops/cuda/blur.py).
 
 The search radius is a runtime integer <= MAX_SEARCH_RADIUS that bounds
 the kernel's layer loop.  The JAX package's layer buckets (one compiled
@@ -149,22 +149,15 @@ def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
     (2, lh, lw) int32, blurred (2, lh, lw) int32), plane 0 the x offsets
     and plane 1 the y offsets."""
     from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
-        flow_step)
+        flow_pyramid)
     if not 1 <= radius <= MAX_SEARCH_RADIUS:
         raise NotImplementedError(
             f"search radius {radius} is outside [1, {MAX_SEARCH_RADIUS}]")
-    lh, lw = geom.low_h, geom.low_w
     y2, u2, v2 = subsampled_f2(geom, f2y, f2u, f2v)
-    off_x = torch.zeros((lh, lw), dtype=torch.int32, device=f1y.device)
-    off_y = torch.zeros((lh, lw), dtype=torch.int32, device=f1y.device)
-    for iteration, window in enumerate(geom.window_schedule()):
-        for is_y in (0, 1):
-            off_x, off_y = flow_step(
-                f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y, radius,
-                delta_scalar, neighbor_bias_scalar, window,
-                iteration >= FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
-                geom.height, geom.stride, luma_shift)
-    offset = torch.stack([off_x, off_y])
+    offset = flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius, delta_scalar,
+                          neighbor_bias_scalar, geom.window_schedule(),
+                          FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
+                          geom.height, geom.stride, luma_shift)
     return offset, blur_flow(offset)
 
 

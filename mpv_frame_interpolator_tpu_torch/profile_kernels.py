@@ -1,0 +1,177 @@
+"""K1 and K2 on the card at the main path's 4K shapes, for comparing two
+trees of the port in turns.
+
+    python3 mpv_frame_interpolator_tpu_torch/profile_kernels.py \
+        [--root TREE] [--label NAME]
+
+Imports the port from TREE (default: the checkout this file is in), so one
+copy of this script can measure an older tree (an unpacked ``git
+archive``) and the current one in one run on one card.  Only entry
+points that every tree of the port has are called: the flow step, the
+pyramid (``flow_pyramid`` where the tree has it, else the loop of steps
+from a zero field), ``pair_blend`` and the engine.  Prints, with the
+card's name and power limit:
+
+* K1: device ms of the whole radius-16 pyramid of a 4K pair, its
+  launches, and the host ms its wrapper calls take (50 pyramids
+  enqueued with no synchronise between them); device ms of one step at
+  each window of the schedule;
+* K2: device ms of the five blend positions of a 4K pair, 8-bit at the
+  default levels and P010 with levels (16, 235);
+* the engine alone (8-bit, frames staged on the card): wall ms per pair
+  with a synchronise after each pair, and device ms per pair and busy
+  share under torch.profiler.
+
+Device ms is the sum of the device rows (kernels, memsets, copies) of a
+torch.profiler trace of the call.  The last line is the same as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+W4K, H4K = 3840, 2160
+SEED = 20261016
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="profile_kernels", description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    p.add_argument("--label", default="")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels: CUDA is not available")
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch import cli
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops import warp as W
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
+        EngineConfig, InterpolationEngine)
+    from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
+
+    def device_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(self_device_us(e) for e in prof.key_averages()) / 1e3 \
+            / reps
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    rng = np.random.default_rng(SEED)
+
+    def planes(dt):
+        hi = 1 << (8 * np.dtype(dt).itemsize)
+        y = torch.from_numpy(rng.integers(0, hi, (H4K, W4K)).astype(dt))
+        uv = torch.from_numpy(rng.integers(0, hi, (H4K // 2, W4K)).astype(dt))
+        y, uv = y.to(dev), uv.to(dev)
+        return y, uv, uv[:, 0::2].contiguous(), uv[:, 1::2].contiguous()
+
+    geom = F.FlowGeometry.create(H4K, W4K, W4K)
+    rs = geom.res_scalar
+    out = {"label": args.label, "root": args.root, "card": smi}
+    f1y, f1uv, f1u, f1v = planes(np.uint8)
+    f2y, f2uv, f2u, f2v = planes(np.uint8)
+    probe = F.subsampled_f2(geom, f2y, f2u, f2v)
+    windows = geom.window_schedule()
+    zero = torch.zeros((geom.low_h, geom.low_w), dtype=torch.int32,
+                       device=dev)
+    steps = [(w, is_y, it >= F.FIRST_NEIGHBOR_ITERATION)
+             for it, w in enumerate(windows) for is_y in (0, 1)]
+
+    def pyramid():
+        if hasattr(KS, "flow_pyramid"):
+            return KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6, windows,
+                                   F.FIRST_NEIGHBOR_ITERATION, rs,
+                                   geom.height, geom.stride)
+        ox, oy = zero, zero
+        for w, is_y, nb in steps:
+            ox, oy = KS.flow_step(f1y, f1u, f1v, *probe, ox, oy, is_y, 16, 8,
+                                  6, w, nb, rs, geom.height, geom.stride)
+        return ox, oy
+
+    before = KS.counts.kernel
+    pyramid()
+    out["k1_launches_per_pair"] = KS.counts.kernel - before
+    out["k1_pyramid_device_ms"] = device_ms(pyramid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        pyramid()
+    out["k1_host_ms_per_pair"] = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    out["k1_step_device_ms"] = {
+        w: device_ms(lambda w=w, nb=nb: [KS.flow_step(
+            f1y, f1u, f1v, *probe, zero, zero, is_y, 16, 8, 6, w, nb, rs,
+            geom.height, geom.stride) for is_y in (0, 1)]) / 2
+        for w, _, nb in steps[::2]}
+
+    blurred = torch.from_numpy(rng.integers(-96, 97, (2, geom.low_h,
+                                                      geom.low_w)).astype(
+        np.int32)).to(dev)
+    blurred = blurred.repeat_interleave(8, 1).repeat_interleave(8, 2)[
+        :, :geom.low_h, :geom.low_w].contiguous()
+    ts = torch.tensor([0.0, 0.2, 0.4, 0.6, 0.8], dtype=torch.float32,
+                      device=dev)
+    out["k2_device_ms"] = device_ms(lambda: KW.pair_blend(
+        f1y, f1uv, f2y, f2uv, blurred, ts, rs, W4K))
+    g1y, g1uv, _, _ = planes(np.uint16)
+    g2y, g2uv, _, _ = planes(np.uint16)
+    out["k2_p010_device_ms"] = device_ms(lambda: KW.pair_blend(
+        g1y, g1uv, g2y, g2uv, blurred, ts, rs, W4K, 8,
+        W.level_ints(16, 235)))
+
+    eng = InterpolationEngine(EngineConfig(
+        display_fps=120.0, auto_quality=False, initial_search_radius=16,
+        device=str(dev)))
+    src = cli.make_source(cli.build_parser().parse_args(
+        ["synthetic:moving_box", "--width", str(W4K), "--height", str(H4K),
+         "--fps", "24", "--frames", "24"]))[0]
+    staged = [eng.stage(f) for f in src]
+    for f in staged[:4]:
+        eng.push(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in staged[4:14]:
+        eng.push(f)
+        torch.cuda.synchronize()
+    out["engine_wall_ms_per_pair"] = (time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in staged[14:]:
+            eng.push(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(self_device_us(e) for e in prof.key_averages()) / 1e3
+    out["engine_device_ms_per_pair"] = busy / 10
+    out["engine_busy_share"] = busy / (wall * 1e3)
+
+    print(f"card: {smi}  tree: {args.root} {args.label}")
+    for key, value in out.items():
+        if key not in ("label", "root", "card"):
+            print(f"  {key}: {value}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -136,6 +136,89 @@ def test_flow_step_p010(cuda, h, w, stride, mcr):
                 _equal(KS.flow_step(*args), KS.flow_step_plain(*args))
 
 
+@pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
+@pytest.mark.parametrize("h,w,stride,mcr", [(118, 202, 202, 270),
+                                            (544, 96, 96, 270),
+                                            (48, 64, 80, 270),
+                                            (48, 64, 64, 24)])
+def test_flow_pyramid(cuda, dt, luma_shift, h, w, stride, mcr):
+    """The whole pyramid in one launch against the loop of plain steps,
+    radius 5 and 16, the neighbour bias from iteration 0, 1 and 4."""
+    rng = np.random.default_rng(h * w + luma_shift)
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    windows = geom.window_schedule()
+    for radius, first_nb in ((5, 4), (16, 1), (16, 0)):
+        args = (y1, u1, v1, *probe, radius, 8, 6, windows, first_nb,
+                geom.res_scalar, geom.height, geom.stride, luma_shift)
+        before = KS.counts.kernel
+        got = KS.flow_pyramid(*args)
+        assert KS.counts.kernel == before + 1
+        _equal([got], [KS.flow_pyramid_plain(*args)])
+
+
+@pytest.mark.parametrize("window", [64, 512])
+def test_flow_step_window_larger_than_the_field(cuda, window):
+    """One window covers the whole 24 x 32 field and more (the plain
+    version pads the field to whole windows, so the window stays small
+    enough for that)."""
+    rng = np.random.default_rng(window)
+    geom = F.FlowGeometry.create(48, 64, 64, 24)
+    y1, uv1 = _frames(rng, 48, 64, cuda)
+    y2, uv2 = _frames(rng, 48, 64, cuda)
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    for is_y in (0, 1):
+        ox = torch.from_numpy(rng.integers(-9, 10, (geom.low_h, geom.low_w))
+                              .astype(np.int32)).to(cuda)
+        oy = torch.from_numpy(rng.integers(-9, 10, (geom.low_h, geom.low_w))
+                              .astype(np.int32)).to(cuda)
+        args = (y1, uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous(),
+                *probe, ox, oy, is_y, 16, 8, 6, window, True,
+                geom.res_scalar, geom.height, geom.stride)
+        _equal(KS.flow_step(*args), KS.flow_step_plain(*args))
+
+
+# (height, width, stride, vector path at 8 bits, at P010): rs 0, 2 and 3;
+# 16-byte rows (the vector path) and rows that are not (per sample)
+_RUN_SHAPES = [(64, 128, 144, True, True), (544, 96, 96, True, True),
+               (1088, 64, 80, True, True), (48, 120, 136, False, True),
+               (64, 100, 112, False, False), (544, 90, 96, False, False)]
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0))])
+@pytest.mark.parametrize("h,w,stride,vec8,vec16", _RUN_SHAPES)
+def test_pair_blend_runs(cuda, scale_shift, levels, h, w, stride, vec8,
+                         vec16):
+    """K2's 16-byte runs and its per-sample path, each bit-exact: flows
+    that push cells past every edge, odd chroma displacements (odd flows
+    at t = 0.4), t in {0, 0.4, 0.9999, 1}."""
+    rng = np.random.default_rng(h + w + stride + scale_shift)
+    dt = np.uint16 if scale_shift else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w)
+    f1 = _frames(rng, h, stride, cuda, dt)
+    f2 = _frames(rng, h, stride, cuda, dt)
+    lh, lw = geom.low_h, geom.low_w
+    far = max(h, w) // 2
+    blurred = np.where(rng.random((2, lh, lw)) < 0.2,
+                       rng.integers(-far, far + 1, (2, lh, lw)),
+                       2 * rng.integers(-20, 21, (2, lh, lw)) + 1)
+    blurred = torch.from_numpy(blurred.astype(np.int32)).to(cuda)
+    ts = torch.tensor([0.0, 0.4, 0.9999, 1.0], dtype=torch.float32,
+                      device=cuda)
+    args = (f1[0], f1[1], f2[0], f2[1], blurred, ts, geom.res_scalar, w,
+            scale_shift, W.level_ints(*levels))
+    got = KW.pair_blend(*args)
+    assert KW.vector_path((*f1, *f2, *got), w) == (vec16 if scale_shift
+                                                   else vec8)
+    _equal(got, KW.pair_blend_plain(*args))
+
+
 _LEVELS = [(0.0, 255.0), (16.0, 235.0), (16.5, 235.5), (128.0, 128.0),
            (0.0, 1.0)]
 
