@@ -17,8 +17,10 @@ Phases (any failure raises and exits non-zero):
    luma_shift 8; K2 with scale_shift 8 and levels (16, 235), and with
    flows that push cells past every edge and odd chroma displacements,
    t in {0, 0.4, 1}; K4 at 8 bits and at P010, default and non-default
-   levels, t in {0, 0.4, 1}; K5 at 8 bits and at P010 (65535 samples
-   pass through uncapped), both directions, t in {0, 0.4, 1};
+   levels, K5 at 8 bits and at P010 (65535 samples pass through
+   uncapped), both directions, each on the block, edge and odd flows at
+   t in {0, 0.4, 1}, the 4K planes taking the 16-byte path of K2, K4 and
+   K5;
 3b. the toolchain probes through their entry points: P1 (packed bytes)
    every probe OK, P2 (asynchronous copies) its matrix printed, the
    aligned control OK under cp.async and TMA and every case that is not
@@ -342,37 +344,47 @@ def phase_kernels(dev):
     results["pair_blend"] = dict(k2[0], max_abs_err=max(
         k2[0]["max_abs_err"], k2[8]["max_abs_err"]), p010=k2[8])
 
-    # K4: one blend position, 8-bit and P010, default and TV levels
+    # K4: one blend position, 8-bit and P010, default and TV levels, on
+    # the block, edge and odd flows; timed at t = 0.4 on the block flow
+    flows = (("block", blurred), ("edge", far), ("odd", odd))
     k4 = {}
     err = 0
     for dt, ss in ((np.uint8, 0), (np.uint16, 8)):
         for levels in ((0, 255), W.level_ints(16, 235)):
-            for t in (0.0, 0.4, 1.0):
-                tt = torch.tensor(t, dtype=torch.float32, device=dev)
-                args = (*warp_args(dt), tt, rs, geom.actual_width, ss,
-                        levels)
-                e = max_err(KF.fused_blend(*args),
-                            KF.fused_blend_plain(*args))
+            for name, flow in flows:
+                e = 0
+                for t in (0.0, 0.4, 1.0):
+                    tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                    args = (*warp_args(dt)[:4], flow, tt, rs,
+                            geom.actual_width, ss, levels)
+                    got = KF.fused_blend(*args)
+                    check(KW.vector_path((*args[:4], *got),
+                                         geom.actual_width),
+                          "the 4K planes do not take K4's 16-byte path")
+                    e = max(e, max_err(got, KF.fused_blend_plain(*args)))
                 log(f"  K4 {W4K}x{H4K} scale_shift={ss} levels={levels} "
-                    f"t={t}: max_abs_err={e}")
+                    f"{name} flow, t in (0, 0.4, 1): max_abs_err={e}")
                 err = max(err, e)
-                if t == 0.4:
-                    k4[(ss, levels)] = dict(
-                        ms=cuda_ms(lambda: KF.fused_blend(*args), 20),
-                        plain_ms=cuda_ms(
-                            lambda: KF.fused_blend_plain(*args), 5),
-                        bound=warp_bound(1, np.dtype(dt).itemsize, rs))
+            tt = torch.tensor(0.4, dtype=torch.float32, device=dev)
+            args = (*warp_args(dt), tt, rs, geom.actual_width, ss, levels)
+            k4[(ss, levels)] = dict(
+                device_ms=device_ms(lambda: KF.fused_blend(*args)),
+                ms=cuda_ms(lambda: KF.fused_blend(*args), 20),
+                plain_ms=cuda_ms(lambda: KF.fused_blend_plain(*args), 5),
+                bound=warp_bound(1, np.dtype(dt).itemsize, rs))
     main = k4[(8, W.level_ints(16, 235))]
     results["fused_blend"] = dict(
         main, max_abs_err=err,
         nv12=k4[(0, (0, 255))])
     for key, r in sorted(k4.items()):
         log(f"  K4 scale_shift={key[0]} levels={key[1]} t=0.4: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
 
-    # K5: one direction at one position, 8-bit and P010, both directions;
-    # P010 rows of 65535 pass through uncapped
+    # K5: one direction at one position, 8-bit and P010, both directions,
+    # on the block, edge and odd flows; P010 rows of 65535 pass through
+    # uncapped
     for dt in (np.uint8, np.uint16):
         for plane in (frames[dt][0][0], frames[dt][1][0]):
             host = plane.cpu().numpy()      # CUDA does not fill uint16
@@ -382,43 +394,51 @@ def phase_kernels(dev):
     err = 0
     for dt in (np.uint8, np.uint16):
         for direction in (12, 21):
-            for t in (0.0, 0.4, 1.0):
-                tt = torch.tensor(t, dtype=torch.float32, device=dev)
-                args = (*warp_args(dt), tt, direction, rs, geom.actual_width)
-                got = KD.sample_dir(*args)
-                e = max_err(got, KD.sample_dir_plain(*args))
-                top = int(got[0].to(torch.int32).max())
+            for name, flow in flows:
+                e = 0
+                for t in (0.0, 0.4, 1.0):
+                    tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                    args = (*warp_args(dt)[:4], flow, tt, direction, rs,
+                            geom.actual_width)
+                    got = KD.sample_dir(*args)
+                    src = args[:2] if direction == 12 else args[2:4]
+                    check(KW.vector_path((*src, *got), geom.actual_width),
+                          "the 4K planes do not take K5's 16-byte path")
+                    e = max(e, max_err(got, KD.sample_dir_plain(*args)))
+                    if name == "block":
+                        top = int(got[0].to(torch.int32).max())
+                        check(top == np.iinfo(dt).max,
+                              f"K5 {np.dtype(dt).name}: the top sample came "
+                              f"out as {top}")
                 log(f"  K5 {W4K}x{H4K} {np.dtype(dt).name} direction="
-                    f"{direction} t={t}: max_abs_err={e}, max sample {top}")
-                check(top == np.iinfo(dt).max,
-                      f"K5 {np.dtype(dt).name}: the top sample came out "
-                      f"as {top}")
+                    f"{direction} {name} flow, t in (0, 0.4, 1): "
+                    f"max_abs_err={e}")
                 err = max(err, e)
-                if t == 0.4 and direction == 12:
-                    item = np.dtype(dt).itemsize
-                    out = (H4K + H4K // 2) * W4K
-                    k5[item] = dict(
-                        device_ms=device_ms(lambda: KD.sample_dir(*args)),
-                        ms=cuda_ms(lambda: KD.sample_dir(*args), 20),
-                        plain_ms=cuda_ms(lambda: KD.sample_dir_plain(*args),
-                                         5),
-                        # one plane pair written, as many source samples
-                        # read, the flow read once; ~15 scalar operations
-                        # per sample (two products, two roundings, two
-                        # mirrors, the flow and source addresses)
-                        bound=bound(2 * out * item + blurred.numel() * 4,
-                                    15 * out))
+        tt = torch.tensor(0.4, dtype=torch.float32, device=dev)
+        args = (*warp_args(dt), tt, 12, rs, geom.actual_width)
+        item = np.dtype(dt).itemsize
+        out = (H4K + H4K // 2) * W4K
+        k5[item] = dict(
+            device_ms=device_ms(lambda: KD.sample_dir(*args)),
+            ms=cuda_ms(lambda: KD.sample_dir(*args), 20),
+            plain_ms=cuda_ms(lambda: KD.sample_dir_plain(*args), 5),
+            # one plane pair written, as many source samples read, the
+            # flow read once; ~15 scalar operations per sample (two
+            # products, two roundings, two mirrors, the flow and source
+            # addresses)
+            bound=bound(2 * out * item + blurred.numel() * 4, 15 * out))
     results["sample_dir"] = dict(k5[1], max_abs_err=err, p010=k5[2])
 
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}), max_abs_err {r['max_abs_err']}")
-        if "p010" in r:
-            q = r["p010"]
-            log(f"  {name} P010: kernel {q['ms']:.4f} ms{_device(q)}, plain "
-                f"{q['plain_ms']:.4f} ms, bound {q['bound'][0]:.4f} ms "
-                f"({q['bound'][1]})")
+        for width in ("p010", "nv12"):
+            if width in r:
+                q = r[width]
+                log(f"  {name} {width.upper()}: kernel {q['ms']:.4f} ms"
+                    f"{_device(q)}, plain {q['plain_ms']:.4f} ms, bound "
+                    f"{q['bound'][0]:.4f} ms ({q['bound'][1]})")
         check(r["max_abs_err"] == 0, f"{name} disagrees with its plain "
               f"version (max_abs_err {r['max_abs_err']})")
     return results
@@ -478,11 +498,16 @@ def phase_probes(dev):
         # copy (which is also the plain version)
         library_ms=cuda_ms(lambda: [src[dy:dy + r, dx:dx + c].clone()
                                     for _, src, dy, dx, r, c in runs], 20),
+        # the same copies' own device time, beside the probe's device_ms
+        library_device_ms=device_ms(lambda: [
+            src[dy:dy + r, dx:dx + c].clone()
+            for _, src, dy, dx, r, c in runs]),
         bound=bound(nbytes, 0))
     for name, r in results.items():
         log(f"  {name}: kernels {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
             f"ms), plain {r['plain_ms']:.4f} ms, "
-            + (f"library {r['library_ms']:.4f} ms, " if "library_ms" in r
+            + (f"library {r['library_ms']:.4f} ms (device "
+               f"{r['library_device_ms']:.4f} ms), " if "library_ms" in r
                else "")
             + f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
             f"max_abs_err {r['max_abs_err']}, launches {r['launches']}")

@@ -1,6 +1,8 @@
 // The per-pixel step of the blended warp, shared by K2 (warp_pair.cu, every
 // blend position of a pair) and K4 (warp_fused.cu, one position), and the
-// one-direction raw sample of K5 (warp_sample.cu, sample_dir_pixel).
+// one-direction raw sample of K5 (warp_sample.cu, sample_dir_pixel); the
+// flow lookups and the rounded displacements their 16-byte runs compute once
+// a flow cell (warp_runs.cuh).
 //
 // The semantics are those of the JAX blended warp (ops/warp._warp_sample,
 // mode 2), i.e. the reference's warpFrameKernel.cl with the fixed-point
@@ -74,6 +76,20 @@ __device__ __forceinline__ unsigned levels_uv(unsigned b, int ss, int w) {
   return min(n / d, cap);
 }
 
+// Output pixel (cx, cy)'s low-res flow cell: luma (cy >> rs, cx >> rs),
+// chroma ((cy >> rs) << 1, (cx >> rs) & ~1), clamped to the field.
+template <bool kChroma>
+__device__ __forceinline__ void flow_cell(int cx, int cy, int lh, int lw,
+                                          int rs, int* scx, int* scy) {
+  if (kChroma) {
+    *scx = min((cx >> rs) & ~1, lw - 1);
+    *scy = min((cy >> rs) << 1, lh - 1);
+  } else {
+    *scx = min(cx >> rs, lw - 1);
+    *scy = min(cy >> rs, lh - 1);
+  }
+}
+
 // The forward flow at output pixel (cx, cy)'s low-res cell and the reverse
 // flow read back through it, as floats.
 template <bool kChroma>
@@ -82,13 +98,7 @@ __device__ __forceinline__ void flow_at(const int* __restrict__ blurred,
                                         int rs, float* fx12, float* fy12,
                                         float* fx21, float* fy21) {
   int scx, scy;
-  if (kChroma) {
-    scx = min((cx >> rs) & ~1, lw - 1);
-    scy = min((cy >> rs) << 1, lh - 1);
-  } else {
-    scx = min(cx >> rs, lw - 1);
-    scy = min(cy >> rs, lh - 1);
-  }
+  flow_cell<kChroma>(cx, cy, lh, lw, rs, &scx, &scy);
   const int* bx = blurred;
   const int* by = blurred + (size_t)lh * lw;
   const int ox12 = bx[scy * lw + scx];
@@ -101,64 +111,80 @@ __device__ __forceinline__ void flow_at(const int* __restrict__ blurred,
   *fy21 = (float)by[bscy * lw + bscx];
 }
 
-// One output sample of a plane (rows x Wa, sources of `pitch` samples a
-// row) at blend position t12.
-template <typename T, bool kChroma>
-__device__ __forceinline__ T blend_pixel(const T* __restrict__ f1,
-                                         const T* __restrict__ f2, int pitch,
-                                         int rows, int Wa, int cx, int cy,
-                                         float fx12, float fy12, float fx21,
-                                         float fy21, float t12, int ss, int k,
-                                         int w) {
-  const float t21 = __fsub_rn(1.0f, t12);
-  float dy12 = __fmul_rn(fy12, t12), dy21 = __fmul_rn(fy21, t21);
-  if (kChroma) {
-    dy12 = __fmul_rn(dy12, 0.5f);
-    dy21 = __fmul_rn(dy21, 0.5f);
+// The flow of ONE direction at output pixel (cx, cy)'s low-res cell:
+// direction 12 the forward flow there, direction 21 the reverse flow read
+// back through it (flow_at's lookups; direction 12 reads no reverse flow).
+template <bool kChroma>
+__device__ __forceinline__ void flow_dir(const int* __restrict__ blurred,
+                                         int cx, int cy, int lh, int lw,
+                                         int rs, bool dir21, float* fx,
+                                         float* fy) {
+  int scx, scy;
+  flow_cell<kChroma>(cx, cy, lh, lw, rs, &scx, &scy);
+  const int* bx = blurred;
+  const int* by = blurred + (size_t)lh * lw;
+  int ox = bx[scy * lw + scx];
+  int oy = by[scy * lw + scx];
+  if (dir21) {
+    const int bscy = min(max(scy - (oy >> rs), 0), lh - 1);
+    const int bscx = min(max(scx - (ox >> rs), 0), lw - 1);
+    ox = bx[bscy * lw + bscx];
+    oy = by[bscy * lw + bscx];
   }
-  int x12 = mirror_edge2(cx + iround(__fmul_rn(fx12, t12)), Wa);
-  int x21 = mirror_edge2(cx - iround(__fmul_rn(fx21, t21)), Wa);
-  const int y12 = mirror_edge2(cy + iround(dy12), rows);
-  const int y21 = mirror_edge2(cy - iround(dy21), rows);
-  if (kChroma) {
-    x12 = (x12 & ~1) + (cx & 1);
-    x21 = (x21 & ~1) + (cx & 1);
-  }
-  const unsigned s12 = f1[(size_t)y12 * pitch + x12];
-  const unsigned s21 = f2[(size_t)y21 * pitch + x21];
-  const int frac = ss ? 16 : 24;
-  const unsigned tw = blend_weight(t12, frac);
-  const unsigned b = (s12 * ((1u << frac) - tw) + s21 * tw) >> frac;
-  return (T)(kChroma ? levels_uv(b, ss, w) : levels_y(b, ss, k, w));
+  *fx = (float)ox;
+  *fy = (float)oy;
 }
 
-// One raw nearest sample of ONE direction (K5, warp_sample.cu): direction 12
-// reads f1 at mirror_edge2(p + iround(flow12 * t)), direction 21 reads f2 at
-// mirror_edge2(p - iround(flow21 * (1 - t))), with chroma's vertical
-// product halved and its column addressed as in blend_pixel.  The products
-// are those of blend_pixel, one __fmul_rn each; no blend, no levels, no cap.
+// The rounded displacement of one direction: (iround(fx * s),
+// iround(fy * s [* 0.5 for chroma])), negated for direction 21 (backward),
+// each product rounded once.
+template <bool kChroma>
+__device__ __forceinline__ void dir_displacement(float fx, float fy, float s,
+                                                 bool backward, int* dx,
+                                                 int* dy) {
+  float a = __fmul_rn(fy, s);
+  if (kChroma) a = __fmul_rn(a, 0.5f);
+  const int x = iround(__fmul_rn(fx, s));
+  const int y = iround(a);
+  *dx = backward ? -x : x;
+  *dy = backward ? -y : y;
+}
+
+// One raw nearest sample of ONE direction (K5's, and each of blend_pixel's
+// two) at output pixel (cx, cy) displaced by (ddx, ddy) (dir_displacement
+// of flow_dir at t for direction 12, at 1 - t for 21): the source at
+// mirror_edge2(p + d), chroma's column addressed as (x' & ~1) + (cx & 1).
+// No blend, no levels, no cap.
 template <typename T, bool kChroma>
-__device__ __forceinline__ T sample_dir_pixel(const int* __restrict__ blurred,
-                                              const T* __restrict__ src,
+__device__ __forceinline__ T sample_dir_pixel(const T* __restrict__ src,
                                               int pitch, int rows, int Wa,
-                                              int cx, int cy, int lh, int lw,
-                                              int rs, float t12, bool dir21) {
-  float fx12, fy12, fx21, fy21;
-  flow_at<kChroma>(blurred, cx, cy, lh, lw, rs, &fx12, &fy12, &fx21, &fy21);
-  const float s = dir21 ? __fsub_rn(1.0f, t12) : t12;
-  const float fx = dir21 ? fx21 : fx12;
-  float dy = __fmul_rn(dir21 ? fy21 : fy12, s);
-  if (kChroma) dy = __fmul_rn(dy, 0.5f);
-  int ddx = iround(__fmul_rn(fx, s));
-  int ddy = iround(dy);
-  if (dir21) {
-    ddx = -ddx;
-    ddy = -ddy;
-  }
+                                              int cx, int cy, int ddx,
+                                              int ddy) {
   int x = mirror_edge2(cx + ddx, Wa);
   const int y = mirror_edge2(cy + ddy, rows);
   if (kChroma) x = (x & ~1) + (cx & 1);
   return src[(size_t)y * pitch + x];
+}
+
+// One blended output sample of a plane (rows x Wa, sources of `pitch`
+// samples a row) at blend position t12, given the pixel's displacements
+// (dir_displacement of the forward flow at t12 and of the reverse flow at
+// 1 - t12): the two raw samples, the fixed-point blend and the level map.
+template <typename T, bool kChroma>
+__device__ __forceinline__ T blend_pixel(const T* __restrict__ f1,
+                                         const T* __restrict__ f2, int pitch,
+                                         int rows, int Wa, int cx, int cy,
+                                         int dx12, int dy12, int dx21,
+                                         int dy21, float t12, int ss, int k,
+                                         int w) {
+  const unsigned s12 =
+      sample_dir_pixel<T, kChroma>(f1, pitch, rows, Wa, cx, cy, dx12, dy12);
+  const unsigned s21 =
+      sample_dir_pixel<T, kChroma>(f2, pitch, rows, Wa, cx, cy, dx21, dy21);
+  const int frac = ss ? 16 : 24;
+  const unsigned tw = blend_weight(t12, frac);
+  const unsigned b = (s12 * ((1u << frac) - tw) + s21 * tw) >> frac;
+  return (T)(kChroma ? levels_uv(b, ss, w) : levels_y(b, ss, k, w));
 }
 
 }  // namespace mfi

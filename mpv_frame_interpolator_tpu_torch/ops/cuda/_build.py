@@ -31,7 +31,7 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
 SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu",
            "warp_sample.cu", "pack_probe.cu", "dma_probe.cu")
-HEADERS = ("warp_common.cuh",)
+HEADERS = ("warp_common.cuh", "warp_runs.cuh")
 
 # --fmad=false: no multiply-add contraction, so the warp's f32
 # round(flow * t) is the product rounded once, as in the reference;
@@ -55,11 +55,11 @@ _SIGNATURES = {
     # scale_shift black white vec | stream
     "mfi_pair_blend": (P,) * 8 + (I,) * 11 + (P,),
     # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
-    # scale_shift black white | stream
-    "mfi_fused_blend": (P,) * 8 + (I,) * 9 + (P,),
+    # scale_shift black white vec | stream
+    "mfi_fused_blend": (P,) * 8 + (I,) * 10 + (P,),
     # src_y src_uv blurred t out_y out_uv | H Wa pitch lh lw rs direction
-    # sample_bytes | stream
-    "mfi_sample_dir": (P,) * 6 + (I,) * 8 + (P,),
+    # sample_bytes vec | stream
+    "mfi_sample_dir": (P,) * 6 + (I,) * 9 + (P,),
     # in out | n_words | stream
     "mfi_probe_b32": (P, P, I, P),
     # in out | R C shift method | stream

@@ -11,8 +11,13 @@ levels to XLA); this one serves every case, with no gate and no fallback.
 
 Bound on the card: bytes -- per 4K position one output written (12.4 MB
 NV12, 24.9 MB P010) and the two sources read (~25 / ~50 MB).  One launch
-covers both planes, one thread per output sample; see the header of
-csrc/warp_fused.cu for what the design does and does not do about it.
+covers both planes with K2's 16-byte runs at one position: a thread per
+16-byte output run of a row, the flow read and the displacements computed
+once a flow cell, interior runs read with aligned 16-byte loads and
+written with one 16-byte store, edge runs per sample (see the headers of
+csrc/warp_fused.cu and csrc/warp_runs.cuh).  ``warp_pair.vector_path``
+says whether a launch may take the 16-byte path at all
+(tests/test_torch_sample_runs.py models the runs on the CPU).
 
 The plain version is K2's at N = 1.  ``fused_blend`` dispatches on the
 device: CPU tensors take ``fused_blend_plain``, CUDA tensors launch the
@@ -68,10 +73,11 @@ def fused_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
     _, lh, lw = blurred.shape
     y = torch.empty((H, actual_width), dtype=sample, device=dev)
     uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
+    vec = warp_pair.vector_path((f1y, f1uv, f2y, f2uv, y, uv), actual_width)
     rc = _build.load().mfi_fused_blend(
         f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
         blurred.data_ptr(), t.data_ptr(), y.data_ptr(), uv.data_ptr(),
-        H, actual_width, pitch, lh, lw, rs, scale_shift, k, w,
+        H, actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(vec),
         _build.stream_of(f1y))
     _build.check("fused_blend", rc)
     counts.kernel += 1

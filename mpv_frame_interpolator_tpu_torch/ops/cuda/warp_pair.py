@@ -95,9 +95,9 @@ RUN_BYTES = 16
 
 
 def vector_path(planes, actual_width: int) -> bool:
-    """Whether K2 may read and write 16-byte runs: every plane (sources
-    and outputs) starts 16-byte aligned and both the source rows (pitch)
-    and the output rows (actual_width) are a multiple of 16 bytes.
+    """Whether K2, K4 or K5 may read and write 16-byte runs: every plane
+    (sources and outputs) starts 16-byte aligned and both the source rows
+    (pitch) and the output rows (actual_width) are a multiple of 16 bytes.
     Otherwise the whole launch takes the per-sample path."""
     item = planes[0].element_size()
     return (planes[0].shape[-1] * item % RUN_BYTES == 0

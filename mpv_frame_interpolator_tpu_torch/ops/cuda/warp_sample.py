@@ -11,9 +11,14 @@ by the caller (ops/warp.py holds the pieces).
 
 Bound on the card: bytes -- per 4K launch one plane pair written (12.4 MB
 NV12, 24.9 MB P010), as many source samples read and the ~1 MB flow:
-~7.7 us at 8 bits, ~15 us at P010.  One thread per output sample reads
-the pixel at its mirrored coordinate; none of the TPU kernel's tables,
-tiles, bitmasks or budget is carried over (see csrc/warp_sample.cu).
+~7.7 us at 8 bits, ~15 us at P010.  One launch covers both planes with
+K2's 16-byte runs: a thread per 16-byte output run of a row, one flow
+lookup and one displacement a flow cell, interior runs read with aligned
+16-byte loads and written with one 16-byte store, edge runs per sample;
+none of the TPU kernel's tables, tiles, bitmasks or budget is carried
+over (see csrc/warp_sample.cu and csrc/warp_runs.cuh).
+``warp_pair.vector_path`` says whether a launch may take the 16-byte path
+at all (tests/test_torch_sample_runs.py models the runs on the CPU).
 
 ``sample_dir`` dispatches on the device: CPU tensors take
 ``ops/warp.sample_dir`` (the plain version), CUDA tensors launch the
@@ -67,10 +72,12 @@ def sample_dir(f1y, f1uv, f2y, f2uv, blurred, t, direction: int, rs: int,
     _, lh, lw = blurred.shape
     y = torch.empty((H, actual_width), dtype=sample, device=dev)
     uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
+    vec = warp_pair.vector_path((src_y, src_uv, y, uv), actual_width)
     rc = _build.load().mfi_sample_dir(
         src_y.data_ptr(), src_uv.data_ptr(), blurred.data_ptr(),
         t.data_ptr(), y.data_ptr(), uv.data_ptr(), H, actual_width, pitch,
-        lh, lw, rs, direction, sample.itemsize, _build.stream_of(f1y))
+        lh, lw, rs, direction, sample.itemsize, int(vec),
+        _build.stream_of(f1y))
     _build.check("sample_dir", rc)
     counts.kernel += 1
     return y, uv

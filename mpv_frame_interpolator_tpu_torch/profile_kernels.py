@@ -1,5 +1,5 @@
-"""K1 and K2 on the card at the main path's 4K shapes, for comparing two
-trees of the port in turns.
+"""K1, K2, K4 and K5 on the card at their paths' 4K shapes, for comparing
+two trees of the port in turns.
 
     python3 mpv_frame_interpolator_tpu_torch/profile_kernels.py \
         [--root TREE] [--label NAME]
@@ -9,8 +9,8 @@ copy of this script can measure an older tree (an unpacked ``git
 archive``) and the current one in one run on one card.  Only entry
 points that every tree of the port has are called: the flow step, the
 pyramid (``flow_pyramid`` where the tree has it, else the loop of steps
-from a zero field), ``pair_blend`` and the engine.  Prints, with the
-card's name and power limit:
+from a zero field), ``pair_blend``, ``fused_blend``, ``sample_dir`` and
+the engine.  Prints, with the card's name and power limit:
 
 * K1: device ms of the whole radius-16 pyramid of a 4K pair, its
   launches, and the host ms its wrapper calls take (50 pyramids
@@ -18,9 +18,17 @@ card's name and power limit:
   each window of the schedule;
 * K2: device ms of the five blend positions of a 4K pair, 8-bit at the
   default levels and P010 with levels (16, 235);
-* the engine alone (8-bit, frames staged on the card): wall ms per pair
-  with a synchronise after each pair, and device ms per pair and busy
-  share under torch.profiler.
+* K4: device ms of one 4K blend position, 8-bit at the default levels
+  and P010 with levels (16, 235);
+* K5: device ms of one 4K launch (direction 12, t = 0.4) at 8 bits and at
+  P010, and of the ten launches of a "pallas" pair (both directions at
+  the five positions, 8-bit);
+* the engine alone (frames staged on the card): at 8 bits, wall ms per
+  pair with a synchronise after each pair, and device ms per pair and
+  busy share under torch.profiler; device ms per pair and busy share on
+  the P010 fused path (levels 16/235) and in mode 0 (warp12).
+
+All flows are random blocks of 8 x 8 low-res cells within +-96.
 
 Device ms is the sum of the device rows (kernels, memsets, copies) of a
 torch.profiler trace of the call.  The last line is the same as JSON.
@@ -56,7 +64,9 @@ def main(argv=None) -> int:
     from mpv_frame_interpolator_tpu_torch.ops import flow as F
     from mpv_frame_interpolator_tpu_torch.ops import warp as W
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
         EngineConfig, InterpolationEngine)
     from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
@@ -139,31 +149,57 @@ def main(argv=None) -> int:
         g1y, g1uv, g2y, g2uv, blurred, ts, rs, W4K, 8,
         W.level_ints(16, 235)))
 
-    eng = InterpolationEngine(EngineConfig(
-        display_fps=120.0, auto_quality=False, initial_search_radius=16,
-        device=str(dev)))
-    src = cli.make_source(cli.build_parser().parse_args(
-        ["synthetic:moving_box", "--width", str(W4K), "--height", str(H4K),
-         "--fps", "24", "--frames", "24"]))[0]
-    staged = [eng.stage(f) for f in src]
-    for f in staged[:4]:
-        eng.push(f)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in staged[4:14]:
-        eng.push(f)
-        torch.cuda.synchronize()
-    out["engine_wall_ms_per_pair"] = (time.perf_counter() - t0) / 10 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in staged[14:]:
+    t = ts[2:3].reshape(())
+    out["k4_device_ms"] = device_ms(lambda: KF.fused_blend(
+        f1y, f1uv, f2y, f2uv, blurred, t, rs, W4K))
+    out["k4_p010_device_ms"] = device_ms(lambda: KF.fused_blend(
+        g1y, g1uv, g2y, g2uv, blurred, t, rs, W4K, 8,
+        W.level_ints(16, 235)))
+    out["k5_device_ms"] = device_ms(lambda: KD.sample_dir(
+        f1y, f1uv, f2y, f2uv, blurred, t, 12, rs, W4K))
+    out["k5_p010_device_ms"] = device_ms(lambda: KD.sample_dir(
+        g1y, g1uv, g2y, g2uv, blurred, t, 12, rs, W4K))
+    out["k5_pallas_pair_device_ms"] = device_ms(lambda: [
+        KD.sample_dir(f1y, f1uv, f2y, f2uv, blurred, ts[i], d, rs, W4K)
+        for i in range(5) for d in (12, 21)])
+
+    def engine(p010=False, sampling="pair", mode=2):
+        """The engine alone on the moving box: (wall ms a pair with a
+        synchronise after each, device ms a pair, busy share)."""
+        levels = (16, 235) if p010 else (0, 255)
+        eng = InterpolationEngine(EngineConfig(
+            display_fps=120.0, frame_output_mode=mode, auto_quality=False,
+            initial_search_radius=16, warp_sampling=sampling,
+            black_level=levels[0], white_level=levels[1], device=str(dev)))
+        src = cli.make_source(cli.build_parser().parse_args(
+            ["synthetic:moving_box", "--width", str(W4K), "--height",
+             str(H4K), "--fps", "24", "--frames", "24"]
+            + (["--p010"] if p010 else [])))[0]
+        staged = [eng.stage(f) for f in src]
+        for f in staged[:4]:
             eng.push(f)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(self_device_us(e) for e in prof.key_averages()) / 1e3
-    out["engine_device_ms_per_pair"] = busy / 10
-    out["engine_busy_share"] = busy / (wall * 1e3)
+        t0 = time.perf_counter()
+        for f in staged[4:14]:
+            eng.push(f)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for f in staged[14:]:
+                eng.push(f)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(self_device_us(e) for e in prof.key_averages()) / 1e3
+        return wall_ms, busy / 10, busy / (wall * 1e3)
+
+    (out["engine_wall_ms_per_pair"], out["engine_device_ms_per_pair"],
+     out["engine_busy_share"]) = engine()
+    _, out["engine_p010_fused_device_ms_per_pair"], \
+        out["engine_p010_fused_busy_share"] = engine(True, "fused")
+    _, out["engine_mode0_device_ms_per_pair"], \
+        out["engine_mode0_busy_share"] = engine(mode=0)
 
     print(f"card: {smi}  tree: {args.root} {args.label}")
     for key, value in out.items():

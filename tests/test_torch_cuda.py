@@ -219,6 +219,65 @@ def test_pair_blend_runs(cuda, scale_shift, levels, h, w, stride, vec8,
     _equal(got, KW.pair_blend_plain(*args))
 
 
+def _run_case(cuda, h, w, stride, scale_shift):
+    """Planes and a flow for the run tests: flows that push cells past
+    every edge and odd flows (odd chroma displacements at t = 0.4)."""
+    rng = np.random.default_rng(h + w + stride + scale_shift)
+    dt = np.uint16 if scale_shift else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w)
+    f1 = _frames(rng, h, stride, cuda, dt)
+    f2 = _frames(rng, h, stride, cuda, dt)
+    lh, lw = geom.low_h, geom.low_w
+    far = max(h, w) // 2
+    blurred = np.where(rng.random((2, lh, lw)) < 0.2,
+                       rng.integers(-far, far + 1, (2, lh, lw)),
+                       2 * rng.integers(-20, 21, (2, lh, lw)) + 1)
+    return geom, f1, f2, torch.from_numpy(blurred.astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0))])
+@pytest.mark.parametrize("h,w,stride,vec8,vec16", _RUN_SHAPES)
+def test_fused_blend_runs(cuda, scale_shift, levels, h, w, stride, vec8,
+                          vec16):
+    """K4's 16-byte runs and its per-sample path, one launch a position,
+    each bit-exact: the flows of test_pair_blend_runs, t in {0, 0.4,
+    0.9999, 1}."""
+    geom, f1, f2, blurred = _run_case(cuda, h, w, stride, scale_shift)
+    levels = W.level_ints(*levels)
+    for t in (0.0, 0.4, 0.9999, 1.0):
+        args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                torch.tensor(t, device=cuda), geom.res_scalar, w,
+                scale_shift, levels)
+        before = KF.counts.kernel
+        got = KF.fused_blend(*args)
+        assert KF.counts.kernel == before + 1
+        assert KW.vector_path((*f1, *f2, *got), w) == (vec16 if scale_shift
+                                                       else vec8)
+        _equal(got, KF.fused_blend_plain(*args))
+
+
+@pytest.mark.parametrize("scale_shift", [0, 8])
+@pytest.mark.parametrize("h,w,stride,vec8,vec16", _RUN_SHAPES)
+def test_sample_dir_runs(cuda, scale_shift, h, w, stride, vec8, vec16):
+    """K5's 16-byte runs and its per-sample path, both directions, each
+    bit-exact: the flows of test_pair_blend_runs, t in {0, 0.4, 0.9999,
+    1}."""
+    geom, f1, f2, blurred = _run_case(cuda, h, w, stride, scale_shift)
+    for direction in (12, 21):
+        for t in (0.0, 0.4, 0.9999, 1.0):
+            args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                    torch.tensor(t, device=cuda), direction,
+                    geom.res_scalar, w)
+            before = KD.counts.kernel
+            got = KD.sample_dir(*args)
+            assert KD.counts.kernel == before + 1
+            src = f1 if direction == 12 else f2
+            assert KW.vector_path((*src, *got), w) == (vec16 if scale_shift
+                                                       else vec8)
+            _equal(got, KD.sample_dir_plain(*args))
+
+
 _LEVELS = [(0.0, 255.0), (16.0, 235.0), (16.5, 235.5), (128.0, 128.0),
            (0.0, 1.0)]
 
