@@ -12,15 +12,19 @@ Phases (any failure raises and exits non-zero):
 3. each kernel against its plain PyTorch version on the card, at the 4K
    shapes of the paths below, inputs made from a numpy seed: bit-exact,
    with the median times of both (CUDA events) -- K1 (eight single steps,
-   each window of the pyramid timed as one step, and the whole radius-16
-   pyramid in one launch), K2, K3 at 8 bits; K1 on uint16 planes with
-   luma_shift 8; K2 with scale_shift 8 and levels (16, 235), and with
+   each window of the pyramid timed as one step, the whole radius-16
+   pyramid in one launch, and that launch with the blur as its last
+   phase, the engine's path, with the blur phase's time from the
+   kernel's timeline), K2, K3 on its own at 8 bits; K1 on uint16 planes
+   with luma_shift 8; K2 with scale_shift 8 and levels (16, 235), and with
    flows that push cells past every edge and odd chroma displacements,
    t in {0, 0.4, 1}; K4 at 8 bits and at P010, default and non-default
    levels, K5 at 8 bits and at P010 (65535 samples pass through
    uncapped), both directions, each on the block, edge and odd flows at
    t in {0, 0.4, 1}, the 4K planes taking the 16-byte path of K2, K4 and
-   K5;
+   K5; G1 (the blend and levels of K5's two directions) at 8 bits and
+   P010, default levels and (16, 235), t in {0, 0.4, 1}, on samples that
+   reach 0 and the top value;
 3b. the toolchain probes through their entry points: P1 (packed bytes)
    every probe OK, P2 (asynchronous copies) its matrix printed, the
    aligned control OK under cp.async and TMA and every case that is not
@@ -33,20 +37,25 @@ Phases (any failure raises and exits non-zero):
    float colour math) within the JAX package's tolerance;
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
-   the launch counters of K1, K2 and K3 must move during that run (K1
-   exactly once a pair) and no plain version's may, the y4m must hold
-   that many 4K frames, and the
+   the launch counters of K1 and K2 must move during that run (K1
+   exactly once a pair, with the blur as its last phase: K3's fused count
+   once a pair, K3's own kernel never) and no plain version's may, the
+   y4m must hold that many 4K frames, and the
    scene cut must never fire on the smooth clip; then the engine's rate
    with frames staged on the card;
 6. the P010 path end to end through the CLI at the same shape with
    ``--p010 --warp-sampling fused --black-level 16 --white-level 235``:
-   the counters of K1, K3 and K4 must move, K2's must not (the fused
+   the counters of K1 and K4 must move, K2's must not (the fused
    sampler replaces it) and no plain version's may;
 7. output mode 0 (``--mode warp12``) through the CLI at the same shape:
-   K1, K3 and K5 must move, K2 and K4 must not, no plain version may;
+   K1 and K5 must move, K2 and K4 must not, no plain version may;
    then the engine's rate in that mode with frames staged on the card;
 8. ``--warp-sampling pallas`` (blended) through the CLI at 4K: K5
-   launches exactly twice per interpolated output, K2 and K4 never.
+   launches exactly twice per interpolated output and G1 once, K2 and K4
+   never.
+
+On every path the blur runs inside K1's launch once a pair and K3's
+standalone kernel never, and G1 runs only on the "pallas" path.
 
 Each path's counters are set to 0 just before it runs and read just
 after.  The port against the NumPy oracle on the card is a test:
@@ -230,6 +239,27 @@ def phase_flow_step(dev, rng, geom, dt, luma_shift: int):
         "per step (window axis): phase A sums + phase B commit: " + "; ".join(
             f"{w} {'xy'[s % 2]}: {d[1 + 2 * s]:.2f} + {d[2 + 2 * s]:.2f}"
             for s, w in enumerate(np.repeat(windows, 2))))
+    pre_blur_us = float(d.sum())
+
+    # the engine's launch: the pyramid with the blur as its last phase
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
+    before = (KS.counts.kernel, KB.counts.fused, KB.counts.kernel)
+    field, blurred = KS.flow_pyramid(*args, blur=True)
+    check((KS.counts.kernel, KB.counts.fused, KB.counts.kernel) == (
+        before[0] + 1, before[1] + 1, before[2]),
+        "the pyramid with its blur took more than one launch")
+    want = KS.flow_pyramid_plain(*args)
+    e_fused = max_err([field, blurred], [want, KB.blur_flow_plain(want)])
+    log(f"  K1 + K3 {tag} pyramid and blur in one launch: "
+        f"max_abs_err={e_fused}")
+    stamps = torch.zeros((10, 3 + 2 * steps), dtype=torch.int64, device=dev)
+    for row in stamps:
+        KS.flow_pyramid(*args, timeline=row, blur=True)
+    d = stamps.diff(dim=1).median(dim=0).values.cpu().numpy() / 1e3
+    blur_us = float(d[-1])
+    log(f"  K1 + K3 {tag} inside the launch, us: before the blur "
+        f"{d[:-1].sum():.2f} (without the blur phase {pre_blur_us:.2f}), "
+        f"the blur phase {blur_us:.2f}")
     # the pyramid reads each f1 sample its candidates reach once (at most
     # steps * radius * lh * lw a plane) and the probe, and writes the
     # field; each radius-16 step does ~35 integer operations a candidate
@@ -239,11 +269,16 @@ def phase_flow_step(dev, rng, geom, dt, luma_shift: int):
     cand = steps * 16 * lh * lw
     nbytes = (sum(min(p.numel(), cand) for p in (f1y, f1u, f1v)) * item
               + 3 * lh * lw * item + 2 * lh * lw * 4)
-    return dict(max_abs_err=max(err, e),
+    return dict(max_abs_err=max(err, e, e_fused),
                 device_ms=device_ms(lambda: KS.flow_pyramid(*args)),
                 ms=cuda_ms(lambda: KS.flow_pyramid(*args), 20),
                 plain_ms=cuda_ms(lambda: KS.flow_pyramid_plain(*args), 3),
-                bound=bound(nbytes, 35 * cand))
+                bound=bound(nbytes, 35 * cand),
+                blur_phase_ms=blur_us / 1e3,
+                fused_device_ms=device_ms(lambda: KS.flow_pyramid(
+                    *args, blur=True)),
+                fused_ms=cuda_ms(lambda: KS.flow_pyramid(*args, blur=True),
+                                 20))
 
 
 def warp_bound(n: int, item: int, rs: int):
@@ -265,6 +300,7 @@ def phase_kernels(dev):
     """Phase 3: every kernel vs its plain version at the 4K shapes."""
     from mpv_frame_interpolator_tpu_torch.ops import flow as F
     from mpv_frame_interpolator_tpu_torch.ops import warp as W
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
@@ -282,16 +318,32 @@ def phase_kernels(dev):
         results["flow_step"]["max_abs_err"], p010["max_abs_err"])
     results["flow_step"]["p010"] = p010
 
-    # K3
+    # K3 on its own (the public ops/flow.blur_flow; the engine's path
+    # blurs inside K1's launch, held above), on a field of flows and on
+    # one whose sums wrap mod 2^32
     off = torch.from_numpy(rng.integers(-300, 301, (2, lh, lw)).astype(
         np.int32)).to(dev)
-    e = max_abs_err(KB.blur_flow(off), KB.blur_flow_plain(off))
-    log(f"  K3 (2, {lh}, {lw}): max_abs_err={e}")
+    wide = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (2, lh, lw))
+                            .astype(np.int32)).to(dev)
+    e = max(max_abs_err(KB.blur_flow(f), KB.blur_flow_plain(f))
+            for f in (off, wide))
+    log(f"  K3 standalone (2, {lh}, {lw}): max_abs_err={e}")
+    k1 = results["flow_step"]
     results["blur_flow"] = dict(
-        max_abs_err=e, ms=cuda_ms(lambda: KB.blur_flow(off), 50),
+        max_abs_err=max(e, k1["max_abs_err"]),
+        device_ms=device_ms(lambda: KB.blur_flow(off)),
+        ms=cuda_ms(lambda: KB.blur_flow(off), 50),
         plain_ms=cuda_ms(lambda: KB.blur_flow_plain(off), 20),
-        # the field read and written once; 64 taps summed per output
-        bound=bound(2 * off.numel() * 4, 66 * off.numel()))
+        # the field read and written once; per output 16 adds (8 along
+        # the row, 8 down the column) and the truncating division
+        bound=bound(2 * off.numel() * 4, 20 * off.numel()),
+        fused_phase_ms=k1["blur_phase_ms"])
+    log(f"  K3: the blur phase inside K1's launch "
+        f"{k1['blur_phase_ms']:.4f} ms (8-bit), "
+        f"{k1['p010']['blur_phase_ms']:.4f} ms (P010); the pyramid with "
+        f"its blur {k1['fused_ms']:.4f} ms (device "
+        f"{k1['fused_device_ms']:.4f} ms), without {k1['ms']:.4f} ms "
+        f"(device {k1['device_ms']:.4f} ms)")
 
     blurred = torch.from_numpy(np.stack([
         block_field(rng, lh, lw, 8, 12, 96),
@@ -428,6 +480,50 @@ def phase_kernels(dev):
             # addresses)
             bound=bound(2 * out * item + blurred.numel() * 4, 15 * out))
     results["sample_dir"] = dict(k5[1], max_abs_err=err, p010=k5[2])
+
+    # G1: the blend and levels of one position over K5's two directions,
+    # 8-bit and P010, default and TV levels, t in {0, 0.4, 1}; the raw
+    # samples hold rows of 0 and of the top value (the P010 planes' top
+    # rows are 65535 since K5's check above)
+    g1 = {}
+    err = 0
+    for dt, ss in ((np.uint8, 0), (np.uint16, 8)):
+        for levels in ((0, 255), W.level_ints(16, 235)):
+            e = 0
+            for t in (0.0, 1.0, 0.4):      # timed at the last
+                tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                s12 = KD.sample_dir(*warp_args(dt), tt, 12, rs,
+                                    geom.actual_width)
+                s21 = KD.sample_dir(*warp_args(dt), tt, 21, rs,
+                                    geom.actual_width)
+                # CUDA does not fill uint16: a converting copy
+                s21[0][4:6].copy_(torch.zeros((2, geom.actual_width),
+                                              dtype=torch.int32))
+                args = (*s12, *s21, tt, ss, levels)
+                got = KG.blend_levels(*args)
+                check(KW.vector_path((*s12, *s21, *got), geom.actual_width),
+                      "the 4K planes do not take G1's 16-byte path")
+                e = max(e, max_err(got, KG.blend_levels_plain(*args)))
+            log(f"  G1 {W4K}x{H4K} scale_shift={ss} levels={levels}, t in "
+                f"(0, 1, 0.4): max_abs_err={e}")
+            err = max(err, e)
+            item = np.dtype(dt).itemsize
+            out = (H4K + H4K // 2) * W4K
+            g1[(ss, levels)] = dict(
+                device_ms=device_ms(lambda: KG.blend_levels(*args)),
+                ms=cuda_ms(lambda: KG.blend_levels(*args), 20),
+                plain_ms=cuda_ms(lambda: KG.blend_levels_plain(*args), 5),
+                # two sample planes read and one written once; per sample
+                # ~8 scalar operations (two products, the add and shift,
+                # the level map's subtract, multiply, divide and cap)
+                bound=bound(3 * out * item, 8 * out))
+    for key, r in sorted(g1.items()):
+        log(f"  G1 scale_shift={key[0]} levels={key[1]} t=0.4: kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    results["blend_levels"] = dict(g1[(0, (0, 255))], max_abs_err=err,
+                                   p010=g1[(8, W.level_ints(16, 235))])
 
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
@@ -626,6 +722,7 @@ def y4m_frames(path: str):
 
 
 def kernel_counts():
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
@@ -633,13 +730,15 @@ def kernel_counts():
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
     return {"flow_step": KS.counts, "blur_flow": KB.counts,
             "pair_blend": KW.counts, "fused_blend": KF.counts,
-            "sample_dir": KD.counts}
+            "sample_dir": KD.counts, "blend_levels": KG.counts}
 
 
 def run_cli(dev, frames: int, extra):
     """The port's CLI at 4K 24 -> 120, radius 16, y4m sink, with every
-    launch counter set to 0 just before and read just after; returns
-    (launches, plain calls, stats, y4m (w, h, frames, bytes), wall)."""
+    launch counter set to 0 just before and read just after; checks the
+    outputs, that no plain version ran, and that the blur ran inside each
+    pair's K1 launch and never on its own.  Returns the launches of each
+    kernel, "blur_fused" the blurs run inside K1's launches."""
     from mpv_frame_interpolator_tpu_torch import cli
     counts = kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -656,6 +755,7 @@ def run_cli(dev, frames: int, extra):
         rc = cli.main(argv)
         wall = time.perf_counter() - t0
         launches = {k: c.kernel for k, c in counts.items()}
+        launches["blur_fused"] = counts["blur_flow"].fused
         plain = {k: c.plain for k, c in counts.items()}
         with open(stats_path) as fh:
             stats = json.load(fh)
@@ -683,6 +783,15 @@ def run_cli(dev, frames: int, extra):
     check(not any(plain.values()),
           f"a plain version ran on the path: {plain}")
     check(stats["scene_cuts"] == 0, "scene cut fired on a smooth clip")
+    pairs = frames - 1
+    check(launches["flow_step"] == pairs and launches["blur_fused"] == pairs
+          and launches["blur_flow"] == 0,
+          f"K1 and its blur phase launched {launches['flow_step']} and "
+          f"{launches['blur_fused']} times for {pairs} pairs (not once a "
+          f"pair), K3 on its own {launches['blur_flow']} times")
+    blends = 5 * pairs if "pallas" in extra else 0
+    check(launches["blend_levels"] == blends,
+          f"G1 launched {launches['blend_levels']} times, not {blends}")
     return launches
 
 
@@ -690,13 +799,8 @@ def phase_main_path(dev):
     """Phase 5: the 8-bit main path, CLI at 4K 24 -> 120, radius 16."""
     frames = 8
     launches = run_cli(dev, frames, [])
-    on_path = ("flow_step", "blur_flow", "pair_blend")
-    check(all(launches[k] > 0 for k in on_path),
-          f"a kernel of the main path never launched: {launches}")
-    # the whole pyramid of a pair is one K1 launch
-    check(launches["flow_step"] == frames - 1,
-          f"K1 launched {launches['flow_step']} times for {frames - 1} "
-          "pairs, not once a pair")
+    check(launches["pair_blend"] > 0,
+          f"K2 never launched on the main path: {launches}")
     check(launches["fused_blend"] == 0 and launches["sample_dir"] == 0,
           f"K4 or K5 ran on the pair sampler's path: {launches}")
     return launches
@@ -707,9 +811,8 @@ def phase_p010_path(dev):
     launches = run_cli(dev, 4, ["--p010", "--warp-sampling", "fused",
                                 "--black-level", "16", "--white-level",
                                 "235"])
-    on_path = ("flow_step", "blur_flow", "fused_blend")
-    check(all(launches[k] > 0 for k in on_path),
-          f"a kernel of the P010 fused path never launched: {launches}")
+    check(launches["fused_blend"] > 0,
+          f"K4 never launched on the P010 fused path: {launches}")
     check(launches["pair_blend"] == 0 and launches["sample_dir"] == 0,
           f"K2 or K5 ran on the fused sampler's path: {launches}")
     return launches
@@ -718,9 +821,6 @@ def phase_p010_path(dev):
 def phase_warp12_path(dev):
     """Phase 7: output mode 0 (warp12), CLI at 4K 24 -> 120, radius 16."""
     launches = run_cli(dev, 6, ["--mode", "warp12"])
-    on_path = ("flow_step", "blur_flow", "sample_dir")
-    check(all(launches[k] > 0 for k in on_path),
-          f"a kernel of the warp12 path never launched: {launches}")
     check(launches["pair_blend"] == 0 and launches["fused_blend"] == 0,
           f"K2 or K4 ran on the warp12 path: {launches}")
     check(launches["sample_dir"] == 5 * (6 - 1),
@@ -729,15 +829,15 @@ def phase_warp12_path(dev):
 
 
 def phase_pallas_path(dev):
-    """Phase 8: mode 2 under the "pallas" sampler, CLI at 4K."""
+    """Phase 8: mode 2 under the "pallas" sampler, CLI at 4K: K5 twice
+    and G1 once an output (G1's count is checked by run_cli)."""
     frames = 4
     launches = run_cli(dev, frames, ["--warp-sampling", "pallas"])
     outputs = 5 * (frames - 1)
     check(launches["sample_dir"] == 2 * outputs,
           f"K5 launched {launches['sample_dir']} times for {outputs} "
           "blended outputs, not twice each")
-    check(launches["pair_blend"] == 0 and launches["fused_blend"] == 0
-          and launches["flow_step"] > 0 and launches["blur_flow"] > 0,
+    check(launches["pair_blend"] == 0 and launches["fused_blend"] == 0,
           f"the pallas path's launches: {launches}")
     return launches
 
@@ -792,8 +892,11 @@ def main() -> int:
     log(f"phase 2: built {_build.LIB_NAME} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
-        if "Used" in line or "Compiling" in line:
+        if "Used" in line or "Compiling" in line or "spill" in line:
             log(f"  {line.strip()}")
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    log(f"  K1 pyramid_kernel resident blocks an SM: "
+        f"{KS.blocks_per_sm(1)} (uint8), {KS.blocks_per_sm(2)} (uint16)")
 
     log("phase 3: kernels vs plain versions at 4K shapes")
     results = phase_kernels(dev)
@@ -817,27 +920,31 @@ def main() -> int:
     pallas_launches = phase_pallas_path(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
-    # main path, K4 on the P010 fused path, K5 on the warp12 path, the
+    # main path (K3 as the blur phase of K1's launches), K4 on the P010
+    # fused path, K5 on the warp12 path, G1 on the pallas path, the
     # probes through their own entry points
     pallas = "mpv_frame_interpolator_tpu/ops/pallas/"
     results.update(probes)
-    sources = {"flow_step": ("flow_step.cu", pallas + "flow_step.py:350",
-                             main_launches),
-               "blur_flow": ("blur.cu", pallas + "blur.py:41",
-                             main_launches),
-               "pair_blend": ("warp_pair.cu", pallas + "warp_pair.py:189",
-                              main_launches),
-               "fused_blend": ("warp_fused.cu", pallas + "warp_fused.py:188",
-                               p010_launches),
-               "sample_dir": ("warp_sample.cu", pallas + "warp_sample.py:128",
-                              warp12_launches),
-               "pack_probe": ("pack_probe.cu",
-                              "tools/pallas_pack_probe.py:22",
-                              {"pack_probe": probes["pack_probe"]
-                               ["launches"]}),
-               "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",
-                             {"dma_probe": probes["dma_probe"]
-                              ["launches"]})}
+    sources = {
+        "flow_step": ("flow_step.cu", pallas + "flow_step.py:350",
+                      main_launches["flow_step"]),
+        "blur_flow": ("blur_tile.cuh", pallas + "blur.py:41",
+                      main_launches["blur_fused"]
+                      + main_launches["blur_flow"]),
+        "pair_blend": ("warp_pair.cu", pallas + "warp_pair.py:189",
+                       main_launches["pair_blend"]),
+        "fused_blend": ("warp_fused.cu", pallas + "warp_fused.py:188",
+                        p010_launches["fused_blend"]),
+        "sample_dir": ("warp_sample.cu", pallas + "warp_sample.py:128",
+                       warp12_launches["sample_dir"]),
+        # not a TPU kernel: the XLA fusion of _blend_fix and the level maps
+        "blend_levels": ("blend_levels.cu",
+                         "mpv_frame_interpolator_tpu/ops/warp.py:700",
+                         pallas_launches["blend_levels"]),
+        "pack_probe": ("pack_probe.cu", "tools/pallas_pack_probe.py:22",
+                       probes["pack_probe"]["launches"]),
+        "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",
+                      probes["dma_probe"]["launches"])}
     kernels = []
     for name, (src, replaces, launches) in sources.items():
         r = results[name]
@@ -845,15 +952,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"mpv_frame_interpolator_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            # no single PyTorch call computes K1-K5 or P1 (mod 2^32 window
-            # sums with an unsigned argmin, mirrored nearest gathers with
-            # the fixed-point blend, a symmetric-pad integer blur truncated
-            # toward zero, a nearest sample at a mirrored coordinate
-            # rounded half away from zero -- grid_sample rounds half to
-            # even and reflects otherwise -- a set of probes); P2's is the
+            # no single PyTorch call computes K1-K5, G1 or P1 (mod 2^32
+            # window sums with an unsigned argmin, mirrored nearest gathers
+            # with the fixed-point blend, a symmetric-pad integer blur
+            # truncated toward zero, a nearest sample at a mirrored
+            # coordinate rounded half away from zero -- grid_sample rounds
+            # half to even and reflects otherwise -- the fixed-point blend
+            # followed by integer level maps, a set of probes); P2's is the
             # slice copy
             "library_ms": r.get("library_ms")})
     log(f"launches on the 8-bit main path {main_launches}, on the P010 "

@@ -44,7 +44,11 @@
 //     minimum and commits its stepped axis in place; the same phase zeroes
 //     the other of two ping-pong sums buffers for the next step (last read
 //     before the previous barrier), so no memset is launched;
-//   * window 1 needs no reduction: phase A keeps each pixel's winner.
+//   * window 1 needs no reduction: phase A keeps each pixel's winner;
+//   * last, when the caller asks for it, the 8x8 flow blur (K3's tile body,
+//     blur_tile.cuh) after one more barrier, over the same 32 x 8 tiles,
+//     into a second output: the pair's flow and its blur in one launch,
+//     where the blur took a launch and a Python wrapper of its own.
 // Window sums are unsigned additions mod 2^32, so any order of adds gives
 // the same bits: the result is exact.  Field and sums written during the
 // launch are read with ld.global.cg (L2), never through the read-only or
@@ -60,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blur_tile.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -73,6 +79,12 @@ constexpr int kMaxRadius = 16;
 constexpr int kMaxSteps = 64;
 // windows of one tile: at most (32 / 2) x (8 / 2), at window 2
 constexpr int kMaxLocal = (kTX / 2) * (kTY / 2);
+// shared words of phase A's sums, which the blur phase reuses as its window
+constexpr int kSharedWords = kMaxRadius * kMaxLocal > mfi::kBlurWindowWords
+                                 ? kMaxRadius * kMaxLocal
+                                 : mfi::kBlurWindowWords;
+static_assert(kTX == mfi::kBlurTX && kTY == mfi::kBlurTY,
+              "the blur phase runs on K1's tiles");
 
 // step code: log2(window) | is_y << 8 | nb_enabled << 9
 struct Schedule {
@@ -162,12 +174,13 @@ __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
     const T* __restrict__ f1y, const T* __restrict__ f1u,
     const T* __restrict__ f1v, const T* __restrict__ y2,
     const T* __restrict__ u2, const T* __restrict__ v2, const int* in_x,
-    const int* in_y, int* field, unsigned* sums, size_t sums_words,
+    const int* in_y, int* field, int* blurred, unsigned* sums,
+    size_t sums_words,
     Schedule sched, int radius, int ds, int nbs, int rs, int H, int W,
     int lh, int lw, int ypitch, int cpitch, int luma_shift,
     unsigned long long* timeline) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ unsigned s_sums[kMaxRadius * kMaxLocal];
+  __shared__ unsigned s_sums[kSharedWords];
   __shared__ int s_best[kMaxLocal];
   stamp(timeline, 0);
   const int tid = threadIdx.x;
@@ -328,18 +341,28 @@ __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
         zero(sums + ((s + 1) & 1) * sums_words,
              sums_of(next, radius, lh, lw));
     }
-    if (s + 1 < sched.n || timeline != nullptr) grid.sync();
+    if (s + 1 < sched.n || timeline != nullptr || blurred != nullptr)
+      grid.sync();
     stamp(timeline, 3 + 2 * s);
+  }
+
+  // the blur phase: every tile's window reads the final field
+  if (blurred != nullptr) {
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+      mfi::blur_tile(field, blurred, lh, lw, (tile % ntx) << kLogTX,
+                     (tile / ntx) << kLogTY, s_sums, tid);
+    if (timeline != nullptr) grid.sync();
+    stamp(timeline, 2 + 2 * sched.n);
   }
 }
 
 template <typename T>
 int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
            const void* u2, const void* v2, const void* in_x,
-           const void* in_y, void* field, void* sums, size_t sums_words,
-           const Schedule& sched, int radius, int ds, int nbs, int rs, int H,
-           int W, int lh, int lw, int ypitch, int cpitch, int luma_shift,
-           void* timeline, cudaStream_t s) {
+           const void* in_y, void* field, void* blurred, void* sums,
+           size_t sums_words, const Schedule& sched, int radius, int ds,
+           int nbs, int rs, int H, int W, int lh, int lw, int ypitch,
+           int cpitch, int luma_shift, void* timeline, cudaStream_t s) {
   int dev, sms, per_sm, coop;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -364,12 +387,14 @@ int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
   const int* ix = static_cast<const int*>(in_x);
   const int* iy = static_cast<const int*>(in_y);
   int* out = static_cast<int*>(field);
+  int* blur = static_cast<int*>(blurred);
   unsigned* sm = static_cast<unsigned*>(sums);
   unsigned long long* tl = static_cast<unsigned long long*>(timeline);
   Schedule sc = sched;
   void* args[] = {&a1y, &a1u, &a1v, &a2y, &a2u, &a2v, &ix, &iy,
-                  &out, &sm, &sums_words, &sc, &radius, &ds, &nbs, &rs,
-                  &H, &W, &lh, &lw, &ypitch, &cpitch, &luma_shift, &tl};
+                  &out, &blur, &sm, &sums_words, &sc, &radius, &ds,
+                  &nbs, &rs, &H, &W, &lh, &lw, &ypitch, &cpitch,
+                  &luma_shift, &tl};
   e = cudaLaunchCooperativeKernel((const void*)pyramid_kernel<T>,
                                   dim3(blocks), dim3(kThreads), args, 0, s);
   if (e != cudaSuccess) return (int)e;
@@ -380,19 +405,22 @@ int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
 
 // field: (2, lh, lw) int32 out, plane 0 the x offsets and plane 1 the y
 // offsets, started from (in_x, in_y) or from zero when both are null;
+// blurred: null, or (2, lh, lw) int32 out that receives the final field's
+// 8x8 blur (not overlapping field);
 // sums: two buffers of sums_words uint32 each (the wrapper sizes them:
 // radius x windows for the largest step, lh x lw for a window-1 step);
 // steps: n_steps host ints, log2(window) | is_y << 8 | nb_enabled << 9.
 // sample_bytes: 1 (uint8 planes) or 2 (uint16); pitches in samples.
-// timeline: null, or 2 + 2 n_steps uint64 that receive %globaltimer (ns)
-// at the start, after the prologue and after each phase of each step.
+// timeline: null, or 2 + 2 n_steps uint64 (3 + 2 n_steps with blurred)
+// that receive %globaltimer (ns) at the start, after the prologue, after
+// each phase of each step and after the blur phase.
 extern "C" int mfi_flow_pyramid(
     const void* f1y, const void* f1u, const void* f1v, const void* y2,
     const void* u2, const void* v2, const void* in_x, const void* in_y,
-    void* field, void* sums, const int* steps, int n_steps, int sums_words,
-    int radius, int ds, int nbs, int rs, int H, int W, int lh, int lw,
-    int ypitch, int cpitch, int sample_bytes, int luma_shift, void* timeline,
-    void* stream) {
+    void* field, void* blurred, void* sums, const int* steps, int n_steps,
+    int sums_words, int radius, int ds, int nbs, int rs, int H, int W,
+    int lh, int lw, int ypitch, int cpitch, int sample_bytes, int luma_shift,
+    void* timeline, void* stream) {
   if (n_steps < 0 || n_steps > kMaxSteps || radius < 1 ||
       radius > kMaxRadius || (in_x == nullptr) != (in_y == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -402,10 +430,21 @@ extern "C" int mfi_flow_pyramid(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sample_bytes == 2)
     return launch<uint16_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field,
-                            sums, (size_t)sums_words, sched, radius, ds, nbs,
-                            rs, H, W, lh, lw, ypitch, cpitch, luma_shift,
-                            timeline, s);
-  return launch<uint8_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field, sums,
-                         (size_t)sums_words, sched, radius, ds, nbs, rs, H,
-                         W, lh, lw, ypitch, cpitch, luma_shift, timeline, s);
+                            blurred, sums, (size_t)sums_words, sched,
+                            radius, ds, nbs, rs, H, W, lh, lw, ypitch,
+                            cpitch, luma_shift, timeline, s);
+  return launch<uint8_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field,
+                         blurred, sums, (size_t)sums_words, sched, radius,
+                         ds, nbs, rs, H, W, lh, lw, ypitch, cpitch,
+                         luma_shift, timeline, s);
+}
+
+// *per_sm: the pyramid kernel's resident blocks an SM, as its cooperative
+// launch sizes the grid (sample_bytes 1 or 2).
+extern "C" int mfi_flow_pyramid_occupancy(int sample_bytes, int* per_sm) {
+  if (sample_bytes == 2)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, pyramid_kernel<uint16_t>, kThreads, 0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, pyramid_kernel<uint8_t>, kThreads, 0);
 }

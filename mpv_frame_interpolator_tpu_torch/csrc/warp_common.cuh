@@ -2,7 +2,8 @@
 // blend position of a pair) and K4 (warp_fused.cu, one position), and the
 // one-direction raw sample of K5 (warp_sample.cu, sample_dir_pixel); the
 // flow lookups and the rounded displacements their 16-byte runs compute once
-// a flow cell (warp_runs.cuh).
+// a flow cell (warp_runs.cuh).  G1 (blend_levels.cu) blends two raw samples
+// with the same weight and level maps.
 //
 // The semantics are those of the JAX blended warp (ops/warp._warp_sample,
 // mode 2), i.e. the reference's warpFrameKernel.cl with the fixed-point

@@ -30,8 +30,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
 SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu",
-           "warp_sample.cu", "pack_probe.cu", "dma_probe.cu")
-HEADERS = ("warp_common.cuh", "warp_runs.cuh")
+           "warp_sample.cu", "blend_levels.cu", "pack_probe.cu",
+           "dma_probe.cu")
+HEADERS = ("warp_common.cuh", "warp_runs.cuh", "blur_tile.cuh")
 
 # --fmad=false: no multiply-add contraction, so the warp's f32
 # round(flow * t) is the product rounded once, as in the reference;
@@ -44,13 +45,15 @@ I = ctypes.c_int
 
 # C signature of every entry point: (argtypes); restype is int
 _SIGNATURES = {
-    # f1y f1u f1v y2 u2 v2 in_x in_y field sums | steps (host ints) |
-    # n_steps sums_words radius ds nbs rs H W lh lw f1y_pitch f1c_pitch
-    # sample_bytes luma_shift | timeline stream
-    "mfi_flow_pyramid": (P,) * 10 + (ctypes.POINTER(I),) + (I,) * 14
+    # f1y f1u f1v y2 u2 v2 in_x in_y field blurred sums | steps (host
+    # ints) | n_steps sums_words radius ds nbs rs H W lh lw f1y_pitch
+    # f1c_pitch sample_bytes luma_shift | timeline stream
+    "mfi_flow_pyramid": (P,) * 11 + (ctypes.POINTER(I),) + (I,) * 14
     + (P, P),
-    # in out | planes lh lw | stream
-    "mfi_blur_flow": (P, P, I, I, I, P),
+    # sample_bytes | per_sm (one host int, out)
+    "mfi_flow_pyramid_occupancy": (I, ctypes.POINTER(I)),
+    # in out | lh lw | stream
+    "mfi_blur_flow": (P, P, I, I, P),
     # f1y f1uv f2y f2uv blurred ts out_y out_uv | n H Wa pitch lh lw rs
     # scale_shift black white vec | stream
     "mfi_pair_blend": (P,) * 8 + (I,) * 11 + (P,),
@@ -60,6 +63,9 @@ _SIGNATURES = {
     # src_y src_uv blurred t out_y out_uv | H Wa pitch lh lw rs direction
     # sample_bytes vec | stream
     "mfi_sample_dir": (P,) * 6 + (I,) * 9 + (P,),
+    # s12y s12uv s21y s21uv t out_y out_uv | H Wa scale_shift black white
+    # vec | stream
+    "mfi_blend_levels": (P,) * 7 + (I,) * 6 + (P,),
     # in out | n_words | stream
     "mfi_probe_b32": (P, P, I, P),
     # in out | R C shift method | stream

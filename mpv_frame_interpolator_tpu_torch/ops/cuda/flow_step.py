@@ -9,14 +9,17 @@ takes (Pallas, shift or gather fallback).
 One kernel serves both entry points: ``flow_pyramid`` runs every step of
 a pair (x then y at each window of the schedule) in one host call and one
 cooperative launch, and ``flow_step`` is that launch with a schedule of
-one step.  A 4K step touches a few MB, so bytes do not bound it; the
-kernel keeps one thread per low-res pixel with the layer partials in
-registers, reduces them per window in the block and commits in place
-between grid-wide barriers (PERF.md times each phase; what bounds the
-window sums is still open).  See the header of csrc/flow_step.cu.  The
-kernel is templated on the sample type: uint8 planes for NV12, uint16
-for P010, whose SAD is shifted right by `luma_shift` before the delta
-scalar.
+one step.  ``flow_pyramid(..., blur=True)`` also blurs the final field
+(K3, the TPU kernel ``ops/pallas/blur.py:blur_flow_pallas``) as the
+launch's last phase, after one more grid barrier, on K3's tile body
+(csrc/blur_tile.cuh): the engine's flow and its blur are one launch.  A
+4K step touches a few MB, so bytes do not bound it; the kernel keeps one
+thread per low-res pixel with the layer partials in registers, reduces
+them per window in the block and commits in place between grid-wide
+barriers (PERF.md times each phase; what bounds the window sums is still
+open).  See the header of csrc/flow_step.cu.  The kernel is templated on
+the sample type: uint8 planes for NV12, uint16 for P010, whose SAD is
+shifted right by `luma_shift` before the delta scalar.
 
 Both entry points dispatch on the device of their tensors: CPU tensors
 take ``flow_step_plain`` / ``flow_pyramid_plain``, CUDA tensors launch the
@@ -30,6 +33,7 @@ import ctypes
 import torch
 
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
+from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as _blur
 from mpv_frame_interpolator_tpu_torch.ops.flow import (
     mirror_inside, signed_square)
 
@@ -137,13 +141,13 @@ def _check_scalars(radius: int, ds: int, nbs: int, luma_shift: int, steps):
 
 def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
             ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
-            timeline=None):
+            timeline=None, blur: bool = False):
     """One cooperative launch of the pyramid kernel over `steps`, from
     (off_x, off_y), or from zero when both are None.  Returns the (2, lh,
-    lw) int32 field it wrote."""
+    lw) int32 field it wrote, or (field, its blur) with `blur`."""
     if timeline is not None:
         _build.require(timeline, "timeline", torch.int64,
-                       (2 + 2 * len(steps),), y2.device)
+                       (2 + 2 * len(steps) + int(blur),), y2.device)
     lh, lw = y2.shape
     dev = y2.device
     sample = f1y.dtype
@@ -169,6 +173,7 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
                  if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
                               else 1])
     field = torch.empty((2, lh, lw), dtype=torch.int32, device=dev)
+    blurred = torch.empty_like(field) if blur else None
     sums = torch.empty((2, words), dtype=torch.int32, device=dev)
     codes = (ctypes.c_int * max(len(steps), 1))(*(
         (w.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
@@ -178,37 +183,55 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
     rc = _build.load().mfi_flow_pyramid(
         f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
         u2.data_ptr(), v2.data_ptr(), *start, field.data_ptr(),
-        sums.data_ptr(), codes, len(steps), words, radius, ds, nbs, rs, H,
-        W, lh, lw, f1y.shape[1], f1u.shape[1], f1y.element_size(),
-        luma_shift, None if timeline is None else timeline.data_ptr(),
+        None if blurred is None else blurred.data_ptr(), sums.data_ptr(),
+        codes, len(steps), words, radius, ds, nbs, rs, H, W, lh, lw,
+        f1y.shape[1], f1u.shape[1], f1y.element_size(), luma_shift,
+        None if timeline is None else timeline.data_ptr(),
         _build.stream_of(y2))
     _build.check("flow_pyramid", rc)
     counts.kernel += 1
-    return field
+    if blurred is None:
+        return field
+    _blur.counts.fused += 1
+    return field, blurred
 
 
 def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
                  windows, first_nb_iteration: int, rs: int, H: int, W: int,
-                 luma_shift: int = 0, timeline=None):
+                 luma_shift: int = 0, timeline=None, blur: bool = False):
     """Every step of one pair's pyramid, from a zero field: the x axis then
     the y axis at each window of `windows`, the neighbour bias from
     iteration `first_nb_iteration` on.  Planes as for ``flow_step``.
     Returns the (2, lh, lw) int32 field, plane 0 the x offsets and plane 1
-    the y offsets.
+    the y offsets; with `blur`, (field, its 8x8 blur), on the card from
+    the same launch (``blur.counts.fused``), on the CPU from
+    ``blur.blur_flow``.
 
     `timeline`, for measurement on the card only: an int64 tensor of 2 + 4
-    x len(windows) entries that receives the card's clock in ns at the
-    launch's start, after its prologue and after each phase (sums, then
-    commit) of each step, with a barrier after the last step."""
+    x len(windows) entries (one more with `blur`) that receives the card's
+    clock in ns at the launch's start, after its prologue, after each
+    phase (sums, then commit) of each step, with a barrier after the last
+    step, and after the blur phase."""
     steps = pyramid_steps(windows, first_nb_iteration)
     _check_scalars(radius, ds, nbs, luma_shift, steps)
     if y2.device.type == "cpu":
         counts.plain += 1
-        return flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius, ds, nbs,
-                                  windows, first_nb_iteration, rs, H, W,
-                                  luma_shift)
+        field = flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius, ds,
+                                   nbs, windows, first_nb_iteration, rs, H,
+                                   W, luma_shift)
+        return (field, _blur.blur_flow(field)) if blur else field
     return _launch(f1y, f1u, f1v, y2, u2, v2, None, None, steps, radius, ds,
-                   nbs, rs, H, W, luma_shift, timeline)
+                   nbs, rs, H, W, luma_shift, timeline, blur)
+
+
+def blocks_per_sm(sample_bytes: int) -> int:
+    """The pyramid kernel's resident blocks an SM on the current card (its
+    cooperative grid is this times the SMs, at most one block a tile)."""
+    per_sm = ctypes.c_int()
+    _build.check("flow_pyramid_occupancy", _build.load()
+                 .mfi_flow_pyramid_occupancy(sample_bytes,
+                                             ctypes.byref(per_sm)))
+    return per_sm.value
 
 
 def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,

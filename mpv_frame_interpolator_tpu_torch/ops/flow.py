@@ -4,8 +4,9 @@ package's ``ops/flow.py``).
 The whole pyramid -- 2 x iterations steps, x then y at each window -- is
 one call of the flow-pyramid kernel (ops/cuda/flow_step.py): each step
 searches `radius` candidate offsets on one axis, sums the biased SAD over
-window x window blocks and commits the winner.  The final field is
-blurred by the blur kernel (ops/cuda/blur.py).
+window x window blocks and commits the winner.  The same launch blurs the
+final field as its last phase (the blur kernel's tile body); the blur on
+its own, ``blur_flow``, is the blur kernel (ops/cuda/blur.py).
 
 The search radius is a runtime integer <= MAX_SEARCH_RADIUS that bounds
 the kernel's layer loop.  The JAX package's layer buckets (one compiled
@@ -154,11 +155,10 @@ def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
         raise NotImplementedError(
             f"search radius {radius} is outside [1, {MAX_SEARCH_RADIUS}]")
     y2, u2, v2 = subsampled_f2(geom, f2y, f2u, f2v)
-    offset = flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius, delta_scalar,
-                          neighbor_bias_scalar, geom.window_schedule(),
-                          FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
-                          geom.height, geom.stride, luma_shift)
-    return offset, blur_flow(offset)
+    return flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius, delta_scalar,
+                        neighbor_bias_scalar, geom.window_schedule(),
+                        FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
+                        geom.height, geom.stride, luma_shift, blur=True)
 
 
 def blur_flow(offset: torch.Tensor) -> torch.Tensor:

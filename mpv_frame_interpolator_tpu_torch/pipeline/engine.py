@@ -5,8 +5,8 @@
 Per source pair, on the engine's device and without a host sync:
 
 1. the scene-cut score (``pipeline/scene.cut_score``);
-2. the flow pyramid and its blur (``ops/flow.flow``: the flow-step and
-   blur kernels);
+2. the flow pyramid and its blur (``ops/flow.flow``: one launch of the
+   flow-pyramid kernel, whose last phase is the blur);
 3. the cut folded in on the device: where the score exceeds the
    threshold the flow is zeroed and the blend positions snap to the
    nearer source (``torch.where``, no host branch);
@@ -18,18 +18,19 @@ Per source pair, on the engine's device and without a host sync:
      call of the fused kernel (``ops/cuda/warp_fused.py``) per position;
      under "pallas" two calls of the one-direction sampler
      (``ops/cuda/warp_sample.py``) per position, blended and level-mapped
-     as tensor ops.  In the JAX package "pair", "shift", "gather" and
-     "pallas" are sampling strategies with identical outputs, and "fused"
-     and "pallas" have kernels of their own, as here;
+     by one call of the blend kernel (``ops/cuda/blend_levels.py``).  In
+     the JAX package "pair", "shift", "gather" and "pallas" are sampling
+     strategies with identical outputs, and "fused" and "pallas" have
+     kernels of their own, as here;
    * modes 0 / 1 (warp12 / warp21), under any sampler: one call of the
      one-direction sampler per position, its raw samples as they are;
-   * mode 3 (hsv): two calls per position, blended, recoloured by the
-     flow (``ops/warp.hsv_planes``) and level-mapped as tensor ops;
+   * mode 3 (hsv): two calls per position, blended by the blend kernel at
+     the default levels, recoloured by the flow (``ops/warp.hsv_planes``)
+     and level-mapped as tensor ops (float colour math);
    * mode 4 (grey): the flow's magnitude as tensor ops; nothing sampled.
 
-   The blend, the colour math and the levels around the sampler are
-   tensor ops because the JAX package computes them in XLA, outside its
-   sampling kernel.
+   The blend kernel is the counterpart of the XLA fusion in which the JAX
+   package blends and level-maps outside its sampling kernel.
 
 P010 frames run with scale_shift 8 (the JAX engine's ``_scale_shift``):
 the flow's SAD and the cut score are shifted back to the 8-bit scale, the
@@ -66,6 +67,8 @@ from mpv_frame_interpolator_tpu_torch.frame import (
     NV12, FrameFormat, VideoFrame)
 from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
+from mpv_frame_interpolator_tpu_torch.ops.cuda.blend_levels import (
+    blend_levels)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_fused import fused_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_pair import pair_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_sample import sample_dir
@@ -232,16 +235,19 @@ def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
 def _blended_from_samples(mode: int, scale_shift: int, levels, rs: int,
                           wa: int, args, t):
     """Mode 2 under "pallas" and mode 3 at one position: the two
-    directions' raw samples (K5), the fixed-point blend, for mode 3 the
-    flow's colours, and the level maps."""
+    directions' raw samples (K5), then the blend and level maps (G1); mode
+    3 blends at the default levels, recolours by the flow and level-maps
+    the colours."""
     y12, uv12 = sample_dir(*args, t, 12, rs, wa)
     y21, uv21 = sample_dir(*args, t, 21, rs, wa)
-    w1, T = warp_ops.blend_weights(t, scale_shift)
-    b_y = warp_ops.blend_fix(y12, y21, w1, T, scale_shift)
-    b_uv = warp_ops.blend_fix(uv12, uv21, w1, T, scale_shift)
-    if mode == warp_ops.HSV_FLOW:
-        b_y, b_uv = warp_ops.hsv_planes(b_y, b_uv, args[4], rs, wa,
-                                        scale_shift)
+    if mode != warp_ops.HSV_FLOW:
+        return blend_levels(y12, uv12, y21, uv21, t, scale_shift, levels)
+    # the default levels clip the blend to 255 << scale_shift, which the
+    # colours cannot see: they read the blend >> scale_shift
+    b_y, b_uv = blend_levels(y12, uv12, y21, uv21, t, scale_shift)
+    b_y, b_uv = warp_ops.hsv_planes(b_y.to(torch.int32),
+                                    b_uv.to(torch.int32), args[4], rs, wa,
+                                    scale_shift)
     k, w = levels
     dtype = y12.dtype
     return (warp_ops.levels_y(b_y, k, w, scale_shift).to(dtype),

@@ -1,5 +1,5 @@
-"""K1, K2, K4 and K5 on the card at their paths' 4K shapes, for comparing
-two trees of the port in turns.
+"""K1-K5 and G1 on the card at their paths' 4K shapes, for comparing two
+trees of the port in turns.
 
     python3 mpv_frame_interpolator_tpu_torch/profile_kernels.py \
         [--root TREE] [--label NAME]
@@ -9,13 +9,21 @@ copy of this script can measure an older tree (an unpacked ``git
 archive``) and the current one in one run on one card.  Only entry
 points that every tree of the port has are called: the flow step, the
 pyramid (``flow_pyramid`` where the tree has it, else the loop of steps
-from a zero field), ``pair_blend``, ``fused_blend``, ``sample_dir`` and
-the engine.  Prints, with the card's name and power limit:
+from a zero field), ``ops/flow.flow``, ``blur_flow``, ``pair_blend``,
+``fused_blend``, ``sample_dir`` and the engine; an item that needs what
+the tree lacks (the blur phase of the pyramid's launch, G1) is printed
+as absent.  Prints, with the card's name and power limit:
 
 * K1: device ms of the whole radius-16 pyramid of a 4K pair, its
   launches, and the host ms its wrapper calls take (50 pyramids
-  enqueued with no synchronise between them); device ms of one step at
-  each window of the schedule;
+  enqueued with no synchronise between them); its resident blocks an
+  SM (the occupancy API, where the tree has the query); the us of its
+  phases inside the launch (the kernel's timeline, without the blur
+  phase); device ms of one step at each window of the schedule;
+* the flow as the engine runs it (``ops/flow.flow``: the pyramid and its
+  blur): device ms and launches a pair, and host ms (50 enqueued);
+* K3: device ms of the standalone blur of a 4K field, and the us of the
+  blur phase inside the pyramid's launch (its timeline stamp);
 * K2: device ms of the five blend positions of a 4K pair, 8-bit at the
   default levels and P010 with levels (16, 235);
 * K4: device ms of one 4K blend position, 8-bit at the default levels
@@ -23,10 +31,13 @@ the engine.  Prints, with the card's name and power limit:
 * K5: device ms of one 4K launch (direction 12, t = 0.4) at 8 bits and at
   P010, and of the ten launches of a "pallas" pair (both directions at
   the five positions, 8-bit);
+* G1: device ms of one 4K position, 8-bit at the default levels and
+  P010 with levels (16, 235);
 * the engine alone (frames staged on the card): at 8 bits, wall ms per
   pair with a synchronise after each pair, and device ms per pair and
   busy share under torch.profiler; device ms per pair and busy share on
-  the P010 fused path (levels 16/235) and in mode 0 (warp12).
+  the P010 fused path (levels 16/235), in mode 0 (warp12), in mode 2
+  under "pallas" and in mode 3 (hsv).
 
 All flows are random blocks of 8 x 8 low-res cells within +-96.
 
@@ -37,6 +48,7 @@ torch.profiler trace of the call.  The last line is the same as JSON.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -63,6 +75,7 @@ def main(argv=None) -> int:
     from mpv_frame_interpolator_tpu_torch import cli
     from mpv_frame_interpolator_tpu_torch.ops import flow as F
     from mpv_frame_interpolator_tpu_torch.ops import warp as W
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
@@ -128,6 +141,52 @@ def main(argv=None) -> int:
         pyramid()
     out["k1_host_ms_per_pair"] = (time.perf_counter() - t0) / 50 * 1e3
     torch.cuda.synchronize()
+    n_steps = len(steps)
+    out["k1_blocks_per_sm"] = (KS.blocks_per_sm(1)
+                               if hasattr(KS, "blocks_per_sm") else "absent")
+    if hasattr(KS, "flow_pyramid"):
+        stamps = torch.zeros((10, 2 + 2 * n_steps), dtype=torch.int64,
+                             device=dev)
+        for row in stamps:
+            KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6, windows,
+                            F.FIRST_NEIGHBOR_ITERATION, rs, geom.height,
+                            geom.stride, timeline=row)
+        out["k1_phases_us"] = float((stamps[:, -1] - stamps[:, 0])
+                                    .median()) / 1e3
+    else:
+        out["k1_phases_us"] = "absent"
+    if hasattr(KS, "flow_pyramid") and \
+            "blur" in inspect.signature(KS.flow_pyramid).parameters:
+        stamps = torch.zeros((10, 3 + 2 * n_steps), dtype=torch.int64,
+                             device=dev)
+        for row in stamps:
+            KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6, windows,
+                            F.FIRST_NEIGHBOR_ITERATION, rs, geom.height,
+                            geom.stride, timeline=row, blur=True)
+        d = stamps.diff(dim=1).median(dim=0).values
+        out["k1_phases_before_blur_us"] = float(d[:-1].sum()) / 1e3
+        out["k3_blur_phase_us"] = float(d[-1]) / 1e3
+    else:
+        out["k1_phases_before_blur_us"] = "absent"
+        out["k3_blur_phase_us"] = "absent"
+
+    def flow():
+        return F.flow(geom, f1y, f1u, f1v, f2y, f2u, f2v, 16)
+
+    before = KS.counts.kernel + KB.counts.kernel
+    flow()
+    out["flow_launches_per_pair"] = KS.counts.kernel + KB.counts.kernel \
+        - before
+    out["flow_device_ms"] = device_ms(flow)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        flow()
+    out["flow_host_ms_per_pair"] = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    field = flow()[0]
+    out["k3_standalone_device_ms"] = device_ms(lambda: KB.blur_flow(field))
+
     out["k1_step_device_ms"] = {
         w: device_ms(lambda w=w, nb=nb: [KS.flow_step(
             f1y, f1u, f1v, *probe, zero, zero, is_y, 16, 8, 6, w, nb, rs,
@@ -162,6 +221,20 @@ def main(argv=None) -> int:
     out["k5_pallas_pair_device_ms"] = device_ms(lambda: [
         KD.sample_dir(f1y, f1uv, f2y, f2uv, blurred, ts[i], d, rs, W4K)
         for i in range(5) for d in (12, 21)])
+    try:
+        from mpv_frame_interpolator_tpu_torch.ops.cuda import (
+            blend_levels as KG)
+    except ImportError:
+        out["g1_device_ms"] = out["g1_p010_device_ms"] = "absent"
+    else:
+        s12 = KD.sample_dir(f1y, f1uv, f2y, f2uv, blurred, t, 12, rs, W4K)
+        s21 = KD.sample_dir(f1y, f1uv, f2y, f2uv, blurred, t, 21, rs, W4K)
+        out["g1_device_ms"] = device_ms(lambda: KG.blend_levels(
+            *s12, *s21, t))
+        s12 = KD.sample_dir(g1y, g1uv, g2y, g2uv, blurred, t, 12, rs, W4K)
+        s21 = KD.sample_dir(g1y, g1uv, g2y, g2uv, blurred, t, 21, rs, W4K)
+        out["g1_p010_device_ms"] = device_ms(lambda: KG.blend_levels(
+            *s12, *s21, t, 8, W.level_ints(16, 235)))
 
     def engine(p010=False, sampling="pair", mode=2):
         """The engine alone on the moving box: (wall ms a pair with a
@@ -200,6 +273,10 @@ def main(argv=None) -> int:
         out["engine_p010_fused_busy_share"] = engine(True, "fused")
     _, out["engine_mode0_device_ms_per_pair"], \
         out["engine_mode0_busy_share"] = engine(mode=0)
+    _, out["engine_pallas_device_ms_per_pair"], \
+        out["engine_pallas_busy_share"] = engine(sampling="pallas")
+    _, out["engine_hsv_device_ms_per_pair"], \
+        out["engine_hsv_busy_share"] = engine(mode=3)
 
     print(f"card: {smi}  tree: {args.root} {args.label}")
     for key, value in out.items():

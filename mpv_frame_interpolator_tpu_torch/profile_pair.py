@@ -6,6 +6,7 @@
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --mode warp12
     python -m mpv_frame_interpolator_tpu_torch.profile_pair \
         --warp-sampling pallas
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --mode hsv
 
 Stages a synthetic ``moving_box`` clip at the main path's shape (4K,
 24 -> 120 fps, radius 16; 8-bit NV12, or P010 with --p010; output mode

@@ -24,6 +24,7 @@ from mpv_frame_interpolator_tpu.io import synthetic
 from mpv_frame_interpolator_tpu.ops import oracle
 from mpv_frame_interpolator_tpu_torch.convert import frame_to_device
 from mpv_frame_interpolator_tpu_torch.ops import flow as F
+from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
 from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
 from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
@@ -87,11 +88,18 @@ def test_flow_step(cuda, h, w, stride, mcr):
 
 
 @pytest.mark.parametrize("lh,lw", [(1, 1), (3, 2), (2, 7), (17, 45),
-                                   (136, 24), (270, 480)])
+                                   (19, 67), (18, 66), (136, 24),
+                                   (270, 480)])
 def test_blur(cuda, lh, lw):
     rng = np.random.default_rng(lh * 1000 + lw)
     off = torch.from_numpy(rng.integers(-500, 500, (2, lh, lw)).astype(
         np.int32)).to(cuda)
+    before = KB.counts.kernel
+    _equal([KB.blur_flow(off)], [KB.blur_flow_plain(off)])
+    assert KB.counts.kernel == before + 1
+    # sums that wrap mod 2^32
+    off = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (2, lh, lw))
+                           .astype(np.int32)).to(cuda)
     _equal([KB.blur_flow(off)], [KB.blur_flow_plain(off)])
 
 
@@ -159,6 +167,45 @@ def test_flow_pyramid(cuda, dt, luma_shift, h, w, stride, mcr):
         got = KS.flow_pyramid(*args)
         assert KS.counts.kernel == before + 1
         _equal([got], [KS.flow_pyramid_plain(*args)])
+
+
+@pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
+@pytest.mark.parametrize("h,w,stride,mcr", [(118, 202, 202, 270),
+                                            (544, 96, 96, 270),
+                                            (48, 64, 80, 270),
+                                            (48, 64, 64, 24),
+                                            (48, 64, 64, 2),
+                                            (48, 256, 256, 3),
+                                            (256, 12, 12, 64)])
+def test_flow_pyramid_blur(cuda, dt, luma_shift, h, w, stride, mcr):
+    """The pyramid with the blur as its last phase, one launch, against
+    blur_flow_plain(flow_pyramid_plain(...)), and the standalone K3 on the
+    same field; the last three shapes give a low-res field of 2 x 2, 3 x 16
+    and 64 x 3, below the blur's reach (the 2 x 2 field, whose own
+    schedule has no step, takes windows 2 and 1)."""
+    rng = np.random.default_rng(h * w + luma_shift + 7)
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    windows = geom.window_schedule() or (2, 1)
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    for radius, first_nb in ((5, 4), (16, 0)):
+        args = (y1, u1, v1, *probe, radius, 8, 6, windows, first_nb,
+                geom.res_scalar, geom.height, geom.stride, luma_shift)
+        before = (KS.counts.kernel, KB.counts.kernel, KB.counts.fused)
+        field, blurred = KS.flow_pyramid(*args, blur=True)
+        assert (KS.counts.kernel, KB.counts.kernel, KB.counts.fused) == (
+            before[0] + 1, before[1], before[2] + 1)
+        want = KS.flow_pyramid_plain(*args)
+        _equal([field, blurred], [want, KB.blur_flow_plain(want)])
+        _equal([KB.blur_flow(field)], [blurred])
+    # the timeline gains one stamp, after the blur phase
+    stamps = torch.zeros(3 + 4 * len(windows), dtype=torch.int64,
+                         device=cuda)
+    KS.flow_pyramid(*args, timeline=stamps, blur=True)
+    assert bool((stamps.diff() >= 0).all()) and int(stamps[0]) > 0
 
 
 @pytest.mark.parametrize("window", [64, 512])
@@ -276,6 +323,34 @@ def test_sample_dir_runs(cuda, scale_shift, h, w, stride, vec8, vec16):
             assert KW.vector_path((*src, *got), w) == (vec16 if scale_shift
                                                        else vec8)
             _equal(got, KD.sample_dir_plain(*args))
+
+
+@pytest.mark.parametrize("scale_shift", [0, 8])
+@pytest.mark.parametrize("levels", [(0.0, 255.0), (16.0, 235.0),
+                                    (16.5, 235.5), (0.0, 1.0)])
+@pytest.mark.parametrize("h,w,stride,vec8,vec16", _RUN_SHAPES)
+def test_blend_levels_runs(cuda, scale_shift, levels, h, w, stride, vec8,
+                           vec16):
+    """G1's 16-byte runs and its per-sample path, each bit-exact, on K5's
+    two directions of the flows of test_pair_blend_runs (and planes of 0
+    and of the top value), t in {0, 0.4, 0.5, 0.9999, 1}."""
+    geom, f1, f2, blurred = _run_case(cuda, h, w, stride, scale_shift)
+    levels = W.level_ints(*levels)
+    top = 65535 if scale_shift else 255
+    for t in (0.0, 0.4, 0.5, 0.9999, 1.0):
+        tt = torch.tensor(t, device=cuda)
+        s12 = KD.sample_dir(*f1, *f2, blurred, tt, 12, geom.res_scalar, w)
+        s21 = KD.sample_dir(*f1, *f2, blurred, tt, 21, geom.res_scalar, w)
+        for p, v in ((s12[0][:2], 0), (s21[0][:1], top), (s21[0][1:2], 0),
+                     (s12[1][:1], top)):
+            p.copy_(torch.full(p.shape, v, dtype=torch.int32))
+        args = (s12[0], s12[1], s21[0], s21[1], tt, scale_shift, levels)
+        before = KG.counts.kernel
+        got = KG.blend_levels(*args)
+        assert KG.counts.kernel == before + 1
+        assert KW.vector_path((*s12, *s21, *got), w) == (
+            vec16 if scale_shift else vec8)
+        _equal(got, KG.blend_levels_plain(*args))
 
 
 _LEVELS = [(0.0, 255.0), (16.0, 235.0), (16.5, 235.5), (128.0, 128.0),
@@ -500,7 +575,10 @@ def test_dma_stall_by_construction_traps(cuda):
     ("moving_box", "p010", "pair", (0.0, 255.0), 1),
     ("scene_cut", "nv12", "pallas", (16.5, 235.0), 2),
     ("moving_box", "p010", "pallas", (16.0, 235.0), 2),
+    ("moving_box", "nv12", "pallas", (0.0, 255.0), 2),
     ("scene_cut", "p010", "pair", (16.5, 235.0), 3),
+    ("moving_box", "nv12", "pallas", (0.0, 255.0), 3),
+    ("scene_cut", "p010", "pallas", (0.0, 255.0), 3),
     ("moving_box", "nv12", "pair", (0.0, 255.0), 4),
     ("scene_cut", "p010", "pallas", (0.0, 255.0), 4)])
 def test_engine_modes_on_the_card_equal_the_cpu(cuda, source, pixfmt,
@@ -513,9 +591,12 @@ def test_engine_modes_on_the_card_equal_the_cpu(cuda, source, pixfmt,
         warp_sampling=sampling, black_level=levels[0],
         white_level=levels[1]))
         for d in ("cpu", str(cuda))]
+    before = (KG.counts.kernel, KB.counts.kernel, KB.counts.fused)
+    outputs = 0
     for frame in getattr(synthetic, source)(cfg, 8):
         outs = [e.push(frame) for e in engines]
         assert len(outs[0]) == len(outs[1])
+        outputs += len(outs[1])
         for a, b in zip(*outs):
             assert a.pts == b.pts
             fa, fb = a.to_video_frame(), b.to_video_frame()
@@ -525,6 +606,13 @@ def test_engine_modes_on_the_card_equal_the_cpu(cuda, source, pixfmt,
                                    > 2) < 0.005
                 else:
                     np.testing.assert_array_equal(p, q)
+    # the blur ran inside every pair's pyramid launch, never on its own;
+    # G1 once an output in modes 3 and 2 under "pallas" (the first frame
+    # passes through), never elsewhere
+    blends = mode == 3 or (mode == 2 and sampling == "pallas")
+    assert KB.counts.kernel == before[1]
+    assert KB.counts.fused - before[2] == 7
+    assert KG.counts.kernel - before[0] == (outputs - 1 if blends else 0)
 
 
 def test_frame_to_device_keeps_the_chroma_split(cuda):

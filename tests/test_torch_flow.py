@@ -1,7 +1,8 @@
 """The port's whole flow (pyramid + blur, plain PyTorch path) against the
-JAX package's make_flow_fn and the NumPy oracle.  Bit-exact at 64x48
-(res_scalar 0) and 96x544 (res_scalar 2), radius 5 and 16, plus a noise
-clip, delta-scalar variants and a stride wider than the picture."""
+JAX package's make_flow_fn and the NumPy oracle, offset and blurred field
+both.  Bit-exact at 64x48 (res_scalar 0) and 96x544 (res_scalar 2),
+radius 5 and 16, plus a noise clip, delta-scalar variants and a stride
+wider than the picture."""
 
 import dataclasses
 
@@ -15,6 +16,8 @@ from mpv_frame_interpolator_tpu.io import synthetic
 from mpv_frame_interpolator_tpu.ops import oracle
 from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry, make_flow_fn
 from mpv_frame_interpolator_tpu_torch.ops import flow as TF
+from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
+from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
 
 torch.set_num_threads(1)
 
@@ -96,3 +99,15 @@ def test_rejects_radius_above_16(small_cfg):
     geom = TF.FlowGeometry.create(48, 64, 64)
     with pytest.raises(NotImplementedError):
         _port(geom, f1, f2, 17, 8, 6)
+
+
+def test_cpu_flow_composes_the_plain_pyramid_and_blur(small_cfg):
+    """On the CPU the flow is the plain pyramid, then the plain blur; the
+    fused blur's counter (the blur phase of the card's pyramid launch)
+    does not move."""
+    before = (KS.counts.kernel, KS.counts.plain, KB.counts.kernel,
+              KB.counts.plain, KB.counts.fused)
+    _check(small_cfg, "moving_box", 16)
+    assert (KS.counts.kernel, KS.counts.plain, KB.counts.kernel,
+            KB.counts.plain, KB.counts.fused) == (
+        before[0], before[1] + 1, before[2], before[3] + 1, before[4])

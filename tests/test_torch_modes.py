@@ -31,6 +31,7 @@ from mpv_frame_interpolator_tpu.pipeline import engine as jax_engine
 from mpv_frame_interpolator_tpu_torch import cli as port_cli
 from mpv_frame_interpolator_tpu_torch.convert import frame_to_device
 from mpv_frame_interpolator_tpu_torch.ops import warp as TW
+from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KS
 from mpv_frame_interpolator_tpu_torch.pipeline import engine as port_engine
 
@@ -154,6 +155,18 @@ def test_sampler_calls_per_position(small_cfg, mode, calls):
     before = KS.counts.plain
     _port_warp(f1, f2, geom, blur, mode, TS, sampling="pallas")
     assert KS.counts.plain == before + calls * len(TS)
+
+
+@pytest.mark.parametrize("mode,calls", [(0, 0), (1, 0), (2, 1), (3, 1),
+                                        (4, 0)])
+def test_blend_kernel_calls_per_position(small_cfg, mode, calls):
+    """The blend of the two directions (G1) runs once a position in mode 2
+    under "pallas" and in mode 3, and nowhere else."""
+    f1, f2, geom, blur = _setup(small_cfg)
+    before = (KG.counts.kernel, KG.counts.plain)
+    _port_warp(f1, f2, geom, blur, mode, TS, sampling="pallas")
+    assert (KG.counts.kernel, KG.counts.plain) == (
+        before[0], before[1] + calls * len(TS))
 
 
 # --- the engine against the JAX engine --------------------------------------
