@@ -24,7 +24,11 @@ Phases (any failure raises and exits non-zero):
    t in {0, 0.4, 1}, the 4K planes taking the 16-byte path of K2, K4 and
    K5; G1 (the blend and levels of K5's two directions) at 8 bits and
    P010, default levels and (16, 235), t in {0, 0.4, 1}, on samples that
-   reach 0 and the top value;
+   reach 0 and the top value; G1's occlusion variant (hopperx) at 8 bits
+   and P010 (16, 235), t in {0.2, 0.5, 0.8}; Q1 (the 1/64-pel bilinear
+   blend of hopperq, with occlusion hopperxq) at NV12 default levels and
+   P010 (16, 235), both occlusion settings, t in {0.2, 0.5, 0.8}, on the
+   block and edge flows;
 3b. the toolchain probes through their entry points: P1 (packed bytes)
    every probe OK, P2 (asynchronous copies) its matrix printed, the
    aligned control OK under cp.async and TMA and every case that is not
@@ -34,7 +38,11 @@ Phases (any failure raises and exits non-zero):
    8-bit NV12 under the "pair" sampler, and P010 with levels (16.5, 235)
    under "pair" and "fused"; modes 0, 1 and 4 and mode 2 under "pallas"
    at NV12 and P010: every output frame and pts equal; mode 3 (hsv,
-   float colour math) within the JAX package's tolerance;
+   float colour math) within the JAX package's tolerance; every model
+   family in mode 2 (NV12 and P010), hopperx and hopperq under "fused"
+   and "pallas", modes 5 and 6 with hopper and blend -- with each case's
+   launches: blend and repeat no K1, hopperx K5 twice and G1 once an
+   output, hopperq and hopperxq Q1 once an output;
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
    the launch counters of K1 and K2 must move during that run (K1
@@ -52,10 +60,15 @@ Phases (any failure raises and exits non-zero):
    then the engine's rate in that mode with frames staged on the card;
 8. ``--warp-sampling pallas`` (blended) through the CLI at 4K: K5
    launches exactly twice per interpolated output and G1 once, K2 and K4
-   never.
+   never;
+9. ``--model hopperxq`` through the CLI at 4K: K1 once a pair, Q1 once
+   an output (5 a pair), no other warp kernel;
+10. ``--model hopperx`` through the CLI at 4K: K5 twice and G1 once an
+   output.
 
 On every path the blur runs inside K1's launch once a pair and K3's
-standalone kernel never, and G1 runs only on the "pallas" path.
+standalone kernel never, G1 runs only on the "pallas" and hopperx paths,
+and Q1 only on the hopperq / hopperxq paths.
 
 Each path's counters are set to 0 just before it runs and read just
 after.  The port against the NumPy oracle on the card is a test:
@@ -302,6 +315,7 @@ def phase_kernels(dev):
     from mpv_frame_interpolator_tpu_torch.ops import warp as W
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
@@ -525,6 +539,79 @@ def phase_kernels(dev):
     results["blend_levels"] = dict(g1[(0, (0, 255))], max_abs_err=err,
                                    p010=g1[(8, W.level_ints(16, 235))])
 
+    # G1's occlusion variant (hopperx): the same samples, 8-bit at the
+    # default levels and P010 at (16, 235), t in {0.2, 0.5, 0.8}
+    g1x = {}
+    err = 0
+    for dt, ss, levels in ((np.uint8, 0, (0, 255)),
+                           (np.uint16, 8, W.level_ints(16, 235))):
+        e = 0
+        for t in (0.2, 0.8, 0.5):          # timed at the last
+            tt = torch.tensor(t, dtype=torch.float32, device=dev)
+            s12 = KD.sample_dir(*warp_args(dt), tt, 12, rs, W4K)
+            s21 = KD.sample_dir(*warp_args(dt), tt, 21, rs, W4K)
+            s21[0][4:6].copy_(torch.zeros((2, W4K), dtype=torch.int32))
+            args = (*s12, *s21, tt, ss, levels, True)
+            e = max(e, max_err(KG.blend_levels(*args),
+                               KG.blend_levels_plain(*args)))
+        log(f"  G1 occlusion {W4K}x{H4K} scale_shift={ss} levels={levels}, "
+            f"t in (0.2, 0.8, 0.5): max_abs_err={e}")
+        err = max(err, e)
+        item = np.dtype(dt).itemsize
+        out = (H4K + H4K // 2) * W4K
+        g1x[ss] = dict(
+            device_ms=device_ms(lambda: KG.blend_levels(*args)),
+            ms=cuda_ms(lambda: KG.blend_levels(*args), 20),
+            plain_ms=cuda_ms(lambda: KG.blend_levels_plain(*args), 5),
+            # G1's bytes; per sample ~14 operations (G1's eight, the
+            # difference, its shift, the ramp's clip and the mix)
+            bound=bound(3 * out * item, 14 * out))
+    results["blend_levels_occlusion"] = dict(g1x[0], max_abs_err=err,
+                                             p010=g1x[8])
+
+    # Q1: one bilinear blended position (hopperq, and hopperxq with the
+    # occlusion correction), NV12 at the default levels and P010 at
+    # (16, 235), t in {0.2, 0.5, 0.8}, on the random planes (rows of the
+    # top value) and the block field within +-96 and the one within +-400
+    # (negative displacements, cells pushed past every edge)
+    q1 = {}
+    err = 0
+    for dt, ss, levels in ((np.uint8, 0, (0, 255)),
+                           (np.uint16, 8, W.level_ints(16, 235))):
+        for occlusion in (False, True):
+            e = 0
+            for name, flow in (("block", blurred), ("edge", far)):
+                for t in (0.2, 0.8, 0.5):
+                    tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                    args = (*warp_args(dt)[:4], flow, tt, rs, W4K, ss,
+                            levels, occlusion)
+                    e = max(e, max_err(KQ.bilinear_blend(*args),
+                                       KQ.bilinear_blend_plain(*args)))
+            log(f"  Q1 {W4K}x{H4K} scale_shift={ss} levels={levels} "
+                f"occlusion={occlusion}, block and edge flows, t in (0.2, "
+                f"0.8, 0.5): max_abs_err={e}")
+            err = max(err, e)
+            args = (*warp_args(dt), tt, rs, W4K, ss, levels, occlusion)
+            item = np.dtype(dt).itemsize
+            out = (H4K + H4K // 2) * W4K
+            q1[(ss, occlusion)] = dict(
+                device_ms=device_ms(lambda: KQ.bilinear_blend(*args)),
+                ms=cuda_ms(lambda: KQ.bilinear_blend(*args), 20),
+                plain_ms=cuda_ms(lambda: KQ.bilinear_blend_plain(*args), 3),
+                # the two source frames read once, the output written
+                # once, the flow read once; per output sample ~80 scalar
+                # operations (two 1/64-pel positions of two products and
+                # roundings each, eight mirrored taps and their addresses,
+                # twelve tap products, the float blend, the level map)
+                bound=bound(3 * out * item + blurred.numel() * 4, 80 * out))
+    for key, r in sorted(q1.items()):
+        log(f"  Q1 scale_shift={key[0]} occlusion={key[1]} t=0.5: kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    results["bilinear_blend"] = dict(q1[(0, True)], max_abs_err=err,
+                                     p010=q1[(8, True)], nv12=q1[(0, False)])
+
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -637,47 +724,81 @@ def near_frame(a, b) -> bool:
 def phase_reference(dev):
     """Phase 4: the engine on the card against the engine on the CPU (the
     plain versions, which the CPU tests hold bit-exact against the JAX
-    package) on small clips: every output frame and pts equal."""
+    package) on small clips: every output frame and pts equal; each
+    case's launch counters set to 0 just before it and read just after:
+    no flow kernel for blend and repeat, K1 once a pair otherwise, K5
+    twice and G1 once an output for hopperx's blend, Q1 once an output
+    for hopperq's and hopperxq's."""
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
         EngineConfig, InterpolationEngine)
 
     # (clip, width, height, radius, display fps, P010, sampler, levels,
-    # output mode): res scalars 0 and 1, a width that is not a multiple of
-    # a warp, scene cuts, 8-bit and P010, every sampler, levels that round
-    # half to even, modes 0-4
+    # output mode, model): res scalars 0 and 1, a width that is not a
+    # multiple of a warp, scene cuts, 8-bit and P010, every sampler,
+    # levels that round half to even, modes 0-6, every model family
     tv = (16.5, 235.0)
     dl = (0, 255)
-    for name, w, h, radius, display, p010, sampling, levels, mode in [
-            ("gradient_pan", 320, 180, 5, 120.0, False, "pair", dl, 2),
-            ("moving_box", 640, 360, 16, 120.0, False, "pair", dl, 2),
-            ("moving_box", 202, 118, 16, 60.0, False, "pair", dl, 2),
-            ("scene_cut", 320, 180, 16, 60.0, False, "pair", dl, 2),
-            ("moving_box", 202, 118, 16, 120.0, True, "fused", tv, 2),
-            ("scene_cut", 320, 180, 16, 60.0, True, "pair", tv, 2),
-            ("scene_cut", 320, 180, 16, 60.0, True, "fused", tv, 2),
-            ("moving_box", 202, 118, 16, 120.0, False, "pair", dl, 0),
-            ("scene_cut", 320, 180, 16, 60.0, True, "pallas", tv, 0),
-            ("scene_cut", 320, 180, 16, 60.0, False, "pallas", dl, 1),
-            ("moving_box", 202, 118, 16, 120.0, True, "pair", tv, 1),
-            ("scene_cut", 320, 180, 16, 60.0, False, "pair", tv, 4),
-            ("moving_box", 202, 118, 16, 120.0, True, "pallas", dl, 4),
-            ("scene_cut", 320, 180, 16, 60.0, False, "pallas", tv, 2),
-            ("moving_box", 202, 118, 16, 120.0, True, "pallas", tv, 2),
-            ("gradient_pan", 320, 180, 5, 60.0, False, "pair", dl, 3),
-            ("scene_cut", 320, 180, 16, 60.0, True, "pallas", tv, 3)]:
+    cases = [c + ("hopper",) for c in [
+        ("gradient_pan", 320, 180, 5, 120.0, False, "pair", dl, 2),
+        ("moving_box", 640, 360, 16, 120.0, False, "pair", dl, 2),
+        ("moving_box", 202, 118, 16, 60.0, False, "pair", dl, 2),
+        ("scene_cut", 320, 180, 16, 60.0, False, "pair", dl, 2),
+        ("moving_box", 202, 118, 16, 120.0, True, "fused", tv, 2),
+        ("scene_cut", 320, 180, 16, 60.0, True, "pair", tv, 2),
+        ("scene_cut", 320, 180, 16, 60.0, True, "fused", tv, 2),
+        ("moving_box", 202, 118, 16, 120.0, False, "pair", dl, 0),
+        ("scene_cut", 320, 180, 16, 60.0, True, "pallas", tv, 0),
+        ("scene_cut", 320, 180, 16, 60.0, False, "pallas", dl, 1),
+        ("moving_box", 202, 118, 16, 120.0, True, "pair", tv, 1),
+        ("scene_cut", 320, 180, 16, 60.0, False, "pair", tv, 4),
+        ("moving_box", 202, 118, 16, 120.0, True, "pallas", dl, 4),
+        ("scene_cut", 320, 180, 16, 60.0, False, "pallas", tv, 2),
+        ("moving_box", 202, 118, 16, 120.0, True, "pallas", tv, 2),
+        ("gradient_pan", 320, 180, 5, 60.0, False, "pair", dl, 3),
+        ("scene_cut", 320, 180, 16, 60.0, True, "pallas", tv, 3)]]
+    # every model in mode 2 under its default sampler, NV12 and P010 at
+    # TV levels; hopperx and hopperq under "fused" and "pallas"; modes 5
+    # and 6 with hopper and blend
+    for model in ("hopperx", "hopperq", "hopperxq", "blend", "repeat"):
+        cases.append(("scene_cut", 202, 118, 16, 60.0, False, "pair", dl, 2,
+                      model))
+        cases.append(("moving_box", 202, 118, 16, 120.0, True, "pair", tv,
+                      2, model))
+    for model in ("hopperx", "hopperq"):
+        cases.append(("gradient_pan", 202, 118, 5, 60.0, False, "fused", tv,
+                      2, model))
+        cases.append(("scene_cut", 202, 118, 16, 60.0, True, "pallas", dl,
+                      2, model))
+    for mode in (5, 6):
+        cases.append(("moving_box", 202, 118, 16, 60.0, False, "pair", dl,
+                      mode, "hopper"))
+        cases.append(("scene_cut", 202, 118, 16, 60.0, True, "pair", tv,
+                      mode, "blend"))
+    counts = kernel_counts()
+    for name, w, h, radius, display, p010, sampling, levels, mode, model \
+            in cases:
         t0 = time.perf_counter()
         engines = [InterpolationEngine(EngineConfig(
             display_fps=display, frame_output_mode=mode, auto_quality=False,
             initial_search_radius=radius, warp_sampling=sampling,
-            black_level=levels[0], white_level=levels[1], device=d))
+            black_level=levels[0], white_level=levels[1], model=model,
+            device=d))
             for d in ("cpu", str(dev))]
-        n = 0
-        what = (f"mode {mode} {name} {w}x{h} {'P010' if p010 else 'NV12'} "
-                f"{sampling} levels {levels} radius {radius}")
+        n = pairs = 0
+        what = (f"mode {mode} {model} {name} {w}x{h} "
+                f"{'P010' if p010 else 'NV12'} {sampling} levels {levels} "
+                f"radius {radius}")
+        for c in counts.values():
+            c.reset()
         for frame in synthetic_frames(name, w, h, 7, p010):
             outs = [e.push(frame) for e in engines]
             check(len(outs[0]) == len(outs[1]),
                   f"{what}: output counts differ on the card and the CPU")
+            # a passed-through source frame keeps its host planes
+            warped = sum(isinstance(o.device_planes()[0], torch.Tensor)
+                         for o in outs[1])
+            pairs += warped > 0
+            n += warped
             for a, b in zip(*outs):
                 fa, fb = a.to_video_frame(), b.to_video_frame()
                 same = same_frame if mode != 3 else near_frame
@@ -688,14 +809,30 @@ def phase_reference(dev):
                       f"{what}: output planes {fb.y.shape} {fb.uv.shape}")
                 check(fb.y.dtype == (np.uint16 if p010 else np.uint8),
                       f"{what}: output dtype {fb.y.dtype}")
-                n += 1
+        launches = {k: c.kernel for k, c in counts.items()}
+        flow = 0 if model in ("blend", "repeat") else pairs
+        blended = mode == 2
+        check(launches["flow_step"] == flow,
+              f"{what}: K1 launched {launches['flow_step']} times for "
+              f"{pairs} pairs")
+        if blended and model == "hopperx":
+            check(launches["sample_dir"] == 2 * n
+                  and launches["blend_levels"] == n,
+                  f"{what}: K5 and G1 launched {launches['sample_dir']} and "
+                  f"{launches['blend_levels']} times for {n} outputs")
+        bilinear = n if blended and model in ("hopperq", "hopperxq") else 0
+        check(launches["bilinear_blend"] == bilinear,
+              f"{what}: Q1 launched {launches['bilinear_blend']} times for "
+              f"{n} outputs")
         cuts = [e.scene_cuts() for e in engines]
         check(cuts[0] == cuts[1], f"{what}: scene cuts differ: {cuts}")
         if name != "gradient_pan":
             check((cuts[1] > 0) == (name == "scene_cut"),
                   f"{what}: {cuts[1]} scene cuts")
-        log(f"  {what} -> {display:g} fps: {n} outputs equal, scene cuts "
-            f"{cuts[1]} ({time.perf_counter() - t0:.1f} s)")
+        log(f"  {what} -> {display:g} fps: {n} warped outputs equal over "
+            f"{pairs} pairs, scene cuts {cuts[1]}, launches "
+            f"{ {k: v for k, v in launches.items() if v} } "
+            f"({time.perf_counter() - t0:.1f} s)")
 
 
 def y4m_frames(path: str):
@@ -725,12 +862,14 @@ def kernel_counts():
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
     return {"flow_step": KS.counts, "blur_flow": KB.counts,
             "pair_blend": KW.counts, "fused_blend": KF.counts,
-            "sample_dir": KD.counts, "blend_levels": KG.counts}
+            "sample_dir": KD.counts, "blend_levels": KG.counts,
+            "bilinear_blend": KQ.counts}
 
 
 def run_cli(dev, frames: int, extra):
@@ -789,9 +928,14 @@ def run_cli(dev, frames: int, extra):
           f"K1 and its blur phase launched {launches['flow_step']} and "
           f"{launches['blur_fused']} times for {pairs} pairs (not once a "
           f"pair), K3 on its own {launches['blur_flow']} times")
-    blends = 5 * pairs if "pallas" in extra else 0
+    model = extra[extra.index("--model") + 1] if "--model" in extra \
+        else "hopper"
+    blends = 5 * pairs if "pallas" in extra or model == "hopperx" else 0
     check(launches["blend_levels"] == blends,
           f"G1 launched {launches['blend_levels']} times, not {blends}")
+    bilinear = 5 * pairs if model in ("hopperq", "hopperxq") else 0
+    check(launches["bilinear_blend"] == bilinear,
+          f"Q1 launched {launches['bilinear_blend']} times, not {bilinear}")
     return launches
 
 
@@ -839,6 +983,31 @@ def phase_pallas_path(dev):
           "blended outputs, not twice each")
     check(launches["pair_blend"] == 0 and launches["fused_blend"] == 0,
           f"the pallas path's launches: {launches}")
+    return launches
+
+
+def phase_hopperxq_path(dev):
+    """Phase 9: model hopperxq (1/64-pel bilinear blend with occlusion),
+    CLI at 4K 24 -> 120, radius 16: K1 once a pair and Q1 once an output
+    (both checked by run_cli), and no other warp kernel."""
+    launches = run_cli(dev, 4, ["--model", "hopperxq"])
+    check(launches["bilinear_blend"] == 5 * 3 and launches["flow_step"] == 3,
+          f"the hopperxq path's launches: {launches}")
+    check(launches["pair_blend"] == launches["fused_blend"]
+          == launches["sample_dir"] == 0,
+          f"a nearest sampler ran on the hopperxq path: {launches}")
+    return launches
+
+
+def phase_hopperx_path(dev):
+    """Phase 10: model hopperx (occlusion-aware blend), CLI at 4K: K5
+    twice and G1 (its occlusion variant) once an output."""
+    frames = 3
+    launches = run_cli(dev, frames, ["--model", "hopperx"])
+    outputs = 5 * (frames - 1)
+    check(launches["sample_dir"] == 2 * outputs
+          and launches["pair_blend"] == launches["fused_blend"] == 0,
+          f"the hopperx path's launches: {launches}")
     return launches
 
 
@@ -918,10 +1087,17 @@ def main() -> int:
     log("phase 8: blended output on the pallas sampler (cli "
         "--warp-sampling pallas, 4K 24->120, radius 16)")
     pallas_launches = phase_pallas_path(dev)
+    log("phase 9: model hopperxq end to end (cli --model hopperxq, 4K "
+        "24->120, radius 16)")
+    hopperxq_launches = phase_hopperxq_path(dev)
+    log("phase 10: model hopperx end to end (cli --model hopperx, 4K "
+        "24->120, radius 16)")
+    hopperx_launches = phase_hopperx_path(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
     # main path (K3 as the blur phase of K1's launches), K4 on the P010
-    # fused path, K5 on the warp12 path, G1 on the pallas path, the
+    # fused path, K5 on the warp12 path, G1 on the pallas path, its
+    # occlusion variant on the hopperx path, Q1 on the hopperxq path, the
     # probes through their own entry points
     pallas = "mpv_frame_interpolator_tpu/ops/pallas/"
     results.update(probes)
@@ -941,6 +1117,16 @@ def main() -> int:
         "blend_levels": ("blend_levels.cu",
                          "mpv_frame_interpolator_tpu/ops/warp.py:700",
                          pallas_launches["blend_levels"]),
+        # not TPU kernels: G1's occlusion variant replaces the XLA ops of
+        # _occlusion_adjust with the blend, Q1 the XLA 1/64-pel sampler
+        # _bilinear_all_planes with the blend, occlusion and levels
+        "blend_levels_occlusion": ("blend_levels.cu",
+                                   "mpv_frame_interpolator_tpu/ops/"
+                                   "warp.py:103",
+                                   hopperx_launches["blend_levels"]),
+        "bilinear_blend": ("warp_bilinear.cu",
+                           "mpv_frame_interpolator_tpu/ops/warp.py:521",
+                           hopperxq_launches["bilinear_blend"]),
         "pack_probe": ("pack_probe.cu", "tools/pallas_pack_probe.py:22",
                        probes["pack_probe"]["launches"]),
         "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",
@@ -955,18 +1141,22 @@ def main() -> int:
             "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            # no single PyTorch call computes K1-K5, G1 or P1 (mod 2^32
-            # window sums with an unsigned argmin, mirrored nearest gathers
-            # with the fixed-point blend, a symmetric-pad integer blur
-            # truncated toward zero, a nearest sample at a mirrored
+            # no single PyTorch call computes K1-K5, G1, Q1 or P1 (mod
+            # 2^32 window sums with an unsigned argmin, mirrored nearest
+            # gathers with the fixed-point blend, a symmetric-pad integer
+            # blur truncated toward zero, a nearest sample at a mirrored
             # coordinate rounded half away from zero -- grid_sample rounds
             # half to even and reflects otherwise -- the fixed-point blend
-            # followed by integer level maps, a set of probes); P2's is the
-            # slice copy
-            "library_ms": r.get("library_ms")})
+            # followed by integer level maps, 1/64-pel fixed-point
+            # bilinear taps under mirror_edge2's clamp -- grid_sample's
+            # bilinear mode weighs in float and reflects without it -- a
+            # set of probes); P2's is the slice copy
+            "library_ms": r.get("library_ms"),
+            "device_ms": r.get("device_ms")})
     log(f"launches on the 8-bit main path {main_launches}, on the P010 "
         f"fused path {p010_launches}, on the warp12 path {warp12_launches}, "
-        f"on the pallas blend path {pallas_launches}")
+        f"on the pallas blend path {pallas_launches}, on the hopperxq path "
+        f"{hopperxq_launches}, on the hopperx path {hopperx_launches}")
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

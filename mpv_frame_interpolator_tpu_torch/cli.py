@@ -9,6 +9,8 @@ Examples:
       --black-level 16 --white-level 235 --warp-sampling fused -o out.y4m
   python -m mpv_frame_interpolator_tpu_torch synthetic:moving_box \
       --mode hsv -o flow.y4m
+  python -m mpv_frame_interpolator_tpu_torch synthetic:gradient_pan \
+      --model hopperxq --mode sbs2 -o sbs.y4m
   python -m mpv_frame_interpolator_tpu_torch input.y4m --device cpu -o out.y4m
 
 The device is explicit: ``--device cuda`` (the default) needs a card and
@@ -26,6 +28,7 @@ import torch
 
 from mpv_frame_interpolator_tpu_torch.frame import NV12, P010
 from mpv_frame_interpolator_tpu_torch.io import sinks, synthetic, y4m
+from mpv_frame_interpolator_tpu_torch.models import MODELS
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 from mpv_frame_interpolator_tpu_torch.pipeline.player import Pipeline
@@ -35,8 +38,7 @@ from mpv_frame_interpolator_tpu_torch.utils.logging import set_verbosity
 
 log = get_logger("cli")
 
-# the JAX CLI's output modes (vf_HopperRender.c:21); sbs1 and sbs2 are not
-# ported and raise
+# the JAX CLI's output modes (vf_HopperRender.c:21)
 MODES = {"warp12": 0, "warp21": 1, "blend": 2, "hsv": 3, "grey": 4,
          "sbs1": 5, "sbs2": 6}
 
@@ -60,27 +62,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the 10-bit pipeline")
     p.add_argument("--display-fps", type=float, default=60.0,
                    help="target display rate")
+    p.add_argument("--untimed", action="store_true",
+                   help="do not pace output to the display clock")
+    p.add_argument("--no-present", action="store_true",
+                   help="skip the present clock entirely (max throughput)")
+    p.add_argument("--mode", default="blend",
+                   help="output mode: warp12|warp21|blend|hsv|grey|sbs1|sbs2 "
+                        "or FrameOutput integer 0-6")
+    p.add_argument("--speed", type=float, default=1.0, help="playback speed")
+    p.add_argument("--model", default="hopper", choices=MODELS,
+                   help="interpolator family: " + "|".join(MODELS))
     p.add_argument("--search-radius", type=int, default=5,
                    help="initial optical-flow search radius [5..16]")
     p.add_argument("--no-auto-quality", action="store_true",
                    help="disable the auto search-radius controller")
     p.add_argument("--no-scene-detection", action="store_true")
+    p.add_argument("--scene-threshold", type=float, default=28.0)
     p.add_argument("--black-level", type=float, default=0.0)
     p.add_argument("--white-level", type=float, default=255.0)
-    p.add_argument("--mode", default="blend",
-                   help="output mode: warp12|warp21|blend|hsv|grey or "
-                        "FrameOutput integer 0-4 (sbs1/sbs2, 5/6, are not "
-                        "ported)")
+    p.add_argument("--delta-scalar", type=int, default=8)
+    p.add_argument("--neighbor-bias-scalar", type=int, default=6)
+    p.add_argument("--max-calc-res", type=int, default=270)
+    p.add_argument("--num-iterations", type=int, default=0)
     p.add_argument("--warp-sampling", default="pair",
                    choices=("pair", "shift", "gather", "pallas", "fused"),
-                   help="blend-mode warp kernel: pair/shift/gather = every "
-                        "blend position of a pair in one launch, fused = "
-                        "one launch per position, pallas = two one-"
-                        "direction launches per position with the blend "
-                        "as tensor ops, the slowest route (identical "
-                        "outputs)")
-    p.add_argument("--untimed", action="store_true",
-                   help="do not pace output to the display clock")
+                   help="blend-mode warp kernel of hopper, blend and "
+                        "repeat: pair/shift/gather = every blend position "
+                        "of a pair in one launch, fused = one launch per "
+                        "position, pallas = two one-direction launches and "
+                        "one blend launch per position (identical "
+                        "outputs); hopperx, hopperq and hopperxq take "
+                        "their own route under any sampler")
     p.add_argument("-o", "--output", default="",
                    help="write outputs to a .y4m file")
     p.add_argument("--device", default="cuda",
@@ -133,14 +145,24 @@ def main(argv=None) -> int:
         auto_quality=not args.no_auto_quality,
         initial_search_radius=args.search_radius,
         scene_detection=not args.no_scene_detection,
+        scene_threshold=args.scene_threshold,
+        delta_scalar=args.delta_scalar,
+        neighbor_bias_scalar=args.neighbor_bias_scalar,
         black_level=args.black_level,
         white_level=args.white_level,
+        max_calc_res=args.max_calc_res,
+        num_iterations=args.num_iterations,
+        playback_speed=args.speed,
+        model=args.model,
         warp_sampling=args.warp_sampling,
         device=args.device))
+    if args.speed != 1.0:
+        engine.set_speed(args.speed)
     sink = (sinks.Y4MFileSink(args.output, width, height, args.display_fps,
                               P010 if args.p010 else NV12)
             if args.output else sinks.NullSink())
-    present = PresentClock(args.display_fps, untimed=args.untimed)
+    present = (None if args.no_present
+               else PresentClock(args.display_fps, untimed=args.untimed))
     pipe = Pipeline(source, engine, sink, present)
 
     t0 = time.perf_counter()

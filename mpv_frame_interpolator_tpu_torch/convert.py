@@ -44,12 +44,12 @@ def engine_config_from_jax(mapping: dict, device: str = "cuda"):
     """The port's EngineConfig, running on `device`, from
     ``dataclasses.asdict(jax_config)``.
 
-    Fields both configs have are copied, ``frame_output_mode`` and
-    ``warp_sampling`` among them: modes 0-4 and every sampler convert,
-    and the port's own validation raises NotImplementedError for what it
-    does not cover (the side-by-side modes 5 and 6, models other than
-    ``hopper``); TPU mechanism knobs are dropped; omitted mechanisms must
-    sit at their JAX default.  An unknown key raises KeyError."""
+    Fields both configs have are copied, ``frame_output_mode``,
+    ``model`` and ``warp_sampling`` among them: modes 0-6, every model
+    family and every sampler convert, and the port's own validation
+    raises NotImplementedError for what it does not cover (a search
+    radius above 16); TPU mechanism knobs are dropped; omitted mechanisms
+    must sit at their JAX default.  An unknown key raises KeyError."""
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
     fields = {f.name for f in dataclasses.fields(EngineConfig)} - {"device"}
     kwargs = {"device": device}

@@ -16,7 +16,11 @@
 //   chroma: min(floor(max((b - m) * 255 + m * w, 0) / max(w, 1)), cap),
 //           m = 128 << ss,
 // in int32 (warp_common.cuh's levels_y / levels_uv, with the clip shortcut
-// at the default levels), cap = 255 << ss.
+// at the default levels), cap = 255 << ss.  The hopperx families' variant
+// (kOcclusion, mode 2 of model hopperx) moves b toward the nearer source
+// between the blend and the level maps (occlusion_adjust on the raw s12 and
+// s21, ops/warp._occlusion_adjust, ops/warp.py:1049-1053 and :1155-1163);
+// without it the kernel is the plain blend's.
 //
 // What bounds it: bytes.  One 4K position reads s12 and s21 and writes the
 // output, 3 x 12.4 MB at 8 bits (x 2 under P010): ~11 us / ~22 us at
@@ -34,7 +38,7 @@ namespace {
 using mfi::kBX;
 using mfi::kBY;
 
-template <typename T>
+template <typename T, bool kOcclusion>
 __global__ void __launch_bounds__(kBX * kBY) blend_levels_kernel(
     const T* __restrict__ s12y, const T* __restrict__ s12uv,
     const T* __restrict__ s21y, const T* __restrict__ s21uv,
@@ -56,6 +60,7 @@ __global__ void __launch_bounds__(kBX * kBY) blend_levels_kernel(
   const int frac = ss ? 16 : 24;
   const unsigned tw = mfi::blend_weight(*t, frac);
   const unsigned w1 = (1u << frac) - tw;
+  const bool near12 = *t < 0.5f;
   if (vec) {
     const uint4 qa = __ldg(reinterpret_cast<const uint4*>(a));
     const uint4 qb = __ldg(reinterpret_cast<const uint4*>(b));
@@ -64,8 +69,11 @@ __global__ void __launch_bounds__(kBX * kBY) blend_levels_kernel(
     unsigned vals[kE];
 #pragma unroll
     for (int j = 0; j < kE; ++j) {
-      const unsigned bl = (mfi::sample_of<T>(wa, j) * w1 +
-                           mfi::sample_of<T>(wb, j) * tw) >> frac;
+      const unsigned sa = mfi::sample_of<T>(wa, j);
+      const unsigned sb = mfi::sample_of<T>(wb, j);
+      unsigned bl = (sa * w1 + sb * tw) >> frac;
+      if (kOcclusion)
+        bl = mfi::occlusion_adjust((int)bl, (int)sa, (int)sb, near12, ss);
       vals[j] = chroma ? mfi::levels_uv(bl, ss, w)
                        : mfi::levels_y(bl, ss, k, w);
     }
@@ -78,13 +86,15 @@ __global__ void __launch_bounds__(kBX * kBY) blend_levels_kernel(
   }
   const int n = min(kE, Wa - x0);
   for (int j = 0; j < n; ++j) {
-    const unsigned bl = ((unsigned)a[j] * w1 + (unsigned)b[j] * tw) >> frac;
+    unsigned bl = ((unsigned)a[j] * w1 + (unsigned)b[j] * tw) >> frac;
+    if (kOcclusion)
+      bl = mfi::occlusion_adjust((int)bl, (int)a[j], (int)b[j], near12, ss);
     o[j] = (T)(chroma ? mfi::levels_uv(bl, ss, w)
                       : mfi::levels_y(bl, ss, k, w));
   }
 }
 
-template <typename T>
+template <typename T, bool kOcclusion>
 int launch(const void* s12y, const void* s12uv, const void* s21y,
            const void* s21uv, const void* t, void* out_y, void* out_uv,
            int H, int Wa, int ss, int k, int w, int vec, cudaStream_t s) {
@@ -94,7 +104,7 @@ int launch(const void* s12y, const void* s12uv, const void* s21y,
     return (int)cudaErrorMisalignedAddress;
   int luma_blocks;
   const dim3 grid = mfi::two_plane_grid<T>(H, Wa, &luma_blocks);
-  blend_levels_kernel<T><<<grid, dim3(kBX, kBY), 0, s>>>(
+  blend_levels_kernel<T, kOcclusion><<<grid, dim3(kBX, kBY), 0, s>>>(
       static_cast<const T*>(s12y), static_cast<const T*>(s12uv),
       static_cast<const T*>(s21y), static_cast<const T*>(s21uv),
       static_cast<const float*>(t), static_cast<T*>(out_y),
@@ -108,18 +118,19 @@ int launch(const void* s12y, const void* s12uv, const void* s21y,
 // all contiguous, uint8 when ss == 0 and uint16 when ss == 8; t one float
 // on the device; (k, w) the levels; vec: 1 for the 16-byte path (refused
 // unless every plane pointer is 16-byte aligned and Wa samples are a
-// multiple of 16 bytes).
+// multiple of 16 bytes); occlusion: 1 for the hopperx correction.
 extern "C" int mfi_blend_levels(const void* s12y, const void* s12uv,
                                 const void* s21y, const void* s21uv,
                                 const void* t, void* out_y, void* out_uv,
                                 int H, int Wa, int ss, int k, int w, int vec,
-                                void* stream) {
+                                int occlusion, void* stream) {
   if (H < 2 || Wa < 1 || (ss != 0 && ss != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ss)
-    return launch<uint16_t>(s12y, s12uv, s21y, s21uv, t, out_y, out_uv, H,
-                            Wa, ss, k, w, vec, s);
-  return launch<uint8_t>(s12y, s12uv, s21y, s21uv, t, out_y, out_uv, H, Wa,
-                         ss, k, w, vec, s);
+  const auto go = ss ? (occlusion ? &launch<uint16_t, true>
+                                  : &launch<uint16_t, false>)
+                     : (occlusion ? &launch<uint8_t, true>
+                                  : &launch<uint8_t, false>);
+  return go(s12y, s12uv, s21y, s21uv, t, out_y, out_uv, H, Wa, ss, k, w, vec,
+            s);
 }

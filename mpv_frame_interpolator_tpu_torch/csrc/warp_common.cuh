@@ -3,7 +3,8 @@
 // one-direction raw sample of K5 (warp_sample.cu, sample_dir_pixel); the
 // flow lookups and the rounded displacements their 16-byte runs compute once
 // a flow cell (warp_runs.cuh).  G1 (blend_levels.cu) blends two raw samples
-// with the same weight and level maps.
+// with the same weight and level maps; G1's occlusion variant and Q1
+// (warp_bilinear.cu, the 1/64-pel bilinear blend) add occlusion_adjust.
 //
 // The semantics are those of the JAX blended warp (ops/warp._warp_sample,
 // mode 2), i.e. the reference's warpFrameKernel.cl with the fixed-point
@@ -75,6 +76,19 @@ __device__ __forceinline__ unsigned levels_uv(unsigned b, int ss, int w) {
   const int n = ((int)b - m) * 255 + m * d;
   if (n <= 0) return 0;
   return min(n / d, cap);
+}
+
+// The occlusion correction of the hopperx families (ops/warp.
+// _occlusion_adjust): with d8 = |s12 - s21| >> ss and a = clip((d8 - 32) *
+// 4, 0, 256), (blended * (256 - a) + near * a) >> 8, near = s12 where the
+// blend position is below 0.5, else s21.  blended <= 65535, so the products
+// fit int32.
+__device__ __forceinline__ int occlusion_adjust(int blended, int s12,
+                                                int s21, bool near12,
+                                                int ss) {
+  const int near = near12 ? s12 : s21;
+  const int a = min(max(((abs(s12 - s21) >> ss) - 32) * 4, 0), 256);
+  return (blended * (256 - a) + near * a) >> 8;
 }
 
 // Output pixel (cx, cy)'s low-res flow cell: luma (cy >> rs, cx >> rs),

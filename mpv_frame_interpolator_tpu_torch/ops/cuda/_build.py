@@ -30,8 +30,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
 SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu",
-           "warp_sample.cu", "blend_levels.cu", "pack_probe.cu",
-           "dma_probe.cu")
+           "warp_sample.cu", "blend_levels.cu", "warp_bilinear.cu",
+           "pack_probe.cu", "dma_probe.cu")
 HEADERS = ("warp_common.cuh", "warp_runs.cuh", "blur_tile.cuh")
 
 # --fmad=false: no multiply-add contraction, so the warp's f32
@@ -64,8 +64,11 @@ _SIGNATURES = {
     # sample_bytes vec | stream
     "mfi_sample_dir": (P,) * 6 + (I,) * 9 + (P,),
     # s12y s12uv s21y s21uv t out_y out_uv | H Wa scale_shift black white
-    # vec | stream
-    "mfi_blend_levels": (P,) * 7 + (I,) * 6 + (P,),
+    # vec occlusion | stream
+    "mfi_blend_levels": (P,) * 7 + (I,) * 7 + (P,),
+    # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
+    # scale_shift black white occlusion | stream
+    "mfi_bilinear_blend": (P,) * 8 + (I,) * 10 + (P,),
     # in out | n_words | stream
     "mfi_probe_b32": (P, P, I, P),
     # in out | R C shift method | stream

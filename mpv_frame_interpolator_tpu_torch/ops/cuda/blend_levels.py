@@ -4,11 +4,15 @@ Not a TPU kernel: it replaces the XLA fusion that the JAX package runs
 around its one-direction sampler, ``ops/warp._blend_fix`` followed by
 ``_levels_y_rt`` / ``_levels_uv_rt`` (``mpv_frame_interpolator_tpu/ops/
 warp.py:700``, ``:737-:774``).  The engine calls it once a position in
-mode 2 under the "pallas" sampler, on K5's two directions, and in mode 3
-before the HSV colours.  Per sample of the luma plane and the interleaved
+mode 2 under the "pallas" sampler, on K5's two directions, in mode 3
+before the HSV colours, and in mode 2 of model ``hopperx`` with the
+occlusion correction.  Per sample of the luma plane and the interleaved
 chroma plane: the fixed-point blend with 24 - (8 if scale_shift) fraction
-bits in uint32 (the JAX arithmetic: it never wraps), then the exact-integer
-black/white level maps in int32, capped at 255 << scale_shift.
+bits in uint32 (the JAX arithmetic: it never wraps), for hopperx the
+occlusion correction on the two raw samples (``ops/warp.occlusion_adjust``,
+the XLA ops ``_occlusion_adjust`` at ``ops/warp.py:103``), then the
+exact-integer black/white level maps in int32, capped at 255 <<
+scale_shift.
 
 Bound on the card: bytes -- one 4K position reads two raw sample planes
 and writes one, 3 x 12.4 MB at 8 bits, twice that under P010.  One launch
@@ -17,9 +21,9 @@ aligned 16-byte loads and one store where ``warp_pair.vector_path`` says
 the planes qualify, else sample by sample.
 
 The plain version is the composition of ``ops/warp.blend_weights``,
-``blend_fix``, ``levels_y`` and ``levels_uv``.  ``blend_levels``
-dispatches on the device: CPU tensors take ``blend_levels_plain``, CUDA
-tensors launch the kernel (or raise).
+``blend_fix``, ``occlusion_adjust``, ``levels_y`` and ``levels_uv``.
+``blend_levels`` dispatches on the device: CPU tensors take
+``blend_levels_plain``, CUDA tensors launch the kernel (or raise).
 """
 
 from __future__ import annotations
@@ -34,24 +38,28 @@ counts = _build.LaunchCounts()
 
 
 def blend_levels_plain(s12y, s12uv, s21y, s21uv, t, scale_shift: int = 0,
-                       levels=(0, 255)):
+                       levels=(0, 255), occlusion: bool = False):
     k, w = levels
     w1, T = W.blend_weights(t.reshape(()), scale_shift)
     b_y = W.blend_fix(s12y, s21y, w1, T, scale_shift)
     b_uv = W.blend_fix(s12uv, s21uv, w1, T, scale_shift)
+    if occlusion:
+        b_y = W.occlusion_adjust(b_y, s12y, s21y, t, scale_shift)
+        b_uv = W.occlusion_adjust(b_uv, s12uv, s21uv, t, scale_shift)
     dtype = s12y.dtype
     return (W.levels_y(b_y, k, w, scale_shift).to(dtype),
             W.levels_uv(b_uv, w, scale_shift).to(dtype))
 
 
 def blend_levels(s12y, s12uv, s21y, s21uv, t, scale_shift: int = 0,
-                 levels=(0, 255)):
+                 levels=(0, 255), occlusion: bool = False):
     """One blend position from the raw samples of its two directions.
 
     s12y/s21y (H, Wa) and s12uv/s21uv (H/2, Wa) interleaved, uint8 for
     scale_shift 0 and uint16 for 8 (``warp_sample.sample_dir``'s
     outputs); t a one-element float32 tensor on their device, read there;
-    levels (k, w) as ints on the 8-bit scale (``ops/warp.level_ints``).
+    levels (k, w) as ints on the 8-bit scale (``ops/warp.level_ints``);
+    occlusion: the hopperx correction between the blend and the levels.
     Returns (y, uv) of the samples' dtype."""
     if scale_shift not in (0, 8):
         raise ValueError(f"scale_shift must be 0 (NV12) or 8 (P010), got "
@@ -71,7 +79,7 @@ def blend_levels(s12y, s12uv, s21y, s21uv, t, scale_shift: int = 0,
     if s12y.device.type == "cpu":
         counts.plain += 1
         return blend_levels_plain(s12y, s12uv, s21y, s21uv, t, scale_shift,
-                                  levels)
+                                  levels, occlusion)
     dev = s12y.device
     for name, p in (("s12y", s12y), ("s21y", s21y), ("s12uv", s12uv),
                     ("s21uv", s21uv)):
@@ -84,7 +92,7 @@ def blend_levels(s12y, s12uv, s21y, s21uv, t, scale_shift: int = 0,
     rc = _build.load().mfi_blend_levels(
         s12y.data_ptr(), s12uv.data_ptr(), s21y.data_ptr(), s21uv.data_ptr(),
         t.data_ptr(), y.data_ptr(), uv.data_ptr(), H, wa, scale_shift, k, w,
-        int(vec), _build.stream_of(s12y))
+        int(vec), int(occlusion), _build.stream_of(s12y))
     _build.check("blend_levels", rc)
     counts.kernel += 1
     return y, uv

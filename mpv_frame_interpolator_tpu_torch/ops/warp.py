@@ -1,5 +1,5 @@
 """Bidirectional warp, blend and flow views (counterpart of the JAX
-package's ``ops/warp.py``), output modes 0-4.
+package's ``ops/warp.py``), output modes 0-6 and every model family.
 
 The pieces of the reference's warpFrameKernel.cl as plain tensor
 functions: the flow lookup at each output pixel's low-res cell
@@ -10,7 +10,11 @@ fixed-point blend (``blend_weights``, ``blend_fix``), the exact-integer
 black/white level maps (``levels_y``, ``levels_uv``), the HSV flow view
 (``visualize_flow``) and the grey flow view (``grey_planes``).  Chroma is
 sampled in the interleaved NV12/P010 plane directly (``nv12_column``), so
-its output comes out interleaved.
+its output comes out interleaved.  Beside them, the model families'
+pieces: the occlusion correction of ``hopperx`` (``occlusion_adjust``),
+the 1/64-pel bilinear sample and blend of ``hopperq`` / ``hopperxq``
+(``bilinear_sample``, ``bilinear_blend``), and the side-by-side views of
+modes 5 and 6 (``warp_sbs``).
 
 8-bit NV12 has scale_shift 0; 10-bit P010 (uint16 samples, value in the
 top bits) has scale_shift 8: the blend keeps 16 fraction bits instead of
@@ -19,10 +23,12 @@ and the output cap is 255 << scale_shift.
 
 The kernels that run the sampling on the card are ops/cuda/warp_pair.py
 (every blended position of a pair), ops/cuda/warp_fused.py (one blended
-position) and ops/cuda/warp_sample.py (the raw samples of one direction
-at one position, which modes 0, 1, 3 and the "pallas" sampler of mode 2
-compose); their plain versions compose these functions.  The side-by-side
-modes 5 and 6 are not ported yet.
+position), ops/cuda/warp_sample.py (the raw samples of one direction at
+one position, which modes 0, 1, 3, hopperx and the "pallas" sampler of
+mode 2 compose) and ops/cuda/warp_bilinear.py (one bilinear blended
+position); their plain versions compose these functions.  The
+side-by-side views run as these tensor ops on the engine's device: the
+JAX package computes them with XLA gathers, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -280,3 +286,189 @@ def grey_planes(blurred, rs: int, rows: int, actual_width: int,
     uv = torch.full((rows // 2, actual_width), 128 << scale_shift,
                     dtype=dtype, device=blurred.device)
     return grey.to(dtype), uv
+
+
+def occlusion_adjust(blended: torch.Tensor, s12: torch.Tensor,
+                     s21: torch.Tensor, t: torch.Tensor,
+                     scale_shift: int = 0) -> torch.Tensor:
+    """The occlusion correction of the hopperx families
+    (ops/warp._occlusion_adjust), in exact integers: where the two
+    directions' samples disagree by d8 = |s12 - s21| >> scale_shift, the
+    blend moves toward the temporally nearer source (s12 where t < 0.5,
+    else s21) by a = clip((d8 - 32) * 4, 0, 256) / 256:
+    (blended * (256 - a) + near * a) >> 8.  int64 out."""
+    s12 = s12.to(torch.int64)
+    s21 = s21.to(torch.int64)
+    near = torch.where(t.reshape(()) < 0.5, s12, s21)
+    a = ((((s12 - s21).abs() >> scale_shift) - 32) * 4).clamp(0, 256)
+    return (blended.to(torch.int64) * (256 - a) + near * a) >> 8
+
+
+def bilinear_sample(plane: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
+                    dim_y: int, dim_x: int) -> torch.Tensor:
+    """The hopperq families' sub-pixel sample (ops/warp._bilinear_sample):
+    py/px int32 positions in 1/64 pel, taps at (p >> 6) and (p >> 6) + 1
+    (an arithmetic shift: it floors negatives), each mirrored with
+    mirror_edge2 over dim_y x dim_x, weighted by the fraction p & 63.
+    Returns the sample in 1/4096 units, int32."""
+    y0, x0 = py >> 6, px >> 6
+    fy, fx = py & 63, px & 63
+    y0m, y1m = mirror_edge2(y0, dim_y), mirror_edge2(y0 + 1, dim_y)
+    x0m, x1m = mirror_edge2(x0, dim_x), mirror_edge2(x0 + 1, dim_x)
+    src = plane.to(torch.int32)     # CUDA does not index uint16
+    top = src[y0m, x0m] * (64 - fx) + src[y0m, x1m] * fx
+    bot = src[y1m, x0m] * (64 - fx) + src[y1m, x1m] * fx
+    return top * (64 - fy) + bot * fy
+
+
+_INV4096 = np.float32(1.0 / 4096.0)
+
+
+def _bilinear_mix(q12: torch.Tensor, q21: torch.Tensor, t: torch.Tensor,
+                  scale_shift: int, occlusion: bool) -> torch.Tensor:
+    """The float32 blend of two 1/4096-unit samples in the JAX order,
+    floor((q12 * (1 - t) + q21 * t) / 4096 + 0.5), and for hopperxq the
+    occlusion correction on the two samples rounded the same way."""
+    a, b = q12.to(torch.float32), q21.to(torch.float32)
+    val = (a * (1.0 - t) + b * t) * _INV4096
+    blended = torch.floor(val + 0.5).to(torch.int64)
+    if occlusion:
+        blended = occlusion_adjust(
+            blended, torch.floor(a * _INV4096 + 0.5),
+            torch.floor(b * _INV4096 + 0.5), t, scale_shift)
+    return blended
+
+
+def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
+                   actual_width: int, scale_shift: int = 0,
+                   levels=(0, 255), occlusion: bool = False):
+    """One blended position of the hopperq (occlusion=False) or hopperxq
+    (occlusion=True) family: (y (H, Wa), uv (H/2, Wa) interleaved) of the
+    planes' dtype (ops/warp._warp_sample, bilinear=True).
+
+    Luma samples f1 at (p << 6) + iround(flow12 * (t * 64)) and f2 at
+    (p << 6) - iround(flow21 * ((1 - t) * 64)), in 1/64 pel.  Chroma is
+    sampled in the planar half-width domain: column (cx >> 1) << 6 plus
+    iround(flow * (t * 32)), rows likewise, mirrored over (H/2, Wa/2), u
+    from the u samples and v from the v samples of the interleaved plane,
+    each output column with the flow of its own interleaved column.  Then
+    _bilinear_mix and the level maps.  t is a one-element float32
+    tensor."""
+    k, w = levels
+    ox12, oy12, ox21, oy21 = reverse_fields(blurred, rs)
+    t = t.to(torch.float32).reshape(())
+    fs21 = 1.0 - t
+    H, dev, dtype = f1y.shape[0], f1y.device, f1y.dtype
+    hc, wc = H // 2, actual_width >> 1
+
+    def positions(up, rows, base_y, base_x, unit):
+        s12, s21 = t * unit, fs21 * unit
+        grid = [up(f, rs, rows, actual_width).to(torch.float32)
+                for f in (ox12, oy12, ox21, oy21)]
+        return ((base_y + iround(grid[1] * s12), base_x + iround(grid[0] * s12)),
+                (base_y - iround(grid[3] * s21), base_x - iround(grid[2] * s21)))
+
+    cy = torch.arange(H, device=dev, dtype=torch.int32)[:, None]
+    cx = torch.arange(actual_width, device=dev, dtype=torch.int32)[None, :]
+    p12, p21 = positions(upsample_y, H, cy << 6, cx << 6, 64.0)
+    b_y = _bilinear_mix(bilinear_sample(f1y, *p12, H, actual_width),
+                        bilinear_sample(f2y, *p21, H, actual_width), t,
+                        scale_shift, occlusion)
+
+    cy = torch.arange(hc, device=dev, dtype=torch.int32)[:, None]
+    p12, p21 = positions(upsample_uv, hc, cy << 6, (cx >> 1) << 6, 32.0)
+    planes = []
+    for par in (0, 1):      # u on the even columns, v on the odd
+        def at(p):
+            return p[0][:, par::2], p[1][:, par::2]
+        planes.append(_bilinear_mix(
+            bilinear_sample(f1uv[:, par::2], *at(p12), hc, wc),
+            bilinear_sample(f2uv[:, par::2], *at(p21), hc, wc), t,
+            scale_shift, occlusion))
+    b_uv = torch.stack(planes, dim=-1).reshape(hc, 2 * wc)
+    return (levels_y(b_y, k, w, scale_shift).to(dtype),
+            levels_uv(b_uv, w, scale_shift).to(dtype))
+
+
+def warp_sbs(mode: int, f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
+             actual_width: int, scale_shift: int = 0, levels=(0, 255)):
+    """The side-by-side views (warpFrameKernel.cl:131-148;
+    ops/warp._warp_sbs) at one blend position: (y (H, Wa), uv (H/2, Wa)
+    interleaved) of the planes' dtype.
+
+    Mode 5 (SBS1) copies f1 verbatim into the left half (columns below
+    Wa >> 1) and warps the rest.  Mode 6 (SBS2) puts the source at half
+    size into a band of rows on the left and the warp of the picture at
+    doubled coordinates on the right, splitting at the STRIDE W >> 1 (not
+    at Wa); outside the band, luma is 0 and chroma 128 << scale_shift.
+    The warp is the nearest blend of the blended mode at each pixel's
+    adjusted coordinate, whose flow is looked up with clipping and whose
+    reverse flow is read back per pixel; then the level maps."""
+    k, w = levels
+    H, W = f1y.shape
+    _, lh, lw = blurred.shape
+    t = t.to(torch.float32).reshape(())
+    fs21 = 1.0 - t
+    w1, T = blend_weights(t, scale_shift)
+    dev, dtype, wa = f1y.device, f1y.dtype, actual_width
+    outs = []
+    for cz, p1, p2 in ((0, f1y, f2y), (1, f1uv, f2uv)):
+        rows = H >> cz
+        src1, src2 = p1.to(torch.int32), p2.to(torch.int32)
+        # int32 coordinates, as the JAX package computes them: half the
+        # bytes of PyTorch's default int64 in every pass below
+        cy = torch.arange(rows, device=dev, dtype=torch.int32)[:, None]
+        cx = torch.arange(wa, device=dev, dtype=torch.int32)[None, :]
+        cy, cx = cy.expand(rows, wa), cx.expand(rows, wa)
+
+        def fetch(src, ry, rx):
+            # chroma: u on even output columns, v on odd
+            return src[ry, nv12_column(rx, cx) if cz else rx]
+
+        if mode == SIDE_BY_SIDE_1:
+            forced = cx < (wa >> 1)
+            forced_val = fetch(src1, cy, cx)
+            adj_cy, adj_cx = cy, cx
+        elif mode == SIDE_BY_SIDE_2:
+            top = (H >> 2) >> cz
+            in_rows = (cy >= top) & (cy < top + (H >> (1 + cz)))
+            in_left = in_rows & (cx < (W >> 1))
+            in_right = in_rows & (cx >= (W >> 1)) & (cx < W)
+            ly = ((cy - top) * 2).clamp(0, rows - 1)
+            lx = (cx * 2 + ((cx & 1) if cz else 0)).clamp(0, W - 1)
+            forced = ~in_right
+            forced_val = torch.where(
+                in_left, fetch(src1, ly, lx),
+                torch.full_like(cx, (128 << scale_shift) if cz else 0))
+            adj_cx = torch.where(in_right, (cx - (wa >> 1)) * 2, cx)
+            adj_cy = torch.where(in_right, (cy - top) * 2, cy)
+        else:
+            raise ValueError(f"mode {mode} is not a side-by-side mode")
+
+        if cz:
+            scx = ((adj_cx >> rs) & ~1).clamp(0, lw - 1)
+            scy = ((adj_cy >> rs) << 1).clamp(0, lh - 1)
+        else:
+            scx = (adj_cx >> rs).clamp(0, lw - 1)
+            scy = (adj_cy >> rs).clamp(0, lh - 1)
+        ox12, oy12 = blurred[0][scy, scx], blurred[1][scy, scx]
+        bscy = (scy - (oy12 >> rs)).clamp(0, lh - 1)
+        bscx = (scx - (ox12 >> rs)).clamp(0, lw - 1)
+        ox21, oy21 = blurred[0][bscy, bscx], blurred[1][bscy, bscx]
+        dy12, dy21 = oy12.to(torch.float32) * t, oy21.to(torch.float32) * fs21
+        if cz:
+            dy12, dy21 = dy12 * 0.5, dy21 * 0.5
+        s12 = fetch(src1,
+                    mirror_edge2(adj_cy + iround(dy12), rows),
+                    mirror_edge2(adj_cx + iround(ox12.to(torch.float32) * t),
+                                 wa))
+        s21 = fetch(src2,
+                    mirror_edge2(adj_cy - iround(dy21), rows),
+                    mirror_edge2(adj_cx - iround(ox21.to(torch.float32)
+                                                 * fs21), wa))
+        b = blend_fix(s12, s21, w1, T, scale_shift)
+        val = levels_uv(b, w, scale_shift) if cz else \
+            levels_y(b, k, w, scale_shift)
+        outs.append(torch.where(forced, forced_val.to(torch.int64), val)
+                    .to(dtype))
+    return outs[0], outs[1]

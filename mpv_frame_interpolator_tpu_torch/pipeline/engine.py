@@ -1,33 +1,46 @@
 """InterpolationEngine of the port (counterpart of the JAX package's
-``pipeline/engine.py``): model ``hopper``, output modes 0-4, 8-bit NV12 or
-10-bit P010, any black/white levels.
+``pipeline/engine.py``): every model family (``models.MODELS``), output
+modes 0-6, 8-bit NV12 or 10-bit P010, any black/white levels.
 
 Per source pair, on the engine's device and without a host sync:
 
 1. the scene-cut score (``pipeline/scene.cut_score``);
 2. the flow pyramid and its blur (``ops/flow.flow``: one launch of the
-   flow-pyramid kernel, whose last phase is the blur);
+   flow-pyramid kernel, whose last phase is the blur) for the flow
+   families (hopper, hopperx, hopperq, hopperxq); ``blend`` and
+   ``repeat`` search no flow and take a zero field;
 3. the cut folded in on the device: where the score exceeds the
    threshold the flow is zeroed and the blend positions snap to the
-   nearer source (``torch.where``, no host branch);
-4. the outputs, luma and interleaved chroma, by output mode:
+   nearer source (``torch.where``, no host branch); model ``repeat`` then
+   snaps every position to 0 or 1;
+4. the outputs, luma and interleaved chroma, by output mode and model:
 
-   * mode 2 (blended) under ``warp_sampling`` "pair" (the default),
-     "shift" or "gather": every blend position of the pair in one call of
-     the pair-blend kernel (``ops/cuda/warp_pair.py``); under "fused" one
-     call of the fused kernel (``ops/cuda/warp_fused.py``) per position;
-     under "pallas" two calls of the one-direction sampler
-     (``ops/cuda/warp_sample.py``) per position, blended and level-mapped
-     by one call of the blend kernel (``ops/cuda/blend_levels.py``).  In
-     the JAX package "pair", "shift", "gather" and "pallas" are sampling
-     strategies with identical outputs, and "fused" and "pallas" have
-     kernels of their own, as here;
-   * modes 0 / 1 (warp12 / warp21), under any sampler: one call of the
-     one-direction sampler per position, its raw samples as they are;
+   * mode 2 (blended), models hopper, blend and repeat, under
+     ``warp_sampling`` "pair" (the default), "shift" or "gather": every
+     blend position of the pair in one call of the pair-blend kernel
+     (``ops/cuda/warp_pair.py``); under "fused" one call of the fused
+     kernel (``ops/cuda/warp_fused.py``) per position; under "pallas" two
+     calls of the one-direction sampler (``ops/cuda/warp_sample.py``) per
+     position, blended and level-mapped by one call of the blend kernel
+     (``ops/cuda/blend_levels.py``).  In the JAX package "pair", "shift",
+     "gather" and "pallas" are sampling strategies with identical
+     outputs, and "fused" and "pallas" have kernels of their own, as here;
+   * mode 2, model hopperx, under any sampler: the "pallas" composition
+     with the blend kernel's occlusion correction (the JAX package takes
+     hopperx off its pair and fused kernels too);
+   * mode 2, models hopperq and hopperxq, under any sampler: one call of
+     the bilinear kernel (``ops/cuda/warp_bilinear.py``) per position,
+     hopperxq with the occlusion correction;
+   * modes 0 / 1 (warp12 / warp21), under any sampler and model: one call
+     of the one-direction sampler per position, its raw samples as they
+     are;
    * mode 3 (hsv): two calls per position, blended by the blend kernel at
      the default levels, recoloured by the flow (``ops/warp.hsv_planes``)
      and level-mapped as tensor ops (float colour math);
-   * mode 4 (grey): the flow's magnitude as tensor ops; nothing sampled.
+   * mode 4 (grey): the flow's magnitude as tensor ops; nothing sampled;
+   * modes 5 / 6 (side by side): ``ops/warp.warp_sbs`` per position as
+     tensor ops (the JAX package's XLA gathers; no Pallas kernel).  Mode 6
+     also interpolates on the first source frame, paired with itself.
 
    The blend kernel is the counterpart of the XLA fusion in which the JAX
    package blends and level-maps outside its sampling kernel.
@@ -46,10 +59,9 @@ enqueued to after its last kernel completes, so it holds the host's
 enqueue time as well as the card's work (wall time on the CPU).  It is read back at the next push so that no push
 waits for its own pair.
 
-Not ported yet: the side-by-side modes 5 and 6, models other than
-``hopper``, degradation rungs, ``push_many``, split timing, background
-precompile and the compile cache.  A configuration the port
-does not cover raises ``NotImplementedError``.
+Not ported yet: search radii above 16, degradation rungs, ``push_many``,
+split timing, sub-pel flow, background precompile and the compile cache.
+A configuration the port does not cover raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from mpv_frame_interpolator_tpu_torch import models
 from mpv_frame_interpolator_tpu_torch.convert import (
     DeviceFrame, frame_to_device)
 from mpv_frame_interpolator_tpu_torch.frame import (
@@ -69,6 +82,8 @@ from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
 from mpv_frame_interpolator_tpu_torch.ops.cuda.blend_levels import (
     blend_levels)
+from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_bilinear import (
+    bilinear_blend)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_fused import fused_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_pair import pair_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_sample import sample_dir
@@ -84,7 +99,7 @@ log = get_logger("engine")
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The slice of the JAX EngineConfig the port covers, plus the
+    """The part of the JAX EngineConfig the port covers, plus the
     device the engine runs on (no fallback: "cuda" needs a card)."""
 
     display_fps: float = 60.0
@@ -103,10 +118,12 @@ class EngineConfig:
     num_iterations: int = 0
     measure_timing: bool = True
     playback_speed: float = 1.0
-    model: str = "hopper"
-    # mode 2: "pair", "shift", "gather": every position of a pair in one
-    # K2 call; "fused": one K4 call per position; "pallas": two K5 calls
-    # per position.  Modes 0, 1 and 3 always run on K5, mode 4 on none
+    model: str = "hopper"                          # models.MODELS
+    # mode 2 of hopper, blend and repeat: "pair", "shift", "gather":
+    # every position of a pair in one K2 call; "fused": one K4 call per
+    # position; "pallas": two K5 calls per position.  hopperx takes the
+    # "pallas" route and hopperq/hopperxq Q1 under any sampler; modes 0,
+    # 1 and 3 always run on K5, modes 4-6 on none
     warp_sampling: str = "pair"
     device: str = "cuda"
 
@@ -131,13 +148,7 @@ class EngineConfig:
                                       "fused"):
             raise ValueError(
                 "warp_sampling must be shift|gather|pallas|pair|fused")
-        if self.frame_output_mode > warp_ops.GREY_FLOW:
-            raise NotImplementedError(
-                f"output mode {self.frame_output_mode}: the side-by-side "
-                "modes 5 and 6 are not ported; the port covers modes 0-4")
-        if self.model != "hopper":
-            raise NotImplementedError(
-                f"model {self.model!r}: the port covers 'hopper' only")
+        models.validate(self.model)
         if self.initial_search_radius > flow_ops.MAX_SEARCH_RADIUS:
             raise NotImplementedError(
                 f"search radius above {flow_ops.MAX_SEARCH_RADIUS} is not "
@@ -186,46 +197,66 @@ class OutputFrame:
                           pts=self.pts)
 
 
-def _flow_stage(geom, scale_shift: int, scene_enabled: bool,
+FLOW_MODELS = ("hopper", "hopperx", "hopperq", "hopperxq")
+
+
+def _flow_stage(geom, scale_shift: int, scene_enabled: bool, model: str,
                 f1: DeviceFrame, f2: DeviceFrame, radius: int, ds: int,
                 nbs: int):
     """Scene score + hierarchical flow of one pair: (blurred flow,
-    cut_score or None)."""
+    cut_score or None).  The blend and repeat families search no flow:
+    their field is zero (the score still runs)."""
     score = (scene_mod.cut_score(f1.y, f2.y, geom.res_scalar, scale_shift)
              if scene_enabled else None)
+    if model not in FLOW_MODELS:
+        return torch.zeros((2, geom.low_h, geom.low_w), dtype=torch.int32,
+                           device=f1.y.device), score
     _, blurred = flow_ops.flow(geom, f1.y, f1.u, f1.v, f2.y, f2.u, f2.v,
                                radius, ds, nbs, scale_shift)
     return blurred, score
 
 
 def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
-                mode: int, sampling: str, f1: DeviceFrame, f2: DeviceFrame,
-                blurred, cut, ts):
+                mode: int, sampling: str, model: str, planes, blurred, cut,
+                ts):
     """Cut folding + every output of the pair: (y, uv), each indexable by
     position -- (N, H, Wa) and (N, H/2, Wa) tensors from one pair-blend
-    call, or lists of N planes.  `cut` is a 0-dim bool tensor or None."""
+    call, or lists of N planes.  `planes` is (f1y, f1uv, f2y, f2uv);
+    `cut` is a 0-dim bool tensor or None."""
     if cut is not None:
         blurred = blurred.masked_fill(cut, 0)
         ts_cut = ((ts >= 0.5).to(torch.float32) if cut_policy == "nearest"
                   else torch.zeros_like(ts))
         ts = torch.where(cut, ts_cut, ts)
+    if model == "repeat":
+        ts = (ts >= 0.5).to(torch.float32)
     rs, wa = geom.res_scalar, geom.actual_width
-    args = (f1.y, f1.uv, f2.y, f2.uv, blurred)
+    args = (*planes, blurred)
     n = ts.shape[0]
+    blended = mode == warp_ops.BLENDED_FRAME
     if mode == warp_ops.GREY_FLOW:
         y, uv = warp_ops.grey_planes(blurred, rs, geom.height, wa,
-                                     scale_shift, f1.y.dtype)
+                                     scale_shift, planes[0].dtype)
         return [y] * n, [uv] * n
-    if mode == warp_ops.BLENDED_FRAME and sampling not in ("fused",
-                                                           "pallas"):
+    if blended and model in ("hopperq", "hopperxq"):
+        outs = [bilinear_blend(*args, ts[i], rs, wa, scale_shift, levels,
+                               model == "hopperxq") for i in range(n)]
+    elif blended and model == "hopperx":
+        outs = [_blended_from_samples(mode, scale_shift, levels, rs, wa,
+                                      args, ts[i], occlusion=True)
+                for i in range(n)]
+    elif blended and sampling not in ("fused", "pallas"):
         return pair_blend(*args, ts, rs, wa, scale_shift, levels)
-    if mode == warp_ops.BLENDED_FRAME and sampling == "fused":
+    elif blended and sampling == "fused":
         outs = [fused_blend(*args, ts[i], rs, wa, scale_shift, levels)
                 for i in range(n)]
     elif mode in (warp_ops.WARPED_FRAME_12, warp_ops.WARPED_FRAME_21):
         direction = 12 if mode == warp_ops.WARPED_FRAME_12 else 21
         outs = [sample_dir(*args, ts[i], direction, rs, wa)
                 for i in range(n)]
+    elif mode in (warp_ops.SIDE_BY_SIDE_1, warp_ops.SIDE_BY_SIDE_2):
+        outs = [warp_ops.warp_sbs(mode, *args, ts[i], rs, wa, scale_shift,
+                                  levels) for i in range(n)]
     else:
         outs = [_blended_from_samples(mode, scale_shift, levels, rs, wa,
                                       args, ts[i]) for i in range(n)]
@@ -233,15 +264,16 @@ def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
 
 
 def _blended_from_samples(mode: int, scale_shift: int, levels, rs: int,
-                          wa: int, args, t):
-    """Mode 2 under "pallas" and mode 3 at one position: the two
-    directions' raw samples (K5), then the blend and level maps (G1); mode
-    3 blends at the default levels, recolours by the flow and level-maps
-    the colours."""
+                          wa: int, args, t, occlusion: bool = False):
+    """Mode 2 under "pallas" (and of hopperx, with the occlusion
+    correction) and mode 3 at one position: the two directions' raw
+    samples (K5), then the blend and level maps (G1); mode 3 blends at the
+    default levels, recolours by the flow and level-maps the colours."""
     y12, uv12 = sample_dir(*args, t, 12, rs, wa)
     y21, uv21 = sample_dir(*args, t, 21, rs, wa)
     if mode != warp_ops.HSV_FLOW:
-        return blend_levels(y12, uv12, y21, uv21, t, scale_shift, levels)
+        return blend_levels(y12, uv12, y21, uv21, t, scale_shift, levels,
+                            occlusion)
     # the default levels clip the blend to 255 << scale_shift, which the
     # colours cannot see: they read the blend >> scale_shift
     b_y, b_uv = blend_levels(y12, uv12, y21, uv21, t, scale_shift)
@@ -358,7 +390,12 @@ class InterpolationEngine:
     def push(self, frame: Union[VideoFrame, DeviceFrame]) -> List[OutputFrame]:
         """Process one source frame; returns the output frames due."""
         self._ensure_geometry(frame.fmt)
-        plan = self.cadence.on_source_frame(frame.pts, frame.nominal_fps)
+        # SideBySide2 interpolates on the first source frame as well (its
+        # pair is the frame with itself)
+        plan = self.cadence.on_source_frame(
+            frame.pts, frame.nominal_fps,
+            first_frame_interpolates=(self.config.frame_output_mode
+                                      == warp_ops.SIDE_BY_SIDE_2))
         if plan.inconsistent_detected:
             log.warning("Inconsistent frame timings detected. Using less "
                         "accurate frame timing method to maintain A/V sync.")
@@ -393,7 +430,8 @@ class InterpolationEngine:
         t0 = time.perf_counter()
 
         blurred, score = _flow_stage(
-            geom, self._scale_shift, self.config.scene_detection, f1, f2,
+            geom, self._scale_shift, self.config.scene_detection,
+            self.config.model, f1, f2,
             self.quality.search_radius,
             self.config.delta_scalar, self.config.neighbor_bias_scalar)
         cut = None
@@ -404,8 +442,8 @@ class InterpolationEngine:
         y, uv = _warp_stage(geom, self._scale_shift, self.levels,
                             self.config.cut_policy,
                             self.config.frame_output_mode,
-                            self.config.warp_sampling, f1, f2, blurred, cut,
-                            ts)
+                            self.config.warp_sampling, self.config.model,
+                            (f1.y, f1.uv, f2.y, f2.uv), blurred, cut, ts)
 
         if not timed:
             self._last_calc_duration = 0.0

@@ -1,8 +1,8 @@
-"""K1-K5 and G1 on the card at their paths' 4K shapes, for comparing two
-trees of the port in turns.
+"""K1-K5, G1 and Q1 on the card at their paths' 4K shapes, for comparing
+two trees of the port in turns.
 
     python3 mpv_frame_interpolator_tpu_torch/profile_kernels.py \
-        [--root TREE] [--label NAME]
+        [--root TREE] [--label NAME] [--model NAME ...]
 
 Imports the port from TREE (default: the checkout this file is in), so one
 copy of this script can measure an older tree (an unpacked ``git
@@ -32,12 +32,18 @@ as absent.  Prints, with the card's name and power limit:
   P010, and of the ten launches of a "pallas" pair (both directions at
   the five positions, 8-bit);
 * G1: device ms of one 4K position, 8-bit at the default levels and
-  P010 with levels (16, 235);
+  P010 with levels (16, 235), and the same with the occlusion correction
+  (hopperx);
+* Q1: device ms of one 4K bilinear position, 8-bit at the default
+  levels with and without the occlusion correction (hopperxq, hopperq),
+  and P010 with levels (16, 235) and the correction;
 * the engine alone (frames staged on the card): at 8 bits, wall ms per
   pair with a synchronise after each pair, and device ms per pair and
   busy share under torch.profiler; device ms per pair and busy share on
   the P010 fused path (levels 16/235), in mode 0 (warp12), in mode 2
-  under "pallas" and in mode 3 (hsv).
+  under "pallas", in mode 3 (hsv), in mode 6 (sbs2), and in mode 2 of
+  each model family that --model names (default hopperx, hopperq,
+  hopperxq and blend); a path the tree refuses prints as absent.
 
 All flows are random blocks of 8 x 8 low-res cells within +-96.
 
@@ -67,7 +73,11 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     p.add_argument("--label", default="")
+    p.add_argument("--model", action="append",
+                   help="a model family whose mode-2 engine path to time "
+                        "(repeatable)")
     args = p.parse_args(argv)
+    models = args.model or ["hopperx", "hopperq", "hopperxq", "blend"]
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: CUDA is not available")
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -225,25 +235,51 @@ def main(argv=None) -> int:
         from mpv_frame_interpolator_tpu_torch.ops.cuda import (
             blend_levels as KG)
     except ImportError:
-        out["g1_device_ms"] = out["g1_p010_device_ms"] = "absent"
+        KG = None
+    occlusion = KG is not None and \
+        "occlusion" in inspect.signature(KG.blend_levels).parameters
+    for key, y1, uv1, y2, uv2, ss, levels in (
+            ("", f1y, f1uv, f2y, f2uv, 0, (0, 255)),
+            ("_p010", g1y, g1uv, g2y, g2uv, 8, W.level_ints(16, 235))):
+        if KG is None:
+            out[f"g1{key}_device_ms"] = "absent"
+        else:
+            s12 = KD.sample_dir(y1, uv1, y2, uv2, blurred, t, 12, rs, W4K)
+            s21 = KD.sample_dir(y1, uv1, y2, uv2, blurred, t, 21, rs, W4K)
+            out[f"g1{key}_device_ms"] = device_ms(
+                lambda: KG.blend_levels(*s12, *s21, t, ss, levels))
+        out[f"g1_occlusion{key}_device_ms"] = device_ms(
+            lambda: KG.blend_levels(*s12, *s21, t, ss, levels, True)) \
+            if occlusion else "absent"
+    try:
+        from mpv_frame_interpolator_tpu_torch.ops.cuda import (
+            warp_bilinear as KQ)
+    except ImportError:
+        out["q1_device_ms"] = out["q1_occlusion_device_ms"] = \
+            out["q1_occlusion_p010_device_ms"] = "absent"
     else:
-        s12 = KD.sample_dir(f1y, f1uv, f2y, f2uv, blurred, t, 12, rs, W4K)
-        s21 = KD.sample_dir(f1y, f1uv, f2y, f2uv, blurred, t, 21, rs, W4K)
-        out["g1_device_ms"] = device_ms(lambda: KG.blend_levels(
-            *s12, *s21, t))
-        s12 = KD.sample_dir(g1y, g1uv, g2y, g2uv, blurred, t, 12, rs, W4K)
-        s21 = KD.sample_dir(g1y, g1uv, g2y, g2uv, blurred, t, 21, rs, W4K)
-        out["g1_p010_device_ms"] = device_ms(lambda: KG.blend_levels(
-            *s12, *s21, t, 8, W.level_ints(16, 235)))
+        out["q1_device_ms"] = device_ms(lambda: KQ.bilinear_blend(
+            f1y, f1uv, f2y, f2uv, blurred, t, rs, W4K))
+        out["q1_occlusion_device_ms"] = device_ms(lambda: KQ.bilinear_blend(
+            f1y, f1uv, f2y, f2uv, blurred, t, rs, W4K, 0, (0, 255), True))
+        out["q1_occlusion_p010_device_ms"] = device_ms(
+            lambda: KQ.bilinear_blend(g1y, g1uv, g2y, g2uv, blurred, t, rs,
+                                      W4K, 8, W.level_ints(16, 235), True))
 
-    def engine(p010=False, sampling="pair", mode=2):
+    def engine(p010=False, sampling="pair", mode=2, model="hopper"):
         """The engine alone on the moving box: (wall ms a pair with a
-        synchronise after each, device ms a pair, busy share)."""
+        synchronise after each, device ms a pair, busy share), or three
+        times "absent" where the tree does not cover the path."""
         levels = (16, 235) if p010 else (0, 255)
-        eng = InterpolationEngine(EngineConfig(
-            display_fps=120.0, frame_output_mode=mode, auto_quality=False,
-            initial_search_radius=16, warp_sampling=sampling,
-            black_level=levels[0], white_level=levels[1], device=str(dev)))
+        kw = {"model": model} if model != "hopper" else {}
+        try:
+            eng = InterpolationEngine(EngineConfig(
+                display_fps=120.0, frame_output_mode=mode,
+                auto_quality=False, initial_search_radius=16,
+                warp_sampling=sampling, black_level=levels[0],
+                white_level=levels[1], device=str(dev), **kw))
+        except NotImplementedError:
+            return ("absent",) * 3
         src = cli.make_source(cli.build_parser().parse_args(
             ["synthetic:moving_box", "--width", str(W4K), "--height",
              str(H4K), "--fps", "24", "--frames", "24"]
@@ -277,6 +313,11 @@ def main(argv=None) -> int:
         out["engine_pallas_busy_share"] = engine(sampling="pallas")
     _, out["engine_hsv_device_ms_per_pair"], \
         out["engine_hsv_busy_share"] = engine(mode=3)
+    _, out["engine_sbs2_device_ms_per_pair"], \
+        out["engine_sbs2_busy_share"] = engine(mode=6)
+    for model in models:
+        _, out[f"engine_{model}_device_ms_per_pair"], \
+            out[f"engine_{model}_busy_share"] = engine(model=model)
 
     print(f"card: {smi}  tree: {args.root} {args.label}")
     for key, value in out.items():

@@ -7,10 +7,13 @@
     python -m mpv_frame_interpolator_tpu_torch.profile_pair \
         --warp-sampling pallas
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --mode hsv
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --model hopperxq
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --mode sbs2
 
 Stages a synthetic ``moving_box`` clip at the main path's shape (4K,
 24 -> 120 fps, radius 16; 8-bit NV12, or P010 with --p010; output mode
---mode, blend by default) on the card, pushes WARM pairs through the
+--mode, blend by default; model family --model, hopper by default) on
+the card, pushes WARM pairs through the
 engine, then pushes PAIRS more under ``torch.profiler`` with one
 synchronise at the end.  Prints the wall per pair, the card's own time
 per pair (the sum of every kernel's and memset's device time as CUPTI
@@ -29,6 +32,7 @@ import time
 import torch
 
 from mpv_frame_interpolator_tpu_torch import cli
+from mpv_frame_interpolator_tpu_torch.models import MODELS
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
@@ -56,8 +60,8 @@ def main(argv=None) -> int:
     p.add_argument("--trace", default="",
                    help="write a Chrome trace of the profiled pairs here")
     p.add_argument("--p010", action="store_true", help="10-bit frames")
-    p.add_argument("--mode", default="blend",
-                   choices=[m for m, i in cli.MODES.items() if i <= 4])
+    p.add_argument("--mode", default="blend", choices=list(cli.MODES))
+    p.add_argument("--model", default="hopper", choices=MODELS)
     p.add_argument("--warp-sampling", default="pair",
                    choices=("pair", "fused", "pallas"))
     p.add_argument("--black-level", type=float, default=0.0)
@@ -69,7 +73,7 @@ def main(argv=None) -> int:
 
     eng = InterpolationEngine(EngineConfig(
         display_fps=DISPLAY_FPS, frame_output_mode=cli.MODES[args.mode],
-        auto_quality=False,
+        model=args.model, auto_quality=False,
         initial_search_radius=RADIUS, warp_sampling=args.warp_sampling,
         black_level=args.black_level, white_level=args.white_level,
         device="cuda"))
@@ -100,7 +104,7 @@ def main(argv=None) -> int:
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"{WIDTH}x{HEIGHT} {'P010' if args.p010 else 'NV12'} -> "
           f"{DISPLAY_FPS:g} fps, radius {RADIUS}, mode {args.mode}, "
-          f"warp_sampling "
+          f"model {args.model}, warp_sampling "
           f"{args.warp_sampling}, levels ({args.black_level:g}, "
           f"{args.white_level:g}): {PAIRS} pairs under the profiler")
     print(f"wall {wall * 1e3:.3f} ms = {wall / PAIRS * 1e3:.3f} ms/pair")

@@ -5,7 +5,9 @@ and a NumPy model of the kernel's own arithmetic (the blend in wrapping
 uint32, the level maps in int32).  Bit-exact (tolerance 0) at NV12 and
 P010, the default levels, (16.5, 235) and a white level of 1, blend
 positions 0, 0.4, 0.5, 1 and two whose t * 2^frac ties at .5, with
-samples at 0 and at the top of the range."""
+samples at 0 and at the top of the range.  The hopperx variant (the
+occlusion correction between the blend and the levels) is held against
+``_blend_fix`` + ``_occlusion_adjust`` + the level maps the same way."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,29 +55,35 @@ def _samples(seed, scale_shift, h=6, w=40):
     return planes
 
 
-def _jax(planes, t, scale_shift, black, white):
+def _jax(planes, t, scale_shift, black, white, occlusion=False):
     s12y, s12uv, s21y, s21uv = (jnp.asarray(p) for p in planes)
     tt = jnp.float32(t)
     b_y = JW._blend_fix(s12y, s21y, tt, scale_shift)
     b_uv = JW._blend_fix(s12uv, s21uv, tt, scale_shift)
+    if occlusion:
+        b_y = JW._occlusion_adjust(b_y, s12y, s21y, tt, scale_shift)
+        b_uv = JW._occlusion_adjust(b_uv, s12uv, s21uv, tt, scale_shift)
     return (np.asarray(JW._levels_y_rt(b_y, jnp.float32(black),
                                        jnp.float32(white), scale_shift)),
             np.asarray(JW._levels_uv_rt(b_uv, jnp.float32(white),
                                         scale_shift)))
 
 
-def _port(planes, t, scale_shift, black, white):
+def _port(planes, t, scale_shift, black, white, occlusion=False):
     tp = [torch.from_numpy(p) for p in planes]
     y, uv = KG.blend_levels(*tp, torch.tensor(t, dtype=torch.float32),
-                            scale_shift, TW.level_ints(black, white))
+                            scale_shift, TW.level_ints(black, white),
+                            occlusion)
     return y.numpy(), uv.numpy()
 
 
-def _kernel_model(planes, t, scale_shift, black, white):
+def _kernel_model(planes, t, scale_shift, black, white, occlusion=False):
     """csrc/blend_levels.cu's arithmetic in NumPy: T from one float32
     product rounded half to even; the blend in uint32, which wraps (it
-    never does); the level maps in int32 with C's truncating division of
-    positive numerators and the clip shortcut at the default levels."""
+    never does); for hopperx the occlusion correction in int32 on the raw
+    samples, toward s12 where t < 0.5; the level maps in int32 with C's
+    truncating division of positive numerators and the clip shortcut at
+    the default levels."""
     frac = TW.blend_fraction_bits(scale_shift)
     one = np.float32(1 << frac)
     tw = np.uint32(np.clip(np.rint(np.float32(t) * one), 0, one))
@@ -92,7 +100,15 @@ def _kernel_model(planes, t, scale_shift, black, white):
     def divide(n, d):
         return np.where(n <= 0, 0, np.minimum(np.maximum(n, 0) // d, cap))
 
+    def occlude(b, a, c):
+        a, c = a.astype(np.int32), c.astype(np.int32)
+        near = a if np.float32(t) < np.float32(0.5) else c
+        al = np.clip(((np.abs(a - c) >> scale_shift) - 32) * 4, 0, 256)
+        return (b * (256 - al) + near * al) >> 8
+
     b_y, b_uv = blend(s12y, s21y), blend(s12uv, s21uv)
+    if occlusion:
+        b_y, b_uv = occlude(b_y, s12y, s21y), occlude(b_uv, s12uv, s21uv)
     if (k, w) == (0, 255):
         y = np.minimum(b_y, cap)
     else:
@@ -131,6 +147,37 @@ def test_kernel_arithmetic_equals_the_plain_version(scale_shift, black,
         want = _port(planes, t, scale_shift, black, white)
         for g, r in zip(got, want):
             np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("scale_shift", [0, 8])
+@pytest.mark.parametrize("black,white", LEVELS[:2])
+def test_occlusion_variant_equals_the_jax_ops(scale_shift, black, white):
+    """G1 with the hopperx correction (plain path) against _blend_fix +
+    _occlusion_adjust + the level maps, and the kernel's arithmetic
+    against the plain path; the sample planes disagree by the whole range
+    in rows 0-2, so the ramp reaches both ends."""
+    planes = _samples(7 + int(black) + scale_shift, scale_shift)
+    for t in _ts(scale_shift) + [0.4999, 0.6]:
+        got = _port(planes, t, scale_shift, black, white, True)
+        want = _jax(planes, t, scale_shift, black, white, True)
+        model = _kernel_model(planes, t, scale_shift, black, white, True)
+        for g, r, m in zip(got, want, model):
+            np.testing.assert_array_equal(g.astype(np.int64),
+                                          r.astype(np.int64))
+            np.testing.assert_array_equal(g, m)
+
+
+def test_occlusion_moves_the_blend_toward_the_nearer_source():
+    s12 = torch.tensor([[0, 0, 100, 200]])
+    s21 = torch.tensor([[255, 90, 100, 0]])
+    blended = torch.tensor([[128, 45, 100, 100]])
+    for t, near in ((0.3, s12), (0.7, s21)):
+        got = TW.occlusion_adjust(blended, s12, s21, torch.tensor(t))
+        # |d| = 255 and 200 snap to the nearer source; 90 is a ramp of
+        # (90 - 32) * 4 = 232 / 256; equal samples keep the blend
+        assert got[0, 0] == near[0, 0] and got[0, 3] == near[0, 3]
+        assert got[0, 1] == (45 * 24 + int(near[0, 1]) * 232) >> 8
+        assert got[0, 2] == 100
 
 
 @pytest.mark.parametrize("scale_shift", [0, 8])

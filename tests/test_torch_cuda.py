@@ -6,9 +6,13 @@ stride wider than the picture, res_scalar 0 and 2), for 8-bit NV12 and
 one-direction samples (modes 0 and 1) on the card against the NumPy
 oracle (``ops/oracle``, 8-bit; P010 content that is 8-bit << 8 gives the
 oracle's flow, and its blend >> 8 the oracle's blend at blend positions
-whose 16-bit weight is exact); the toolchain probes; and the whole engine
-on the card against the engine on the CPU, output modes 0-4.  Bit-exact,
-except mode 3's float colours (the JAX package's tolerance).
+whose 16-bit weight is exact); Q1 (the 1/64-pel bilinear blend) against
+its plain version and ``q1_model``, a NumPy model of its arithmetic
+sample by sample (which ``tests/test_torch_bilinear.py`` holds against
+the JAX package on the CPU), and G1's occlusion variant; the toolchain
+probes; and the whole engine on the card against the engine on the CPU,
+output modes 0-6 and every model family.  Bit-exact, except mode 3's
+float colours (the JAX package's tolerance).
 
 These tests need an NVIDIA card (marker ``gpu``) and skip without one.
 They import no jax, so on a machine without it they run as
@@ -29,6 +33,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
 from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
+from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
 from mpv_frame_interpolator_tpu_torch.pipeline import engine as E
@@ -622,3 +627,214 @@ def test_frame_to_device_keeps_the_chroma_split(cuda):
     assert dev.y.is_cuda and dev.u.is_contiguous()
     np.testing.assert_array_equal(dev.v.cpu().numpy(), frame.uv[:, 1::2])
     assert dev.fmt == frame.fmt
+
+
+# --- Q1 (hopperq / hopperxq) and G1's occlusion variant ---------------------
+
+def _mirror(pos, dim):
+    res = np.where(pos >= dim - 1, pos - (pos - (dim - 2)) * 2, pos)
+    res = np.where(pos < 1, -pos + 1, res)
+    return np.clip(res, 1, dim - 2)
+
+
+def _iround(x):
+    return (np.sign(x) * np.floor(np.abs(x) + np.float32(0.5))).astype(
+        np.int32)
+
+
+def q1_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, scale_shift=0,
+             levels=(0, 255), occlusion=False):
+    """csrc/warp_bilinear.cu's arithmetic in NumPy, addressed as the kernel
+    addresses each output sample: the flow and back-projected reverse flow
+    at the sample's cell, 1/64-pel positions from one float32 product
+    each, chroma read from the interleaved plane at column 2x + parity of
+    the half-width position x, the taps mirrored, the float32 blend in the
+    JAX order, the occlusion correction and the level maps.  Returns (y,
+    uv) of the planes' dtype."""
+    t = np.float32(t)
+    fs21 = np.float32(1.0) - t
+    inv = np.float32(1.0 / 4096.0)
+    k, w = levels
+    cap = 255 << scale_shift
+    _, lh, lw = blurred.shape
+    outs = []
+    for chroma, p1, p2 in ((False, f1y, f2y), (True, f1uv, f2uv)):
+        rows = p1.shape[0]
+        cy, cx = np.mgrid[0:rows, 0:wa]
+        if chroma:
+            scx = np.minimum((cx >> rs) & ~1, lw - 1)
+            scy = np.minimum((cy >> rs) << 1, lh - 1)
+        else:
+            scx, scy = np.minimum(cx >> rs, lw - 1), np.minimum(cy >> rs,
+                                                                 lh - 1)
+        ox, oy = blurred[0][scy, scx], blurred[1][scy, scx]
+        bscy = np.clip(scy - (oy >> rs), 0, lh - 1)
+        bscx = np.clip(scx - (ox >> rs), 0, lw - 1)
+        ox21, oy21 = blurred[0][bscy, bscx], blurred[1][bscy, bscx]
+        unit = np.float32(32.0 if chroma else 64.0)
+        s12, s21 = t * unit, fs21 * unit
+        bx, by = ((cx >> 1) if chroma else cx) << 6, cy << 6
+        dim_x = wa >> 1 if chroma else wa
+        cstep, cpar = (2, cx & 1) if chroma else (1, 0)
+
+        def tap(src, py, px):
+            y0, x0, fy, fx = py >> 6, px >> 6, py & 63, px & 63
+            r0, r1 = _mirror(y0, rows), _mirror(y0 + 1, rows)
+            c0 = _mirror(x0, dim_x) * cstep + cpar
+            c1 = _mirror(x0 + 1, dim_x) * cstep + cpar
+            s = src.astype(np.int32)
+            top = s[r0, c0] * (64 - fx) + s[r0, c1] * fx
+            bot = s[r1, c0] * (64 - fx) + s[r1, c1] * fx
+            return top * (64 - fy) + bot * fy
+
+        f32 = np.float32
+        q12 = tap(p1, by + _iround(oy.astype(f32) * s12),
+                  bx + _iround(ox.astype(f32) * s12))
+        q21 = tap(p2, by - _iround(oy21.astype(f32) * s21),
+                  bx - _iround(ox21.astype(f32) * s21))
+        a, b = q12.astype(f32), q21.astype(f32)
+        val = (a * fs21 + b * t) * inv
+        bl = np.floor(val + f32(0.5)).astype(np.int64)
+        if occlusion:
+            s12i = np.floor(a * inv + f32(0.5)).astype(np.int64)
+            s21i = np.floor(b * inv + f32(0.5)).astype(np.int64)
+            near = s12i if t < 0.5 else s21i
+            al = np.clip(((np.abs(s12i - s21i) >> scale_shift) - 32) * 4, 0,
+                         256)
+            bl = (bl * (256 - al) + near * al) >> 8
+        if chroma:
+            m = 128 << scale_shift
+            n = (bl - m) * 255 + m * max(w, 1)
+            d = max(w, 1)
+        else:
+            n, d = (bl - (k << scale_shift)) * 255, max(w - k, 1)
+        if (chroma and w == 255) or (not chroma and (k, w) == (0, 255)):
+            out = np.minimum(bl, cap)
+        else:
+            out = np.where(n <= 0, 0, np.minimum(np.maximum(n, 0) // d, cap))
+        outs.append(out.astype(p1.dtype))
+    return outs[0], outs[1]
+
+
+def _q1_flow(rng, geom, lim):
+    """Blocks of 4 x 4 low-res cells within +-lim, plus single cells that
+    reach 4 * lim (wild displacements past every edge)."""
+    lh, lw = geom.low_h, geom.low_w
+    base = rng.integers(-lim, lim + 1, (2, -(-lh // 4), -(-lw // 4)))
+    f = base.repeat(4, 1).repeat(4, 2)[:, :lh, :lw]
+    wild = rng.random((2, lh, lw)) < 0.05
+    f = np.where(wild, rng.integers(-4 * lim, 4 * lim + 1, (2, lh, lw)), f)
+    return f.astype(np.int32)
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0)),
+                                                (0, (16.5, 235.0))])
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("h,w,stride", [(48, 64, 80), (118, 202, 202),
+                                        (544, 96, 96), (64, 34, 48)])
+def test_bilinear_blend(cuda, scale_shift, levels, occlusion, h, w, stride):
+    """Q1 against its plain version and q1_model: res scalars 0 and 2,
+    stride wider than the picture, flows within +-3, +-40 and +-400 with
+    wild cells, t in {0, 0.2, 0.5, 0.8, 1} (and one odd value)."""
+    rng = np.random.default_rng(h * w + stride + scale_shift)
+    dt = np.uint16 if scale_shift else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w)
+    f1 = _frames(rng, h, stride, cuda, dt)
+    f2 = _frames(rng, h, stride, cuda, dt)
+    levels = W.level_ints(*levels)
+    host = [p.cpu().numpy() for p in (*f1, *f2)]
+    for lim in (3, 40, 400):
+        flow = _q1_flow(rng, geom, lim)
+        blurred = torch.from_numpy(flow).to(cuda)
+        for t in (0.0, 0.2, 0.5, 0.8, 1.0, 0.37):
+            args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                    torch.tensor(t, device=cuda), geom.res_scalar, w,
+                    scale_shift, levels, occlusion)
+            before = KQ.counts.kernel
+            got = KQ.bilinear_blend(*args)
+            assert KQ.counts.kernel == before + 1
+            _equal(got, KQ.bilinear_blend_plain(*args))
+            model = q1_model(*host, flow, t, geom.res_scalar, w,
+                             scale_shift, levels, occlusion)
+            for g, m in zip(got, model):
+                np.testing.assert_array_equal(g.cpu().numpy(), m)
+
+
+@pytest.mark.parametrize("scale_shift", [0, 8])
+@pytest.mark.parametrize("levels", [(0.0, 255.0), (16.0, 235.0)])
+@pytest.mark.parametrize("h,w,stride,vec8,vec16", _RUN_SHAPES)
+def test_blend_levels_occlusion_runs(cuda, scale_shift, levels, h, w,
+                                     stride, vec8, vec16):
+    """G1's occlusion variant (hopperx), 16-byte runs and per sample, on
+    K5's two directions with rows that disagree by the whole range, t in
+    {0, 0.4, 0.5, 0.6, 1}: bit-exact with the plain version."""
+    geom, f1, f2, blurred = _run_case(cuda, h, w, stride, scale_shift)
+    levels = W.level_ints(*levels)
+    top = 65535 if scale_shift else 255
+    for t in (0.0, 0.4, 0.5, 0.6, 1.0):
+        tt = torch.tensor(t, device=cuda)
+        s12 = KD.sample_dir(*f1, *f2, blurred, tt, 12, geom.res_scalar, w)
+        s21 = KD.sample_dir(*f1, *f2, blurred, tt, 21, geom.res_scalar, w)
+        for p, v in ((s12[0][:2], 0), (s21[0][:1], top), (s21[0][1:2], 0),
+                     (s12[1][:1], top)):
+            p.copy_(torch.full(p.shape, v, dtype=torch.int32))
+        args = (s12[0], s12[1], s21[0], s21[1], tt, scale_shift, levels,
+                True)
+        before = KG.counts.kernel
+        got = KG.blend_levels(*args)
+        assert KG.counts.kernel == before + 1
+        _equal(got, KG.blend_levels_plain(*args))
+
+
+@pytest.mark.parametrize("model,mode,sampling,pixfmt,levels", [
+    ("hopperx", 2, "pair", "nv12", (0.0, 255.0)),
+    ("hopperx", 2, "fused", "p010", (16.0, 235.0)),
+    ("hopperq", 2, "pallas", "nv12", (16.5, 235.0)),
+    ("hopperq", 2, "pair", "p010", (0.0, 255.0)),
+    ("hopperxq", 2, "pair", "nv12", (0.0, 255.0)),
+    ("hopperxq", 2, "fused", "p010", (16.0, 235.0)),
+    ("blend", 2, "pair", "nv12", (0.0, 255.0)),
+    ("repeat", 2, "fused", "p010", (16.0, 235.0)),
+    ("hopper", 5, "pair", "nv12", (0.0, 255.0)),
+    ("blend", 6, "pair", "p010", (16.0, 235.0)),
+    ("hopperq", 6, "pair", "nv12", (0.0, 255.0)),
+    ("hopperx", 3, "pair", "nv12", (0.0, 255.0))])
+def test_engine_models_on_the_card_equal_the_cpu(cuda, model, mode,
+                                                 sampling, pixfmt, levels):
+    """Every model family and the side-by-side modes: the engine on the
+    card equals the engine on the CPU (mode 3 within the JAX tolerance);
+    blend and repeat launch no flow kernel, hopperx two one-direction
+    samples and one occlusion blend a position, hopperq/xq one Q1."""
+    cfg = synthetic.SyntheticConfig(width=64, height=48, fps=24.0,
+                                    pixfmt=pixfmt, stride=80)
+    engines = [E.InterpolationEngine(E.EngineConfig(
+        device=d, display_fps=60.0, frame_output_mode=mode, model=model,
+        auto_quality=False, initial_search_radius=16,
+        warp_sampling=sampling, black_level=levels[0],
+        white_level=levels[1]))
+        for d in ("cpu", str(cuda))]
+    counts = (KS.counts, KD.counts, KG.counts, KQ.counts)
+    before = [c.kernel for c in counts]
+    outputs = 0
+    for frame in synthetic.scene_cut(cfg, 6):
+        outs = [e.push(frame) for e in engines]
+        assert len(outs[0]) == len(outs[1])
+        outputs += len(outs[1])
+        for a, b in zip(*outs):
+            assert a.pts == b.pts
+            fa, fb = a.to_video_frame(), b.to_video_frame()
+            for p, q in ((fa.y, fb.y), (fa.uv, fb.uv)):
+                if mode == 3:
+                    assert np.mean(np.abs(p.astype(int) - q.astype(int))
+                                   > 2) < 0.005
+                else:
+                    np.testing.assert_array_equal(p, q)
+    k1, k5, g1, q1 = (c.kernel - b for c, b in zip(counts, before))
+    pairs = 6 if mode == 6 else 5
+    warped = outputs if mode == 6 else outputs - 1
+    assert k1 == (0 if model in ("blend", "repeat") else pairs)
+    if mode == 2:
+        assert (k5, g1) == ((2 * warped, warped) if model == "hopperx"
+                            else (0, 0))
+        assert q1 == (warped if model in ("hopperq", "hopperxq") else 0)

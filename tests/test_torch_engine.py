@@ -123,19 +123,33 @@ def test_cli_needs_cuda_for_cuda_device(monkeypatch):
         port_cli.main(["synthetic:moving_box", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("kw", [dict(frame_output_mode=5),
-                                dict(model="hopperq"),
-                                dict(frame_output_mode=6),
+@pytest.mark.parametrize("kw", [dict(frame_output_mode=5,
+                                     initial_search_radius=24),
+                                dict(model="hopperq", initial_search_radius=64),
+                                dict(frame_output_mode=6,
+                                     initial_search_radius=17),
                                 dict(initial_search_radius=24)])
 def test_uncovered_configurations_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """What the port still leaves out: search radii above 16, in any
+    mode and model."""
+    with pytest.raises(NotImplementedError, match="radius"):
         port_engine.EngineConfig(device="cpu", **kw)
 
 
+@pytest.mark.parametrize("kw", [dict(frame_output_mode=5),
+                                dict(frame_output_mode=6),
+                                *(dict(model=m) for m in ("hopperx", "hopperq",
+                                                          "hopperxq", "blend",
+                                                          "repeat"))])
+def test_covered_configurations(kw):
+    cfg = port_engine.EngineConfig(device="cpu", **kw)
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
+
+
 def test_p010_raises(small_cfg):
-    """P010 runs on every sampler; what still raises for it is a mode
-    that is not ported (side by side), and an unknown sampler is refused
-    outright."""
+    """P010 runs on every sampler and in the side-by-side modes; what
+    still raises for it is a search radius that is not ported, and an
+    unknown sampler is refused outright."""
     cfg = dataclasses.replace(small_cfg, pixfmt="p010")
     for ws in ("pair", "fused", "pallas"):
         port = port_engine.InterpolationEngine(port_engine.EngineConfig(
@@ -143,9 +157,15 @@ def test_p010_raises(small_cfg):
         for frame in synthetic.moving_box(cfg, 2):
             outs = port.push(frame)
         assert outs and outs[0].to_video_frame().y.dtype == np.uint16
-    with pytest.raises(NotImplementedError, match="side-by-side"):
+    port = port_engine.InterpolationEngine(port_engine.EngineConfig(
+        device="cpu", frame_output_mode=5))
+    for frame in synthetic.moving_box(cfg, 2):
+        outs = port.push(frame)
+    assert outs and outs[0].to_video_frame().y.dtype == np.uint16
+    with pytest.raises(NotImplementedError, match="radius"):
         port_engine.EngineConfig(device="cpu", warp_sampling="pallas",
-                                 frame_output_mode=5)
+                                 frame_output_mode=5,
+                                 initial_search_radius=32)
     with pytest.raises(ValueError):
         port_engine.EngineConfig(device="cpu", warp_sampling="tiles")
 

@@ -52,9 +52,9 @@ def _port_warp(f1, f2, geom, blur, mode, ts, scale_shift=0,
                levels=(0, 255), sampling="pair"):
     d1, d2 = frame_to_device(f1, "cpu"), frame_to_device(f2, "cpu")
     y, uv = port_engine._warp_stage(
-        geom, scale_shift, levels, "nearest", mode, sampling, d1, d2,
-        torch.from_numpy(blur.astype(np.int32)), None,
-        torch.tensor(ts, dtype=torch.float32))
+        geom, scale_shift, levels, "nearest", mode, sampling, "hopper",
+        (d1.y, d1.uv, d2.y, d2.uv), torch.from_numpy(blur.astype(np.int32)),
+        None, torch.tensor(ts, dtype=torch.float32))
     return ([np.asarray(y[i]) for i in range(len(ts))],
             [np.asarray(uv[i]) for i in range(len(ts))])
 
@@ -253,8 +253,11 @@ def test_cli_y4m_bytes(tmp_path, extra):
 
 @pytest.mark.parametrize("mode", ["sbs1", "6", "bogus"])
 def test_cli_modes_that_are_not_ported(mode):
+    """The side-by-side modes run (tests/test_torch_sbs.py); with a search
+    radius above 16, which is not ported, they raise, and an unknown mode
+    is refused."""
     err = SystemExit if mode == "bogus" else NotImplementedError
     with pytest.raises(err):
         port_cli.main(["synthetic:moving_box", "--width", "64", "--height",
                        "48", "--frames", "2", "--device", "cpu", "--mode",
-                       mode])
+                       mode, "--search-radius", "24"])

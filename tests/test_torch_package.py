@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mpv_frame_interpolator_tpu import frame as jax_frame
+from mpv_frame_interpolator_tpu import models as jax_models
 from mpv_frame_interpolator_tpu.io import synthetic
 from mpv_frame_interpolator_tpu.io import y4m as jax_y4m
 from mpv_frame_interpolator_tpu.ops import flow as jax_flow
@@ -28,12 +29,14 @@ from mpv_frame_interpolator_tpu.pipeline import present as jax_present
 from mpv_frame_interpolator_tpu.pipeline import quality as jax_quality
 from mpv_frame_interpolator_tpu_torch import convert
 from mpv_frame_interpolator_tpu_torch import frame as port_frame
+from mpv_frame_interpolator_tpu_torch import models as port_models
 from mpv_frame_interpolator_tpu_torch.io import synthetic as port_synthetic
 from mpv_frame_interpolator_tpu_torch.io import y4m as port_y4m
 from mpv_frame_interpolator_tpu_torch.ops import flow as port_flow
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
@@ -163,7 +166,8 @@ def test_build_directory_is_keyed_by_the_sources():
 
 
 @pytest.mark.parametrize("call", ["flow_step", "blur_flow", "pair_blend",
-                                  "fused_blend", "sample_dir"])
+                                  "fused_blend", "sample_dir",
+                                  "bilinear_blend"])
 def test_no_fallback_off_the_cpu(call):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper's checks reject it (here a meta tensor; a CUDA tensor goes on
@@ -182,7 +186,8 @@ def test_no_fallback_off_the_cpu(call):
     else:
         counts, fn = {"pair_blend": (KW.counts, KW.pair_blend),
                       "fused_blend": (KF.counts, KF.fused_blend),
-                      "sample_dir": (KD.counts, KD.sample_dir)}[call]
+                      "sample_dir": (KD.counts, KD.sample_dir),
+                      "bilinear_blend": (KQ.counts, KQ.bilinear_blend)}[call]
         u16 = lambda *s: torch.empty(s, dtype=torch.uint16, **meta)  # noqa
         args = (u16(48, 64), u16(24, 64), u16(48, 64), u16(24, 64),
                 torch.empty((2, 48, 64), dtype=torch.int32, **meta),
@@ -190,6 +195,8 @@ def test_no_fallback_off_the_cpu(call):
                             dtype=torch.float32, **meta))
         args += ((21, 0, 64) if call == "sample_dir"
                  else (0, 64, 8, (16, 235)))
+        if call == "bilinear_blend":
+            args += (True,)
     before = (counts.kernel, counts.plain)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(*args)
@@ -219,9 +226,9 @@ def test_engine_config_from_jax_round_trip():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(frame_output_mode=5), NotImplementedError),
-    (dict(model="hopperx"), NotImplementedError),
-    (dict(frame_output_mode=6), NotImplementedError),
+    (dict(frame_output_mode=5, initial_search_radius=24), NotImplementedError),
+    (dict(model="hopperx", initial_search_radius=64), NotImplementedError),
+    (dict(frame_output_mode=6, subpel_flow=True), NotImplementedError),
     (dict(subpel_flow=True), NotImplementedError),
     (dict(split_timing="always"), NotImplementedError),
     (dict(degrade_rungs=()), NotImplementedError)])
@@ -234,14 +241,9 @@ def test_engine_config_from_jax_rejects(kw, err):
 @pytest.mark.parametrize("mode", range(7))
 @pytest.mark.parametrize("sampling", ["pair", "pallas"])
 def test_engine_config_from_jax_modes(mode, sampling):
-    """Modes 0-4 convert under every sampler; the side-by-side modes 5
-    and 6 are not ported and raise."""
+    """Modes 0-6 convert under every sampler."""
     mapping = dataclasses.asdict(jax_engine.EngineConfig(
         frame_output_mode=mode, warp_sampling=sampling))
-    if mode >= 5:
-        with pytest.raises(NotImplementedError, match="side-by-side"):
-            convert.engine_config_from_jax(mapping, device="cpu")
-        return
     pcfg = convert.engine_config_from_jax(mapping, device="cpu")
     assert (pcfg.frame_output_mode, pcfg.warp_sampling) == (mode, sampling)
 
@@ -481,6 +483,15 @@ def test_y4m_reader_copy_round_trip(tmp_path, pixfmt):
         np.testing.assert_array_equal(p.uv, f.uv & keep)
         np.testing.assert_array_equal(p.y, r.y)
         np.testing.assert_array_equal(p.uv, r.uv)
+
+
+def test_models_copy_is_the_original():
+    assert port_models.MODELS == jax_models.MODELS
+    for name in jax_models.MODELS:
+        assert port_models.validate(name) == jax_models.validate(name)
+    for mod in (jax_models, port_models):
+        with pytest.raises(ValueError, match="unknown interpolator model"):
+            mod.validate("hopperz")
 
 
 def test_y4m_reader_copy_rejects_what_the_original_rejects():
