@@ -28,7 +28,12 @@ Phases (any failure raises and exits non-zero):
    and P010 (16, 235), t in {0.2, 0.5, 0.8}; Q1 (the 1/64-pel bilinear
    blend of hopperq, with occlusion hopperxq) at NV12 default levels and
    P010 (16, 235), both occlusion settings, t in {0.2, 0.5, 0.8}, on the
-   block and edge flows;
+   block and edge flows, and the same with a random sub-pel field (Q1's
+   kFrac instantiation); K1 with its blur phase at search radius 5, 8,
+   16, 24 and 64 (the instantiations of 5, 8 and 16 layers and the
+   16-layer chunks), 8-bit and P010, each with its device ms, its window
+   sums' and commits' us and its bound; S1 (the sub-pel refinement) at
+   8 bits and P010 on a pyramid field and on wild offsets;
 3b. the toolchain probes through their entry points: P1 (packed bytes)
    every probe OK, P2 (asynchronous copies) its matrix printed, the
    aligned control OK under cp.async and TMA and every case that is not
@@ -40,9 +45,12 @@ Phases (any failure raises and exits non-zero):
    at NV12 and P010: every output frame and pts equal; mode 3 (hsv,
    float colour math) within the JAX package's tolerance; every model
    family in mode 2 (NV12 and P010), hopperx and hopperq under "fused"
-   and "pallas", modes 5 and 6 with hopper and blend -- with each case's
-   launches: blend and repeat no K1, hopperx K5 twice and G1 once an
-   output, hopperq and hopperxq Q1 once an output;
+   and "pallas", modes 5 and 6 with hopper and blend, radii 24 and 64,
+   the sub-pel flow of hopper, hopperq and hopperxq, and the ladder's
+   rungs 1-3 pinned (res scalars 3 and 4 of a 544-row frame) -- with each
+   case's launches: blend, repeat and the blend rung no K1, hopperx K5
+   twice and G1 once an output, hopperq and hopperxq Q1 once an output,
+   the sub-pel flow S1 and the standalone K3 once a pair;
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
    the launch counters of K1 and K2 must move during that run (K1
@@ -64,11 +72,19 @@ Phases (any failure raises and exits non-zero):
 9. ``--model hopperxq`` through the CLI at 4K: K1 once a pair, Q1 once
    an output (5 a pair), no other warp kernel;
 10. ``--model hopperx`` through the CLI at 4K: K5 twice and G1 once an
-   output.
+   output;
+11. ``--model hopperq --subpel-flow`` through the CLI at 4K: K1 once a
+   pair without its blur phase, S1 and the standalone K3 once a pair, Q1
+   (with the sub-pel field) once an output;
+12. the auto-quality ladder on the card: an engine at 4K 24 -> 120 fed
+   over-budget durations walks radius 16 -> 5 and levels 1 -> 2 -> 3
+   (the blend family), then recovers in reverse, every pair equal to a
+   static engine at the rung's geometry and model; then each level's
+   device ms a pair and K1's launches (none on the blend rung).
 
-On every path the blur runs inside K1's launch once a pair and K3's
-standalone kernel never, G1 runs only on the "pallas" and hopperx paths,
-and Q1 only on the hopperq / hopperxq paths.
+On every path but the sub-pel one the blur runs inside K1's launch once
+a pair and K3's standalone kernel never, G1 runs only on the "pallas"
+and hopperx paths, and Q1 only on the hopperq / hopperxq paths.
 
 Each path's counters are set to 0 just before it runs and read just
 after.  The port against the NumPy oracle on the card is a test:
@@ -136,16 +152,21 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def device_ms(fn) -> float:
     """The card's own time of one call of fn: the device rows (kernels,
     memsets, copies) of a torch.profiler trace, as profile_pair counts
-    them."""
+    them.  A trace that recorded no device row (it happens now and then)
+    is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(self_device_us(e) for e in prof.key_averages()) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ms = sum(self_device_us(e) for e in prof.key_averages()) / 1e3
+        if ms > 0:
+            break
+    return ms
 
 
 def bound(nbytes: float, ops: float):
@@ -294,6 +315,133 @@ def phase_flow_step(dev, rng, geom, dt, luma_shift: int):
                                  20))
 
 
+def k1_bound(geom, radius: int, item: int):
+    """(bound_ms, bound_by) of one 4K pyramid at `radius`: each f1 sample
+    its candidates reach read once (at most steps * radius * lh * lw a
+    plane), the probe read and the field written once; ~35 integer
+    operations a candidate (three |differences|, shifts, the offset and
+    neighbour biases, mirrored coordinates)."""
+    lh, lw = geom.low_h, geom.low_w
+    cand = 2 * geom.iterations * radius * lh * lw
+    planes = (H4K * W4K, H4K * W4K // 4, H4K * W4K // 4)
+    nbytes = (sum(min(n, cand) for n in planes) * item
+              + 3 * lh * lw * item + 2 * lh * lw * 4)
+    return bound(nbytes, 35 * cand)
+
+
+def phase_k1_radii(dev, rng, geom):
+    """K1 at search radius 5, 8, 24 and 64 (16: phase_flow_step), each on
+    the instantiation the engine's default layer buckets give it (5, 8
+    and 16 layers; 16-layer chunks above 16), with the blur phase as the
+    engine launches it, 8-bit and P010 (luma_shift 8): bit-exact with the
+    plain pyramid and its blur; device ms, kernel ms, plain ms and the
+    bound of each, and the us of its window sums (phase A) and commits
+    (phase B) from the kernel's timeline.  Returns {(radius, item):
+    entry}."""
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    out = {}
+    windows = geom.window_schedule()
+    steps = 2 * geom.iterations
+    for dt, luma_shift in ((np.uint8, 0), (np.uint16, 8)):
+        f1y, _, f1u, f1v = random_planes(rng, dev, dt)
+        f2y, _, f2u, f2v = random_planes(rng, dev, dt)
+        probe = F.subsampled_f2(geom, f2y, f2u, f2v)
+        item = np.dtype(dt).itemsize
+        for radius in (5, 8, 16, 24, 64):
+            args = (f1y, f1u, f1v, *probe, radius, 8, 6, windows,
+                    F.FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
+                    geom.height, geom.stride, luma_shift)
+            before = (KS.counts.kernel, KB.counts.fused)
+            got = KS.flow_pyramid(*args, blur=True)
+            check((KS.counts.kernel, KB.counts.fused) == (before[0] + 1,
+                                                          before[1] + 1),
+                  "the pyramid with its blur took more than one launch")
+            want = KS.flow_pyramid_plain(*args)
+            e = max_err(got, [want, KB.blur_flow_plain(want)])
+            stamps = torch.zeros((10, 2 + 2 * steps), dtype=torch.int64,
+                                 device=dev)
+            for row in stamps:
+                KS.flow_pyramid(*args, timeline=row)
+            d = stamps.diff(dim=1).median(dim=0).values.cpu().numpy() / 1e3
+            r = dict(max_abs_err=e, layers=KS.kernel_layers(radius),
+                     blocks_per_sm=KS.blocks_per_sm(item, radius=radius,
+                                                    layers=radius),
+                     device_ms=device_ms(lambda: KS.flow_pyramid(
+                         *args, blur=True)),
+                     ms=cuda_ms(lambda: KS.flow_pyramid(*args, blur=True),
+                                10),
+                     plain_ms=cuda_ms(lambda: KS.flow_pyramid_plain(*args),
+                                      2, 1),
+                     phase_a_us=float(d[1::2].sum()),
+                     phase_b_us=float(d[2::2].sum()),
+                     bound=k1_bound(geom, radius, item))
+            log(f"  K1 + K3 {np.dtype(dt).name} radius {radius} "
+                f"({r['layers']} layers a chunk, {r['blocks_per_sm']} "
+                f"blocks an SM): max_abs_err={e}, device {r['device_ms']:.4f}"
+                f" ms, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
+                f"phase A {r['phase_a_us']:.2f} us, phase B "
+                f"{r['phase_b_us']:.2f} us")
+            out[(radius, item)] = r
+    return out
+
+
+def subpel_bound(geom, item: int):
+    """(bound_ms, bound_by) of S1 on a 4K field: the offset read and the
+    field written once, the probe read once, the f1 samples the nine
+    probes of every low-res pixel touch read once (at most 9 x lh x lw a
+    plane); ~360 integer operations a low-res pixel (27 mirrored
+    coordinates and addresses, 27 |differences|, 9 x 16 window adds, the
+    fit)."""
+    n = geom.low_h * geom.low_w
+    touched = sum(min(p, 9 * n) for p in (H4K * W4K, H4K * W4K // 4,
+                                          H4K * W4K // 4))
+    return bound(4 * n * 4 + 3 * n * item + touched * item, 360 * n)
+
+
+def phase_subpel(dev, rng, geom):
+    """S1 (the sub-pel refinement) at 4K against its plain version, 8-bit
+    and P010, on a committed pyramid field and on a field of wild offsets
+    (probes past every edge); timed on the pyramid field."""
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
+    lh, lw = geom.low_h, geom.low_w
+    res = {}
+    err = 0
+    for dt, luma_shift in ((np.uint8, 0), (np.uint16, 8)):
+        f1y, _, f1u, f1v = random_planes(rng, dev, dt)
+        f2y, _, f2u, f2v = random_planes(rng, dev, dt)
+        probe = F.subsampled_f2(geom, f2y, f2u, f2v)
+        field = KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6,
+                                geom.window_schedule(),
+                                F.FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
+                                geom.height, geom.stride, luma_shift)
+        wild = torch.from_numpy(rng.integers(-400, 401, (2, lh, lw)).astype(
+            np.int32)).to(dev)
+        for name, offset in (("pyramid", field), ("wild", wild)):
+            args = (offset, f1y, f1u, f1v, *probe, geom.res_scalar,
+                    geom.height, geom.stride, luma_shift)
+            got = KP.subpel_refine(*args)
+            want = KP.subpel_refine_plain(*args)
+            e = max_abs_err(got, want)
+            refined = int(((got - (offset << 6)) != 0).any(0).sum())
+            log(f"  S1 {np.dtype(dt).name} {name} field: max_abs_err={e}, "
+                f"{refined} of {lh * lw} pixels refined")
+            err = max(err, e)
+        args = (field, f1y, f1u, f1v, *probe, geom.res_scalar, geom.height,
+                geom.stride, luma_shift)
+        item = np.dtype(dt).itemsize
+        res[item] = dict(device_ms=device_ms(lambda: KP.subpel_refine(*args)),
+                         ms=cuda_ms(lambda: KP.subpel_refine(*args), 20),
+                         plain_ms=cuda_ms(lambda: KP.subpel_refine_plain(
+                             *args), 5),
+                         bound=subpel_bound(geom, item))
+    return dict(res[1], max_abs_err=err, p010=res[2])
+
+
 def warp_bound(n: int, item: int, rs: int):
     """Bytes and operations of n blended 4K outputs (luma + chroma): the
     two source frames read once, the outputs written once; per output
@@ -331,6 +479,12 @@ def phase_kernels(dev):
     results["flow_step"]["max_abs_err"] = max(
         results["flow_step"]["max_abs_err"], p010["max_abs_err"])
     results["flow_step"]["p010"] = p010
+    radii = phase_k1_radii(dev, rng, geom)
+    results["flow_step"]["radii"] = radii
+    results["flow_step"]["max_abs_err"] = max(
+        [results["flow_step"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in radii.values()])
+    results["subpel_refine"] = phase_subpel(dev, rng, geom)
 
     # K3 on its own (the public ops/flow.blur_flow; the engine's path
     # blurs inside K1's launch, held above), on a field of flows and on
@@ -612,6 +766,49 @@ def phase_kernels(dev):
     results["bilinear_blend"] = dict(q1[(0, True)], max_abs_err=err,
                                      p010=q1[(8, True)], nv12=q1[(0, False)])
 
+    # Q1 with a sub-pel field (subpel_flow: its kFrac instantiation), a
+    # random field of 1/64 pels over the block and edge flows, NV12 at the
+    # default levels and P010 at (16, 235), both occlusion settings
+    frac = torch.from_numpy(rng.integers(0, 64, (2, lh, lw)).astype(
+        np.int32)).to(dev)
+    q1f = {}
+    err = 0
+    for dt, ss, levels in ((np.uint8, 0, (0, 255)),
+                           (np.uint16, 8, W.level_ints(16, 235))):
+        for occlusion in (False, True):
+            e = 0
+            for name, flow in (("block", blurred), ("edge", far)):
+                for t in (0.2, 0.8, 0.5):
+                    tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                    args = (*warp_args(dt)[:4], flow, tt, rs, W4K, ss,
+                            levels, occlusion, frac)
+                    e = max(e, max_err(KQ.bilinear_blend(*args),
+                                       KQ.bilinear_blend_plain(*args)))
+            log(f"  Q1 with frac {W4K}x{H4K} scale_shift={ss} levels="
+                f"{levels} occlusion={occlusion}, block and edge flows, t in "
+                f"(0.2, 0.8, 0.5): max_abs_err={e}")
+            err = max(err, e)
+            args = (*warp_args(dt), tt, rs, W4K, ss, levels, occlusion, frac)
+            item = np.dtype(dt).itemsize
+            out = (H4K + H4K // 2) * W4K
+            q1f[(ss, occlusion)] = dict(
+                device_ms=device_ms(lambda: KQ.bilinear_blend(*args)),
+                ms=cuda_ms(lambda: KQ.bilinear_blend(*args), 20),
+                plain_ms=cuda_ms(lambda: KQ.bilinear_blend_plain(*args), 3),
+                # Q1's bytes and the sub-pel field read once; Q1's ~80
+                # operations a sample and ~6 more (two frac reads' shifts
+                # and adds, the int-to-float conversions)
+                bound=bound(3 * out * item + 2 * blurred.numel() * 4,
+                            86 * out))
+    for key, r in sorted(q1f.items()):
+        log(f"  Q1 with frac scale_shift={key[0]} occlusion={key[1]} t=0.5: "
+            f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    results["bilinear_blend_frac"] = dict(q1f[(0, False)], max_abs_err=err,
+                                          p010=q1f[(8, True)],
+                                          nv12=q1f[(0, True)])
+
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -774,20 +971,47 @@ def phase_reference(dev):
                       mode, "hopper"))
         cases.append(("scene_cut", 202, 118, 16, 60.0, True, "pair", tv,
                       mode, "blend"))
+    # the auto-quality path: radii above 16, the sub-pel flow of each
+    # family kind, and the ladder's rungs pinned (res scalars 1 and 2 of
+    # a 202 x 544 frame where level 0 runs 2; level 3 the blend family)
+    cases += [
+        ("scene_cut", 202, 118, 24, 60.0, False, "pair", dl, 2, "hopper",
+         {}),
+        ("moving_box", 202, 118, 64, 120.0, True, "fused", tv, 2, "hopper",
+         {}),
+        ("scene_cut", 202, 118, 8, 60.0, False, "pair", dl, 2, "hopperq",
+         {"subpel_flow": True}),
+        ("moving_box", 202, 118, 16, 120.0, True, "pair", tv, 2,
+         "hopperxq", {"subpel_flow": True}),
+        ("scene_cut", 202, 118, 5, 60.0, True, "pair", tv, 2, "hopper",
+         {"subpel_flow": True}),
+        ("moving_box", 202, 544, 5, 60.0, False, "pair", dl, 2, "hopper",
+         {"level": 1}),
+        ("scene_cut", 202, 544, 5, 60.0, True, "fused", tv, 2, "hopper",
+         {"level": 2}),
+        ("moving_box", 202, 544, 5, 60.0, False, "pair", dl, 2, "hopper",
+         {"level": 3})]
     counts = kernel_counts()
-    for name, w, h, radius, display, p010, sampling, levels, mode, model \
-            in cases:
+    for case in cases:
+        name, w, h, radius, display, p010, sampling, levels, mode, model = \
+            case[:10]
+        shown = case[10] if len(case) > 10 else {}
+        extra = dict(shown)
+        level = extra.pop("level", 0)
         t0 = time.perf_counter()
         engines = [InterpolationEngine(EngineConfig(
             display_fps=display, frame_output_mode=mode, auto_quality=False,
             initial_search_radius=radius, warp_sampling=sampling,
             black_level=levels[0], white_level=levels[1], model=model,
-            device=d))
+            device=d, **extra))
             for d in ("cpu", str(dev))]
+        for e in engines:
+            e.quality.level = level
         n = pairs = 0
         what = (f"mode {mode} {model} {name} {w}x{h} "
                 f"{'P010' if p010 else 'NV12'} {sampling} levels {levels} "
-                f"radius {radius}")
+                f"radius {radius}"
+                + "".join(f" {k}={v}" for k, v in shown.items()))
         for c in counts.values():
             c.reset()
         for frame in synthetic_frames(name, w, h, 7, p010):
@@ -810,8 +1034,14 @@ def phase_reference(dev):
                 check(fb.y.dtype == (np.uint16 if p010 else np.uint8),
                       f"{what}: output dtype {fb.y.dtype}")
         launches = {k: c.kernel for k, c in counts.items()}
-        flow = 0 if model in ("blend", "repeat") else pairs
+        flow = 0 if model in ("blend", "repeat") or level == 3 else pairs
         blended = mode == 2
+        subpel = extra.get("subpel_flow", False)
+        check(launches["subpel_refine"] == (flow if subpel else 0)
+              and launches["blur_flow"] == (flow if subpel else 0),
+              f"{what}: S1 and the standalone K3 launched "
+              f"{launches['subpel_refine']} and {launches['blur_flow']} "
+              f"times for {pairs} pairs")
         check(launches["flow_step"] == flow,
               f"{what}: K1 launched {launches['flow_step']} times for "
               f"{pairs} pairs")
@@ -820,7 +1050,8 @@ def phase_reference(dev):
                   and launches["blend_levels"] == n,
                   f"{what}: K5 and G1 launched {launches['sample_dir']} and "
                   f"{launches['blend_levels']} times for {n} outputs")
-        bilinear = n if blended and model in ("hopperq", "hopperxq") else 0
+        bilinear = n if blended and model in ("hopperq", "hopperxq") \
+            and level != 3 else 0
         check(launches["bilinear_blend"] == bilinear,
               f"{what}: Q1 launched {launches['bilinear_blend']} times for "
               f"{n} outputs")
@@ -862,6 +1093,7 @@ def kernel_counts():
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
@@ -869,7 +1101,7 @@ def kernel_counts():
     return {"flow_step": KS.counts, "blur_flow": KB.counts,
             "pair_blend": KW.counts, "fused_blend": KF.counts,
             "sample_dir": KD.counts, "blend_levels": KG.counts,
-            "bilinear_blend": KQ.counts}
+            "bilinear_blend": KQ.counts, "subpel_refine": KP.counts}
 
 
 def run_cli(dev, frames: int, extra):
@@ -923,11 +1155,17 @@ def run_cli(dev, frames: int, extra):
           f"a plain version ran on the path: {plain}")
     check(stats["scene_cuts"] == 0, "scene cut fired on a smooth clip")
     pairs = frames - 1
-    check(launches["flow_step"] == pairs and launches["blur_fused"] == pairs
-          and launches["blur_flow"] == 0,
+    # under --subpel-flow the pyramid runs without its blur phase, S1 and
+    # the standalone K3 once a pair; otherwise the blur is K1's last phase
+    subpel = "--subpel-flow" in extra
+    check(launches["flow_step"] == pairs
+          and launches["blur_fused"] == (0 if subpel else pairs)
+          and launches["blur_flow"] == (pairs if subpel else 0)
+          and launches["subpel_refine"] == (pairs if subpel else 0),
           f"K1 and its blur phase launched {launches['flow_step']} and "
-          f"{launches['blur_fused']} times for {pairs} pairs (not once a "
-          f"pair), K3 on its own {launches['blur_flow']} times")
+          f"{launches['blur_fused']} times for {pairs} pairs, K3 on its "
+          f"own {launches['blur_flow']} times, S1 "
+          f"{launches['subpel_refine']} times (subpel_flow {subpel})")
     model = extra[extra.index("--model") + 1] if "--model" in extra \
         else "hopper"
     blends = 5 * pairs if "pallas" in extra or model == "hopperx" else 0
@@ -1009,6 +1247,144 @@ def phase_hopperx_path(dev):
           and launches["pair_blend"] == launches["fused_blend"] == 0,
           f"the hopperx path's launches: {launches}")
     return launches
+
+
+def phase_subpel_path(dev):
+    """Phase 11: model hopperq with the measured sub-pel flow, CLI at 4K
+    24 -> 120, radius 16: K1 once a pair without its blur phase, S1 and
+    the standalone K3 once a pair, Q1 (with the sub-pel field) once an
+    output (all checked by run_cli)."""
+    frames = 4
+    launches = run_cli(dev, frames, ["--model", "hopperq", "--subpel-flow"])
+    pairs = frames - 1
+    log(f"  launches a pair: K1 {launches['flow_step'] / pairs:g}, S1 "
+        f"{launches['subpel_refine'] / pairs:g}, K3 standalone "
+        f"{launches['blur_flow'] / pairs:g}, Q1 "
+        f"{launches['bilinear_blend'] / pairs:g}")
+    check(launches["pair_blend"] == launches["fused_blend"]
+          == launches["sample_dir"] == 0,
+          f"a nearest sampler ran on the sub-pel hopperq path: {launches}")
+    return launches
+
+
+def _same_outputs(a, b) -> bool:
+    """Whether two engines' outputs of one pair are equal, on the card."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        for p, q in zip(x.device_planes(), y.device_planes()):
+            if p.dtype == torch.uint16:
+                p, q = p.view(torch.int16), q.view(torch.int16)
+            if x.pts != y.pts or not torch.equal(p, q):
+                return False
+    return True
+
+
+def phase_ladder(dev):
+    """Phase 12: the auto-quality ladder on the card at 4K 24 -> 120.  An
+    engine with auto-quality on, radius 16 and the default ladder ((2, 2),
+    (3, 4), (3, 4, blend)) is fed over-budget durations (the source frame
+    time) until it has walked the radius 16 -> 5 and then levels 1 -> 2 ->
+    3, then durations far under budget until it has unwound to level 0 and
+    radius 16.  Every pair's outputs must equal those of a static engine
+    configured at the geometry and model of the level it ran (level 0 at
+    its radius).  Then each level's device ms a pair and K1's launches a
+    pair (the blend rung must launch none), the counters set to 0 just
+    before and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
+        EngineConfig, InterpolationEngine)
+    from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
+
+    def make(**kw):
+        return InterpolationEngine(EngineConfig(
+            display_fps=120.0, measure_timing=False, device=str(dev), **kw))
+
+    dyn = make(auto_quality=True, initial_search_radius=16)
+    rungs = dyn.config.degrade_rungs
+    base = F.FlowGeometry.create(H4K, W4K, W4K)
+    statics = [make(auto_quality=False, initial_search_radius=16)]
+    for d_iter, div, model in rungs:
+        statics.append(make(auto_quality=False, initial_search_radius=5,
+                            max_calc_res=max(270 // div, 64),
+                            num_iterations=max(base.iterations - d_iter, 1),
+                            model=model or "hopper", degrade_rungs=()))
+    frames = [dyn.stage(f) for f in synthetic_frames("moving_box", W4K, H4K,
+                                                     32)]
+    sft = None
+    walk = []
+    down = True
+    compared = [0] * len(statics)
+    for f in frames:
+        if sft is not None:
+            dyn._last_calc_duration = sft if down else sft / 100
+        outs = dyn.push(f)
+        sft = dyn.cadence.source_frame_time
+        radius, level = dyn.quality.search_radius, dyn.quality.level
+        statics[0].quality.search_radius = radius
+        ref = [e.push(f) for e in statics]
+        if outs and isinstance(outs[0].device_planes()[0], torch.Tensor):
+            check(_same_outputs(outs, ref[level]),
+                  f"ladder: level {level} radius {radius}: the outputs "
+                  "differ from the static engine's at that rung")
+            compared[level] += 1
+        walk.append((radius, level))
+        if level == len(rungs):
+            down = False
+    torch.cuda.synchronize()
+    log(f"  (radius, level) after each push: {walk}")
+    radii_down = [r for r, lvl in walk if lvl == 0]
+    check(walk[-1] == (16, 0), f"ladder did not recover: ends at "
+          f"{walk[-1]}")
+    peak = walk.index((5, len(rungs)))
+    path = [w for i, w in enumerate(walk[:peak + 1])
+            if i == 0 or w != walk[i - 1]]
+    check(path == [(r, 0) for r in range(16, 4, -1)]
+          + [(5, lvl) for lvl in range(1, len(rungs) + 1)],
+          f"ladder walked down {path}")
+    back = [w for i, w in enumerate(walk[peak:])
+            if i == 0 or w != walk[peak + i - 1]]
+    check(back == [(5, lvl) for lvl in range(len(rungs), -1, -1)]
+          + [(r, 0) for r in range(6, 17)],
+          f"ladder walked back {back}")
+    check(all(compared), f"pairs compared a level: {compared}")
+    log(f"  walked 16 -> 5, levels 1 -> {len(rungs)} and back; pairs equal "
+        f"to the static engine at each level: {compared} (radii at level 0:"
+        f" {sorted(set(radii_down))})")
+
+    counts = kernel_counts()
+    per_level = {}
+    for level, radius in ((0, 16), (0, 5), (1, 5), (2, 5), (3, 5)):
+        e = make(auto_quality=False, initial_search_radius=radius)
+        e.quality.level = level
+        for f in frames[:4]:
+            e.push(f)
+        torch.cuda.synchronize()
+        for c in counts.values():
+            c.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for f in frames[4:10]:
+                e.push(f)
+            torch.cuda.synchronize()
+        pairs = 6
+        dev_ms = sum(self_device_us(x) for x in prof.key_averages()) / 1e3
+        k1 = counts["flow_step"].kernel
+        geom = e._geoms[level]
+        log(f"  level {level} radius {radius} ({e._level_models[level]}, "
+            f"calc {geom.low_h}x{geom.low_w} rs {geom.res_scalar}, "
+            f"{geom.iterations} iterations): device "
+            f"{dev_ms / pairs:.4f} ms a pair, K1 {k1 / pairs:g} a pair, "
+            f"launches {({k: c.kernel for k, c in counts.items() if c.kernel})}")
+        check(k1 == (0 if e._level_models[level] == "blend" else pairs),
+              f"level {level}: K1 launched {k1} times in {pairs} pairs")
+        check(not any(c.plain for c in counts.values()),
+              f"level {level}: a plain version ran")
+        per_level[(level, radius)] = dict(device_ms=dev_ms / pairs,
+                                          k1_per_pair=k1 / pairs)
+    return per_level
 
 
 def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
@@ -1093,6 +1469,12 @@ def main() -> int:
     log("phase 10: model hopperx end to end (cli --model hopperx, 4K "
         "24->120, radius 16)")
     hopperx_launches = phase_hopperx_path(dev)
+    log("phase 11: model hopperq with the sub-pel flow end to end (cli "
+        "--model hopperq --subpel-flow, 4K 24->120, radius 16)")
+    subpel_launches = phase_subpel_path(dev)
+    log("phase 12: the auto-quality ladder on the card (engine, 4K "
+        "24->120, radius 16 -> 5, levels 0 -> 3 -> 0)")
+    phase_ladder(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
     # main path (K3 as the blur phase of K1's launches), K4 on the P010
@@ -1127,6 +1509,15 @@ def main() -> int:
         "bilinear_blend": ("warp_bilinear.cu",
                            "mpv_frame_interpolator_tpu/ops/warp.py:521",
                            hopperxq_launches["bilinear_blend"]),
+        # not TPU kernels either: Q1 with the sub-pel field replaces the
+        # XLA gathers of _warp_sample's bilinear branch with its FX fields,
+        # S1 the XLA function subpel_refine
+        "bilinear_blend_frac": ("warp_bilinear.cu",
+                                "mpv_frame_interpolator_tpu/ops/warp.py:1021",
+                                subpel_launches["bilinear_blend"]),
+        "subpel_refine": ("subpel.cu",
+                          "mpv_frame_interpolator_tpu/ops/flow.py:833",
+                          subpel_launches["subpel_refine"]),
         "pack_probe": ("pack_probe.cu", "tools/pallas_pack_probe.py:22",
                        probes["pack_probe"]["launches"]),
         "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",
@@ -1150,13 +1541,15 @@ def main() -> int:
             # followed by integer level maps, 1/64-pel fixed-point
             # bilinear taps under mirror_edge2's clamp -- grid_sample's
             # bilinear mode weighs in float and reflects without it -- a
-            # set of probes); P2's is the slice copy
+            # set of probes, nine windowed SAD probes and an integer
+            # quadratic fit); P2's is the slice copy
             "library_ms": r.get("library_ms"),
             "device_ms": r.get("device_ms")})
     log(f"launches on the 8-bit main path {main_launches}, on the P010 "
         f"fused path {p010_launches}, on the warp12 path {warp12_launches}, "
         f"on the pallas blend path {pallas_launches}, on the hopperxq path "
-        f"{hopperxq_launches}, on the hopperx path {hopperx_launches}")
+        f"{hopperxq_launches}, on the hopperx path {hopperx_launches}, on "
+        f"the sub-pel hopperq path {subpel_launches}")
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,8 @@ Examples:
       --mode hsv -o flow.y4m
   python -m mpv_frame_interpolator_tpu_torch synthetic:gradient_pan \
       --model hopperxq --mode sbs2 -o sbs.y4m
+  python -m mpv_frame_interpolator_tpu_torch synthetic:moving_box \
+      --model hopperq --subpel-flow --degrade-rungs 2:2,3:4:blend -o q.y4m
   python -m mpv_frame_interpolator_tpu_torch input.y4m --device cpu -o out.y4m
 
 The device is explicit: ``--device cuda`` (the default) needs a card and
@@ -73,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="hopper", choices=MODELS,
                    help="interpolator family: " + "|".join(MODELS))
     p.add_argument("--search-radius", type=int, default=5,
-                   help="initial optical-flow search radius [5..16]")
+                   help="initial optical-flow search radius [2..256]; the "
+                        "auto-quality controller moves it within [5..16]")
     p.add_argument("--no-auto-quality", action="store_true",
                    help="disable the auto search-radius controller")
     p.add_argument("--no-scene-detection", action="store_true")
@@ -93,6 +96,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "one blend launch per position (identical "
                         "outputs); hopperx, hopperq and hopperxq take "
                         "their own route under any sampler")
+    p.add_argument("--subpel-flow", action="store_true",
+                   help="measured fractional-pel flow refinement: "
+                        "parabolic sub-pel fit of the SAD surface; "
+                        "hopperq/hopperxq warp at 1/64-pel, hopper/hopperx "
+                        "get a round-to-nearest field (quality option; "
+                        "changes the flow families' output)")
+    p.add_argument("--layer-buckets", default="5,8,16",
+                   help="comma-separated flow layer counts; the live search "
+                        "radius runs the smallest that covers it, so a lower "
+                        "radius cuts the flow kernel's work (empty = 16 "
+                        "layers up to radius 16)")
+    p.add_argument("--degrade-rungs", default="2:2,2:2:blend",
+                   help="degradation ladder beyond the radius floor, as "
+                        "comma-separated iteration_delta:res_divisor"
+                        "[:model] rungs (the auto-quality controller "
+                        "steps down pyramid depth / calc resolution / "
+                        "interpolator family when radius alone cannot "
+                        "restore real-time; empty disables)")
     p.add_argument("-o", "--output", default="",
                    help="write outputs to a .y4m file")
     p.add_argument("--device", default="cuda",
@@ -154,7 +175,14 @@ def main(argv=None) -> int:
         num_iterations=args.num_iterations,
         playback_speed=args.speed,
         model=args.model,
+        subpel_flow=args.subpel_flow,
         warp_sampling=args.warp_sampling,
+        layer_buckets=tuple(int(b) for b in args.layer_buckets.split(",")
+                            if b.strip()),
+        degrade_rungs=tuple(
+            tuple(int(x) if i < 2 else x
+                  for i, x in enumerate(r.split(":", 2)))
+            for r in args.degrade_rungs.split(",") if r.strip()),
         device=args.device))
     if args.speed != 1.0:
         engine.set_speed(args.speed)
@@ -173,6 +201,7 @@ def main(argv=None) -> int:
         with open(args.dump_stats, "w") as fh:
             json.dump({"stats": engine.stats.summary(),
                        "search_radius": engine.quality.search_radius,
+                       "level": engine.quality.level,
                        "state": engine.cadence.state.name,
                        "frames_in": pipe.frames_in,
                        "frames_out": pipe.frames_out,

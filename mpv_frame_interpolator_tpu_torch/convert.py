@@ -18,24 +18,24 @@ import torch
 from mpv_frame_interpolator_tpu_torch.frame import FrameFormat, VideoFrame
 
 # Knobs that only pick a TPU/XLA mechanism: which Pallas kernel runs the
-# flow step or the blur, how the warp batch is looped, which layer counts
-# are compiled, how compiles are cached and warmed, and how a relay's
-# dispatch acknowledgements are timed.  None changes an output; on the
-# port they are accepted with any value and ignored.  (`warp_sampling` is
-# not among them: it picks a kernel of the port as well, and the port's
-# EngineConfig validates it.)
-NO_OP_KNOBS = ("flow_kernel", "pallas_blur", "warp_loop",
-               "layer_buckets", "batch_shapes", "precompile",
-               "background_precompile", "compilation_cache_dir",
-               "timing_source", "timing_sync_period")
+# flow step or the blur, how the warp batch is looped, how the batch
+# shapes are padded and how compiles are cached and warmed (the port
+# compiles nothing per shape, batch size or rung: its kernel library
+# builds once, at first use, so `batch_shapes` and the background warm-up
+# have nothing to do), and how a relay's dispatch acknowledgements are
+# timed.  None changes an output; on the port they are accepted with any
+# value and ignored.  (`warp_sampling` is not among them: it picks a
+# kernel of the port as well, and the port's EngineConfig validates it;
+# nor is `layer_buckets`, which picks the flow kernel's instantiation.)
+NO_OP_KNOBS = ("flow_kernel", "pallas_blur", "warp_loop", "batch_shapes",
+               "precompile", "background_precompile",
+               "compilation_cache_dir", "timing_source",
+               "timing_sync_period")
 
-# Mechanisms the port's slice leaves out (ROADMAP.md lists them).  They
-# are accepted at the JAX default, under which the slice runs without
-# them; any other value raises NotImplementedError.
+# Mechanisms the port leaves out (ROADMAP.md lists them).  They are
+# accepted at the JAX default, under which the port runs without them;
+# any other value raises NotImplementedError.
 OMITTED_AT_DEFAULT = {
-    "split_timing": "auto",
-    "degrade_rungs": ((2, 2, None), (3, 4, None), (3, 4, "blend")),
-    "subpel_flow": False,
     "stats_log_path": "",
 }
 
@@ -45,11 +45,11 @@ def engine_config_from_jax(mapping: dict, device: str = "cuda"):
     ``dataclasses.asdict(jax_config)``.
 
     Fields both configs have are copied, ``frame_output_mode``,
-    ``model`` and ``warp_sampling`` among them: modes 0-6, every model
-    family and every sampler convert, and the port's own validation
-    raises NotImplementedError for what it does not cover (a search
-    radius above 16); TPU mechanism knobs are dropped; omitted mechanisms
-    must sit at their JAX default.  An unknown key raises KeyError."""
+    ``model``, ``warp_sampling``, ``layer_buckets``, ``degrade_rungs``,
+    ``split_timing`` and ``subpel_flow`` among them: modes 0-6, every model
+    family, sampler, radius, ladder and timing mode convert; TPU
+    mechanism knobs are dropped; omitted mechanisms must sit at their JAX
+    default.  An unknown key raises KeyError."""
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
     fields = {f.name for f in dataclasses.fields(EngineConfig)} - {"device"}
     kwargs = {"device": device}
@@ -58,9 +58,6 @@ def engine_config_from_jax(mapping: dict, device: str = "cuda"):
             kwargs[key] = value
         elif key in OMITTED_AT_DEFAULT:
             default = OMITTED_AT_DEFAULT[key]
-            if key == "degrade_rungs":
-                value = tuple(tuple(r) + (None,) * (3 - len(r))
-                              for r in value)
             if value != default:
                 raise NotImplementedError(
                     f"{key}={value!r} is not covered by the port "

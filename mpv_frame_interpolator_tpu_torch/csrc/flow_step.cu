@@ -54,6 +54,22 @@
 // launch are read with ld.global.cg (L2), never through the read-only or
 // L1 path.  Windows are powers of two, so window indices are shifts.
 //
+// The layer count follows the search radius.  The kernel is instantiated
+// on a chunk of kL layers, the engine's layer buckets 5, 8 and 16, and a
+// thread issues the gathers, partials, shuffles and shared-memory adds of
+// kL layers: at radius 5 a third of the work of radius 16, where one
+// 16-layer kernel re-read the last layer's samples past the radius.  Radii
+// above 16 (up to 256) take the 16-layer chunk in a loop (kChunked):
+// phase A sums one chunk of layers at a time into the global sums, which
+// hold every layer (radius x windows words), with the shared sums one
+// chunk wide; phase B and window 1 keep a running first unsigned minimum
+// across the chunks, a later chunk winning only on a strict <, so the
+// winner is the first minimum over all layers as in one pass.  The chunk
+// loop is a code path of its own (if constexpr), and the instantiations of
+// one chunk run phase A and B as one pass over their kL layers: with the
+// loop in their code, the pixel's inputs, live across it, made them spill
+// (4-12 bytes a thread), where one pass needs no local memory.
+//
 // The kernel is templated on the sample type: uint8_t for NV12, uint16_t
 // for P010.  Under P010 three 16-bit differences reach ~2^17.6, so the SAD
 // is shifted right by luma_shift (8) before << ds, in the order of the TPU
@@ -75,13 +91,15 @@ constexpr int kLogTY = 3;
 constexpr int kTX = 1 << kLogTX;
 constexpr int kTY = 1 << kLogTY;
 constexpr int kThreads = kTX * kTY;
-constexpr int kMaxRadius = 16;
+constexpr int kChunk = 16;         // the widest instantiation's layers
+constexpr int kMaxRadius = 256;    // the engine's largest search radius
 constexpr int kMaxSteps = 64;
 // windows of one tile: at most (32 / 2) x (8 / 2), at window 2
 constexpr int kMaxLocal = (kTX / 2) * (kTY / 2);
-// shared words of phase A's sums, which the blur phase reuses as its window
-constexpr int kSharedWords = kMaxRadius * kMaxLocal > mfi::kBlurWindowWords
-                                 ? kMaxRadius * kMaxLocal
+// shared words of phase A's sums (one chunk of layers), which the blur
+// phase reuses as its window
+constexpr int kSharedWords = kChunk * kMaxLocal > mfi::kBlurWindowWords
+                                 ? kChunk * kMaxLocal
                                  : mfi::kBlurWindowWords;
 static_assert(kTX == mfi::kBlurTX && kTY == mfi::kBlurTY,
               "the blur phase runs on K1's tiles");
@@ -111,31 +129,32 @@ __device__ __forceinline__ size_t sums_of(int lg, int radius, int lh,
   return (size_t)radius * (((lh - 1) >> lg) + 1) * (((lw - 1) >> lg) + 1);
 }
 
-// One pixel's partial of every layer on the stepped axis (kIsY: y).  The
-// axis not stepped gives a fixed row (x step) or column (y step), so each
-// layer mirrors one coordinate and gathers three samples; __sad is
-// |a - b| + c in one instruction.  (bx, by): the pixel's full-resolution
-// position plus its offset; (py, pu, pv): the probe; n[4]: the stepped
-// axis of the four neighbours (nb only).
-template <typename T, bool kIsY>
+// One pixel's partial of each layer base .. base + kL - 1 on the stepped
+// axis (kIsY: y).  The axis not stepped gives a fixed row (x step) or
+// column (y step), so each layer mirrors one coordinate and gathers three
+// samples; __sad is |a - b| + c in one instruction.  (bx, by): the
+// pixel's full-resolution position plus its offset; (py, pu, pv): the
+// probe; n[4]: the stepped axis of the four neighbours (nb only).
+template <typename T, bool kIsY, int kL>
 __device__ __forceinline__ void layer_partials(
     const T* __restrict__ f1y, const T* __restrict__ f1u,
     const T* __restrict__ f1v, int bx, int by, int own, int py, int pu,
-    int pv, const int n[4], bool nb, int radius, int ds, int nbs,
+    int pv, const int n[4], bool nb, int base, int radius, int ds, int nbs,
     int luma_shift, int H, int W, int ypitch, int cpitch,
-    unsigned part[kMaxRadius]) {
+    unsigned part[kL]) {
   const int half = radius / 2;
   const int fixed = kIsY ? mirror_inside(bx, W) : mirror_inside(by, H);
   const T* ry = f1y + (kIsY ? fixed : fixed * ypitch);
   const T* ru = f1u + (kIsY ? (fixed >> 1) : (fixed >> 1) * cpitch);
   const T* rv = f1v + (kIsY ? (fixed >> 1) : (fixed >> 1) * cpitch);
-  // the gathers of every layer are issued without a branch (layers past
-  // the radius re-read the last one's samples), so the loads of many
-  // layers are in flight at once; a layer costs one L2 round trip when
-  // each waits for the last
+  // the gathers of every layer of the chunk are issued without a branch
+  // (layers past the radius re-read the last one's samples), so the loads
+  // of many layers are in flight at once; a layer costs one L2 round trip
+  // when each waits for the last
 #pragma unroll
-  for (int l = 0; l < kMaxRadius; ++l) {
-    const int adj = signed_square(min(l, radius - 1) - half);
+  for (int l = 0; l < kL; ++l) {
+    const int g = base + l;
+    const int adj = signed_square(min(g, radius - 1) - half);
     const int probe = own + adj;
     const int c = kIsY ? mirror_inside(by + adj, H)
                        : mirror_inside(bx + adj, W);
@@ -148,7 +167,7 @@ __device__ __forceinline__ void layer_partials(
     if (nb)
       p += __sad(n[0], probe, __sad(n[1], probe, __sad(n[2], probe,
                  __sad(n[3], probe, 0u)))) << nbs;
-    part[l] = l < radius ? p : 0u;
+    part[l] = g < radius ? p : 0u;
   }
 }
 
@@ -169,7 +188,9 @@ __device__ void zero(unsigned* p, size_t n) {
     p[i] = 0;
 }
 
-template <typename T>
+// kL: the layers of one chunk; kChunked: radius > kL, the layers taken a
+// chunk at a time (kL = 16), else one chunk holds every layer
+template <typename T, int kL, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
     const T* __restrict__ f1y, const T* __restrict__ f1u,
     const T* __restrict__ f1v, const T* __restrict__ y2,
@@ -214,84 +235,186 @@ __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
     unsigned* cur = sums + (s & 1) * sums_words;
     int* axis = is_y ? fy : fx;
 
-    // phase A: the window sums of every layer
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
-      const int x = x0 + tx, y = y0 + ty;
-      const bool in = x < lw && y < lh;
-      unsigned part[kMaxRadius];
+    // phase A: the window sums of every layer (one chunk of kL, as
+    // one pass over the layers; chunked: a chunk of kL at a time)
+    if constexpr (!kChunked) {
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
+        const int x = x0 + tx, y = y0 + ty;
+        const bool in = x < lw && y < lh;
+        unsigned part[kL];
 #pragma unroll
-      for (int l = 0; l < kMaxRadius; ++l) part[l] = 0;
-      if (in) {
-        const int i = y * lw + x;
-        const int ox = __ldcg(fx + i), oy = __ldcg(fy + i);
-        int n[4] = {0, 0, 0, 0};
-        if (nb) {  // the neighbour bias at +-2*window, clamped
-          const int w2 = 2 * min(1 << lg, 1 << 29);
-          n[0] = __ldcg(axis + y * lw + min(x + w2, lw - 1));
-          n[1] = __ldcg(axis + y * lw + max(x - w2, 0));
-          n[2] = __ldcg(axis + min(y + w2, lh - 1) * lw + x);
-          n[3] = __ldcg(axis + max(y - w2, 0) * lw + x);
-        }
-        const int bx = (x << rs) + ox, by = (y << rs) + oy;
-        if (is_y)
-          layer_partials<T, true>(f1y, f1u, f1v, bx, by, oy, y2[i], u2[i],
-                                  v2[i], n, nb, radius, ds, nbs, luma_shift,
-                                  H, W, ypitch, cpitch, part);
-        else
-          layer_partials<T, false>(f1y, f1u, f1v, bx, by, ox, y2[i], u2[i],
-                                   v2[i], n, nb, radius, ds, nbs, luma_shift,
-                                   H, W, ypitch, cpitch, part);
-      }
-      if (lg == 0) {  // window 1: the pixel's own first minimum
+        for (int l = 0; l < kL; ++l) part[l] = 0;
         if (in) {
-          unsigned best = part[0];
-          int best_l = 0;
-#pragma unroll
-          for (int l = 1; l < kMaxRadius; ++l)
-            if (l < radius && part[l] < best) {
-              best = part[l];
-              best_l = l;
-            }
-          __stcg(cur + y * lw + x, (unsigned)best_l);
-        }
-        continue;  // lg is the same in every thread of the block
-      }
-      const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
-      const int nlx = kTX >> lgx;
-      const int nloc = nlx * (kTY >> lgy);
-      for (int j = tid; j < radius * nloc; j += kThreads) s_sums[j] = 0;
-      __syncthreads();
-      const int seg = 1 << lgx;
-      const int loc = (ty >> lgy) * nlx + (tx >> lgx);
-      // the shuffles of every layer at one distance are independent, so
-      // they are issued together rather than layer after layer
-      for (int off = kTX >> 1; off > 0; off >>= 1) {
-        if (off < seg) {
-#pragma unroll
-          for (int l = 0; l < kMaxRadius; ++l)
-            if (l < radius)
-              part[l] += __shfl_down_sync(0xffffffffu, part[l], off);
-        }
-      }
-      if ((tx & (seg - 1)) == 0) {
-#pragma unroll
-        for (int l = 0; l < kMaxRadius; ++l)
-          if (l < radius) atomicAdd(&s_sums[l * nloc + loc], part[l]);
-      }
-      __syncthreads();
-      for (int j = tid; j < radius * nloc; j += kThreads) {
-        const int l = j / nloc, k = j - l * nloc;
-        const int gy = (y0 >> lg) + k / nlx, gx = (x0 >> lg) + k % nlx;
-        if (gy < nwy && gx < nwx) {
-          unsigned* dst = cur + l * wplane + (size_t)gy * nwx + gx;
-          if (spans_tiles(lg))
-            atomicAdd(dst, s_sums[j]);
+          const int i = y * lw + x;
+          const int ox = __ldcg(fx + i), oy = __ldcg(fy + i);
+          int n[4] = {0, 0, 0, 0};
+          if (nb) {  // the neighbour bias at +-2*window, clamped
+            const int w2 = 2 * min(1 << lg, 1 << 29);
+            n[0] = __ldcg(axis + y * lw + min(x + w2, lw - 1));
+            n[1] = __ldcg(axis + y * lw + max(x - w2, 0));
+            n[2] = __ldcg(axis + min(y + w2, lh - 1) * lw + x);
+            n[3] = __ldcg(axis + max(y - w2, 0) * lw + x);
+          }
+          const int bx = (x << rs) + ox, by = (y << rs) + oy;
+          if (is_y)
+            layer_partials<T, true, kL>(f1y, f1u, f1v, bx, by, oy, y2[i],
+                                        u2[i], v2[i], n, nb, 0, radius, ds,
+                                        nbs, luma_shift, H, W, ypitch, cpitch,
+                                        part);
           else
-            __stcg(dst, s_sums[j]);
+            layer_partials<T, false, kL>(f1y, f1u, f1v, bx, by, ox, y2[i],
+                                         u2[i], v2[i], n, nb, 0, radius, ds,
+                                         nbs, luma_shift, H, W, ypitch,
+                                         cpitch, part);
         }
+        if (lg == 0) {  // window 1: the pixel's own first minimum
+          if (in) {
+            unsigned best = part[0];
+            int best_l = 0;
+#pragma unroll
+            for (int l = 1; l < kL; ++l)
+              if (l < radius && part[l] < best) {
+                best = part[l];
+                best_l = l;
+              }
+            __stcg(cur + y * lw + x, (unsigned)best_l);
+          }
+          continue;  // lg is the same in every thread of the block
+        }
+        const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
+        const int nlx = kTX >> lgx;
+        const int nloc = nlx * (kTY >> lgy);
+        for (int j = tid; j < radius * nloc; j += kThreads) s_sums[j] = 0;
+        __syncthreads();
+        const int seg = 1 << lgx;
+        const int loc = (ty >> lgy) * nlx + (tx >> lgx);
+        // the shuffles of every layer at one distance are independent, so
+        // they are issued together rather than layer after layer
+        for (int off = kTX >> 1; off > 0; off >>= 1) {
+          if (off < seg) {
+#pragma unroll
+            for (int l = 0; l < kL; ++l)
+              if (l < radius)
+                part[l] += __shfl_down_sync(0xffffffffu, part[l], off);
+          }
+        }
+        if ((tx & (seg - 1)) == 0) {
+#pragma unroll
+          for (int l = 0; l < kL; ++l)
+            if (l < radius) atomicAdd(&s_sums[l * nloc + loc], part[l]);
+        }
+        __syncthreads();
+        for (int j = tid; j < radius * nloc; j += kThreads) {
+          const int l = j / nloc, k = j - l * nloc;
+          const int gy = (y0 >> lg) + k / nlx, gx = (x0 >> lg) + k % nlx;
+          if (gy < nwy && gx < nwx) {
+            unsigned* dst = cur + l * wplane + (size_t)gy * nwx + gx;
+            if (spans_tiles(lg))
+              atomicAdd(dst, s_sums[j]);
+            else
+              __stcg(dst, s_sums[j]);
+          }
+        }
+        __syncthreads();  // s_sums is reused by the block's next tile
       }
-      __syncthreads();  // s_sums is reused by the block's next tile
+    } else {
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
+        const int x = x0 + tx, y = y0 + ty;
+        const bool in = x < lw && y < lh;
+        // the pixel's inputs, read once for every chunk
+        int ox = 0, oy = 0, bx = 0, by = 0, py = 0, pu = 0, pv = 0;
+        int n[4] = {0, 0, 0, 0};
+        if (in) {
+          const int i = y * lw + x;
+          ox = __ldcg(fx + i);
+          oy = __ldcg(fy + i);
+          if (nb) {  // the neighbour bias at +-2*window, clamped
+            const int w2 = 2 * min(1 << lg, 1 << 29);
+            n[0] = __ldcg(axis + y * lw + min(x + w2, lw - 1));
+            n[1] = __ldcg(axis + y * lw + max(x - w2, 0));
+            n[2] = __ldcg(axis + min(y + w2, lh - 1) * lw + x);
+            n[3] = __ldcg(axis + max(y - w2, 0) * lw + x);
+          }
+          bx = (x << rs) + ox;
+          by = (y << rs) + oy;
+          py = y2[i];
+          pu = u2[i];
+          pv = v2[i];
+        }
+        unsigned best = 0;  // window 1: the pixel's running first minimum
+        int best_l = 0;
+        for (int c0 = 0; c0 < radius; c0 += kL) {
+          unsigned part[kL];
+#pragma unroll
+          for (int l = 0; l < kL; ++l) part[l] = 0;
+          if (in) {
+            if (is_y)
+              layer_partials<T, true, kL>(f1y, f1u, f1v, bx, by, oy, py, pu,
+                                          pv, n, nb, c0, radius, ds, nbs,
+                                          luma_shift, H, W, ypitch, cpitch,
+                                          part);
+            else
+              layer_partials<T, false, kL>(f1y, f1u, f1v, bx, by, ox, py, pu,
+                                           pv, n, nb, c0, radius, ds, nbs,
+                                           luma_shift, H, W, ypitch, cpitch,
+                                           part);
+          }
+          if (lg == 0) {  // window 1: the pixel's own first minimum
+            if (in) {
+              if (c0 == 0) best = part[0];
+#pragma unroll
+              for (int l = 0; l < kL; ++l) {
+                const int g = c0 + l;  // a later chunk wins only on <
+                if (g > 0 && g < radius && part[l] < best) {
+                  best = part[l];
+                  best_l = g;
+                }
+              }
+            }
+            continue;  // lg is the same in every thread of the block
+          }
+          // the chunk's live layers
+          const int nl = min(kL, radius - c0);
+          const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
+          const int nlx = kTX >> lgx;
+          const int nloc = nlx * (kTY >> lgy);
+          for (int j = tid; j < nl * nloc; j += kThreads) s_sums[j] = 0;
+          __syncthreads();
+          const int seg = 1 << lgx;
+          const int loc = (ty >> lgy) * nlx + (tx >> lgx);
+          // the shuffles of every layer at one distance are independent, so
+          // they are issued together rather than layer after layer
+          for (int off = kTX >> 1; off > 0; off >>= 1) {
+            if (off < seg) {
+#pragma unroll
+              for (int l = 0; l < kL; ++l)
+                if (l < nl)
+                  part[l] += __shfl_down_sync(0xffffffffu, part[l], off);
+            }
+          }
+          if ((tx & (seg - 1)) == 0) {
+#pragma unroll
+            for (int l = 0; l < kL; ++l)
+              if (l < nl) atomicAdd(&s_sums[l * nloc + loc], part[l]);
+          }
+          __syncthreads();
+          for (int j = tid; j < nl * nloc; j += kThreads) {
+            const int l = j / nloc, k = j - l * nloc;
+            const int gy = (y0 >> lg) + k / nlx, gx = (x0 >> lg) + k % nlx;
+            if (gy < nwy && gx < nwx) {
+              unsigned* dst = cur + (c0 + l) * wplane + (size_t)gy * nwx + gx;
+              if (spans_tiles(lg))
+                atomicAdd(dst, s_sums[j]);
+              else
+                __stcg(dst, s_sums[j]);
+            }
+          }
+          __syncthreads();  // s_sums is reused by the next chunk or tile
+        }
+        if (lg == 0 && in) __stcg(cur + y * lw + x, (unsigned)best_l);
+      }
     }
     grid.sync();
     stamp(timeline, 2 + 2 * s);
@@ -299,41 +422,87 @@ __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
     // phase B: one thread per window of the tile takes its first minimum
     // (so a large window's sums are read once a tile, not once a pixel),
     // then every pixel commits its window's winner; zero the next sums
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
-      const int x = x0 + tx, y = y0 + ty;
-      const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
-      const int nlx = kTX >> lgx;
-      if (lg > 0) {
-        if (tid < nlx * (kTY >> lgy)) {
-          const int gy = (y0 >> lg) + tid / nlx, gx = (x0 >> lg) + tid % nlx;
-          int best_l = 0;
-          if (gy < nwy && gx < nwx) {
-            const size_t wi = (size_t)gy * nwx + gx;
-            unsigned v[kMaxRadius];  // all loads in flight at once
+    // (chunked: a running first minimum over the chunks)
+    if constexpr (!kChunked) {
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
+        const int x = x0 + tx, y = y0 + ty;
+        const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
+        const int nlx = kTX >> lgx;
+        if (lg > 0) {
+          if (tid < nlx * (kTY >> lgy)) {
+            const int gy = (y0 >> lg) + tid / nlx, gx = (x0 >> lg) + tid % nlx;
+            int best_l = 0;
+            if (gy < nwy && gx < nwx) {
+              const size_t wi = (size_t)gy * nwx + gx;
+              unsigned v[kL];  // all loads in flight at once
 #pragma unroll
-            for (int l = 0; l < kMaxRadius; ++l)
-              v[l] = l < radius ? __ldcg(cur + l * wplane + wi) : 0u;
-            unsigned best = v[0];
+              for (int l = 0; l < kL; ++l)
+                v[l] = l < radius ? __ldcg(cur + l * wplane + wi) : 0u;
+              unsigned best = v[0];
 #pragma unroll
-            for (int l = 1; l < kMaxRadius; ++l)  // first minimum, unsigned
-              if (l < radius && v[l] < best) {
-                best = v[l];
-                best_l = l;
-              }
+              for (int l = 1; l < kL; ++l)  // first minimum, unsigned
+                if (l < radius && v[l] < best) {
+                  best = v[l];
+                  best_l = l;
+                }
+            }
+            s_best[tid] = best_l;
           }
-          s_best[tid] = best_l;
+          __syncthreads();
         }
-        __syncthreads();
+        if (x < lw && y < lh) {
+          const int best_l =
+              lg == 0 ? (int)__ldcg(cur + y * lw + x)
+                      : s_best[(ty >> lgy) * nlx + (tx >> lgx)];
+          const int i = y * lw + x;
+          axis[i] = __ldcg(axis + i) + signed_square(best_l - half);
+        }
+        if (lg > 0) __syncthreads();  // s_best is reused by the next tile
       }
-      if (x < lw && y < lh) {
-        const int best_l =
-            lg == 0 ? (int)__ldcg(cur + y * lw + x)
-                    : s_best[(ty >> lgy) * nlx + (tx >> lgx)];
-        const int i = y * lw + x;
-        axis[i] = __ldcg(axis + i) + signed_square(best_l - half);
+    } else {
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int x0 = (tile % ntx) << kLogTX, y0 = (tile / ntx) << kLogTY;
+        const int x = x0 + tx, y = y0 + ty;
+        const int lgx = min(lg, kLogTX), lgy = min(lg, kLogTY);
+        const int nlx = kTX >> lgx;
+        if (lg > 0) {
+          if (tid < nlx * (kTY >> lgy)) {
+            const int gy = (y0 >> lg) + tid / nlx, gx = (x0 >> lg) + tid % nlx;
+            int best_l = 0;
+            if (gy < nwy && gx < nwx) {
+              const size_t wi = (size_t)gy * nwx + gx;
+              unsigned best = 0;
+              for (int c0 = 0; c0 < radius; c0 += kL) {
+                unsigned v[kL];  // the chunk's loads in flight at once
+#pragma unroll
+                for (int l = 0; l < kL; ++l)
+                  v[l] = c0 + l < radius ? __ldcg(cur + (c0 + l) * wplane + wi)
+                                         : 0u;
+                if (c0 == 0) best = v[0];
+#pragma unroll
+                for (int l = 0; l < kL; ++l) {  // first minimum, unsigned
+                  const int g = c0 + l;  // a later chunk wins only on <
+                  if (g > 0 && g < radius && v[l] < best) {
+                    best = v[l];
+                    best_l = g;
+                  }
+                }
+              }
+            }
+            s_best[tid] = best_l;
+          }
+          __syncthreads();
+        }
+        if (x < lw && y < lh) {
+          const int best_l =
+              lg == 0 ? (int)__ldcg(cur + y * lw + x)
+                      : s_best[(ty >> lgy) * nlx + (tx >> lgx)];
+          const int i = y * lw + x;
+          axis[i] = __ldcg(axis + i) + signed_square(best_l - half);
+        }
+        if (lg > 0) __syncthreads();  // s_best is reused by the next tile
       }
-      if (lg > 0) __syncthreads();  // s_best is reused by the next tile
     }
     if (s + 1 < sched.n) {
       const int next = sched.code[s + 1] & 31;
@@ -356,13 +525,24 @@ __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
   }
 }
 
+// the instantiation serving `layers` (5, 8 or 16) at `radius`: the first
+// chunk of layers that holds the radius, or 16-layer chunks above 16
+template <typename T>
+const void* pyramid_for(int layers, int radius) {
+  if (radius > kChunk) return (const void*)pyramid_kernel<T, kChunk, true>;
+  if (layers == 5) return (const void*)pyramid_kernel<T, 5, false>;
+  if (layers == 8) return (const void*)pyramid_kernel<T, 8, false>;
+  return (const void*)pyramid_kernel<T, kChunk, false>;
+}
+
 template <typename T>
 int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
            const void* u2, const void* v2, const void* in_x,
            const void* in_y, void* field, void* blurred, void* sums,
-           size_t sums_words, const Schedule& sched, int radius, int ds,
-           int nbs, int rs, int H, int W, int lh, int lw, int ypitch,
+           size_t sums_words, const Schedule& sched, int layers, int radius,
+           int ds, int nbs, int rs, int H, int W, int lh, int lw, int ypitch,
            int cpitch, int luma_shift, void* timeline, cudaStream_t s) {
+  const void* kernel = pyramid_for<T>(layers, radius);
   int dev, sms, per_sm, coop;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -371,8 +551,8 @@ int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pyramid_kernel<T>, kThreads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   // every block resident (the barriers need it), at most one per tile
@@ -395,10 +575,18 @@ int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
                   &out, &blur, &sm, &sums_words, &sc, &radius, &ds,
                   &nbs, &rs, &H, &W, &lh, &lw, &ypitch, &cpitch,
                   &luma_shift, &tl};
-  e = cudaLaunchCooperativeKernel((const void*)pyramid_kernel<T>,
-                                  dim3(blocks), dim3(kThreads), args, 0, s);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                  0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// layers 5, 8 or 16 (the instantiation) and radius in [1, layers], or
+// layers 16 and radius in [17, 256] (chunks of 16 layers)
+bool valid_layers(int layers, int radius) {
+  if (layers != 5 && layers != 8 && layers != kChunk) return false;
+  return radius >= 1 &&
+         (radius <= layers || (layers == kChunk && radius <= kMaxRadius));
 }
 
 }  // namespace
@@ -410,6 +598,8 @@ int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
 // sums: two buffers of sums_words uint32 each (the wrapper sizes them:
 // radius x windows for the largest step, lh x lw for a window-1 step);
 // steps: n_steps host ints, log2(window) | is_y << 8 | nb_enabled << 9.
+// layers: the instantiation's layers a chunk, 5, 8 or 16 (valid_layers);
+// radius 1..256.
 // sample_bytes: 1 (uint8 planes) or 2 (uint16); pitches in samples.
 // timeline: null, or 2 + 2 n_steps uint64 (3 + 2 n_steps with blurred)
 // that receive %globaltimer (ns) at the start, after the prologue, after
@@ -418,11 +608,11 @@ extern "C" int mfi_flow_pyramid(
     const void* f1y, const void* f1u, const void* f1v, const void* y2,
     const void* u2, const void* v2, const void* in_x, const void* in_y,
     void* field, void* blurred, void* sums, const int* steps, int n_steps,
-    int sums_words, int radius, int ds, int nbs, int rs, int H, int W,
-    int lh, int lw, int ypitch, int cpitch, int sample_bytes, int luma_shift,
-    void* timeline, void* stream) {
-  if (n_steps < 0 || n_steps > kMaxSteps || radius < 1 ||
-      radius > kMaxRadius || (in_x == nullptr) != (in_y == nullptr))
+    int sums_words, int layers, int radius, int ds, int nbs, int rs, int H,
+    int W, int lh, int lw, int ypitch, int cpitch, int sample_bytes,
+    int luma_shift, void* timeline, void* stream) {
+  if (n_steps < 0 || n_steps > kMaxSteps || !valid_layers(layers, radius) ||
+      (in_x == nullptr) != (in_y == nullptr))
     return (int)cudaErrorInvalidValue;
   Schedule sched;
   sched.n = n_steps;
@@ -430,21 +620,24 @@ extern "C" int mfi_flow_pyramid(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sample_bytes == 2)
     return launch<uint16_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field,
-                            blurred, sums, (size_t)sums_words, sched,
+                            blurred, sums, (size_t)sums_words, sched, layers,
                             radius, ds, nbs, rs, H, W, lh, lw, ypitch,
                             cpitch, luma_shift, timeline, s);
   return launch<uint8_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field,
-                         blurred, sums, (size_t)sums_words, sched, radius,
-                         ds, nbs, rs, H, W, lh, lw, ypitch, cpitch,
+                         blurred, sums, (size_t)sums_words, sched, layers,
+                         radius, ds, nbs, rs, H, W, lh, lw, ypitch, cpitch,
                          luma_shift, timeline, s);
 }
 
-// *per_sm: the pyramid kernel's resident blocks an SM, as its cooperative
-// launch sizes the grid (sample_bytes 1 or 2).
-extern "C" int mfi_flow_pyramid_occupancy(int sample_bytes, int* per_sm) {
-  if (sample_bytes == 2)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, pyramid_kernel<uint16_t>, kThreads, 0);
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, pyramid_kernel<uint8_t>, kThreads, 0);
+// *per_sm: the resident blocks an SM of the pyramid kernel that serves
+// (layers, radius), as its cooperative launch sizes the grid (sample_bytes
+// 1 or 2).
+extern "C" int mfi_flow_pyramid_occupancy(int sample_bytes, int layers,
+                                          int radius, int* per_sm) {
+  if (!valid_layers(layers, radius)) return (int)cudaErrorInvalidValue;
+  const void* kernel = sample_bytes == 2
+                           ? pyramid_for<uint16_t>(layers, radius)
+                           : pyramid_for<uint8_t>(layers, radius);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                            kThreads, 0);
 }

@@ -28,6 +28,14 @@
 //   * hopperxq: s12 = floor(q12 / 4096 + 0.5), s21 likewise, then
 //     occlusion_adjust(b, s12, s21, fs12 < 0.5);
 //   * the level maps levels_y / levels_uv (warp_common.cuh).
+// With the measured sub-pel flow (kFrac, the subpel_flow option: the
+// bilinear branch of _warp_sample with its FX fields, :1021-1032 luma,
+// :1113-1126 chroma) a (2, lh, lw) int32 field frac in 1/64 pel comes
+// with the flow: the positions are (p << 6) + iround(float((flow12 << 6) +
+// frac12) * fs12) and (p << 6) - iround(float((flow21 << 6) + frac21) *
+// fs21), fs halved for chroma, with frac21 read at the SAME back-projected
+// low-res cell as flow21.  At frac = 0 these are the positions above (the
+// products differ from flow * (fs * 64) by an exact power of two).
 //
 // What bounds it: operations.  A 4K position reads the two source frames
 // (2 x 12.4 MB at 8 bits) and writes one (12.4 MB), ~11 us at 3.35 TB/s;
@@ -106,19 +114,87 @@ __device__ __forceinline__ void bilinear_pixel(
                   : mfi::levels_y((unsigned)blended, ss, k, w));
 }
 
-template <typename T, bool kOcclusion>
+// bilinear_pixel with the sub-pel field: each flow is (flow << 6) + frac
+// at the same low-res cells (the reverse one through the back-projected
+// cell), scaled by t and 1 - t (halved for chroma).  The rest is
+// bilinear_pixel's, written out again: one function for both took
+// bilinear_pixel from 26 to 32 registers.
+template <typename T, bool kChroma, bool kOcclusion>
+__device__ __forceinline__ void bilinear_pixel_frac(
+    const T* __restrict__ f1, const T* __restrict__ f2,
+    const int* __restrict__ blurred, const int* __restrict__ frac,
+    T* __restrict__ out, int pitch, int rows, int Wa, int lh, int lw, int rs,
+    int cx, int cy, float t, int ss, int k, int w) {
+  int scx, scy;
+  mfi::flow_cell<kChroma>(cx, cy, lh, lw, rs, &scx, &scy);
+  const size_t plane = (size_t)lh * lw;
+  const int c = scy * lw + scx;
+  const int ox12 = blurred[c], oy12 = blurred[plane + c];
+  const int bscy = min(max(scy - (oy12 >> rs), 0), lh - 1);
+  const int bscx = min(max(scx - (ox12 >> rs), 0), lw - 1);
+  const int r = bscy * lw + bscx;
+  const float fs21 = __fsub_rn(1.0f, t);
+  const float s12 = kChroma ? __fmul_rn(t, 0.5f) : t;
+  const float s21 = kChroma ? __fmul_rn(fs21, 0.5f) : fs21;
+  const int bx = (kChroma ? cx >> 1 : cx) << 6;
+  const int by = cy << 6;
+  const int dim_x = kChroma ? Wa >> 1 : Wa;
+  const int cstep = kChroma ? 2 : 1, cpar = kChroma ? cx & 1 : 0;
+  const int q12 = bilinear_tap(
+      f1, pitch,
+      by + mfi::iround(__fmul_rn(
+               __int2float_rn(oy12 * 64 + frac[plane + c]), s12)),
+      bx + mfi::iround(__fmul_rn(__int2float_rn(ox12 * 64 + frac[c]), s12)),
+      rows, dim_x, cstep, cpar);
+  const int q21 = bilinear_tap(
+      f2, pitch,
+      by - mfi::iround(__fmul_rn(
+               __int2float_rn(blurred[plane + r] * 64 + frac[plane + r]),
+               s21)),
+      bx - mfi::iround(
+               __fmul_rn(__int2float_rn(blurred[r] * 64 + frac[r]), s21)),
+      rows, dim_x, cstep, cpar);
+  const float a = __int2float_rn(q12), b = __int2float_rn(q21);
+  constexpr float kInv = 1.0f / 4096.0f;
+  const float val = __fmul_rn(__fadd_rn(__fmul_rn(a, fs21), __fmul_rn(b, t)),
+                              kInv);
+  int blended = (int)floorf(__fadd_rn(val, 0.5f));
+  if (kOcclusion) {
+    const int s12i = (int)floorf(__fadd_rn(__fmul_rn(a, kInv), 0.5f));
+    const int s21i = (int)floorf(__fadd_rn(__fmul_rn(b, kInv), 0.5f));
+    blended = mfi::occlusion_adjust(blended, s12i, s21i, t < 0.5f, ss);
+  }
+  out[(size_t)cy * Wa + cx] =
+      (T)(kChroma ? mfi::levels_uv((unsigned)blended, ss, w)
+                  : mfi::levels_y((unsigned)blended, ss, k, w));
+}
+
+template <typename T, bool kOcclusion, bool kFrac>
 __global__ void __launch_bounds__(kQX * kQY) bilinear_blend_kernel(
     const T* __restrict__ f1y, const T* __restrict__ f1uv,
     const T* __restrict__ f2y, const T* __restrict__ f2uv,
-    const int* __restrict__ blurred, const float* __restrict__ t,
-    T* __restrict__ out_y, T* __restrict__ out_uv, int H, int Wa, int pitch,
-    int lh, int lw, int rs, int luma_blocks, int ss, int k, int w) {
+    const int* __restrict__ blurred, const int* __restrict__ frac,
+    const float* __restrict__ t, T* __restrict__ out_y,
+    T* __restrict__ out_uv, int H, int Wa, int pitch, int lh, int lw, int rs,
+    int luma_blocks, int ss, int k, int w) {
   const bool chroma = (int)blockIdx.y >= luma_blocks;
   const int cy = (chroma ? blockIdx.y - luma_blocks : blockIdx.y) * kQY +
                  threadIdx.y;
   const int cx = blockIdx.x * kQX + threadIdx.x;
   if (cx >= Wa) return;
-  if (chroma) {
+  if constexpr (kFrac) {
+    if (chroma) {
+      if (cy < H / 2)
+        bilinear_pixel_frac<T, true, kOcclusion>(f1uv, f2uv, blurred, frac,
+                                                 out_uv, pitch, H / 2, Wa,
+                                                 lh, lw, rs, cx, cy, *t, ss,
+                                                 k, w);
+    } else if (cy < H) {
+      bilinear_pixel_frac<T, false, kOcclusion>(f1y, f2y, blurred, frac,
+                                                out_y, pitch, H, Wa, lh, lw,
+                                                rs, cx, cy, *t, ss, k, w);
+    }
+  } else if (chroma) {
     if (cy < H / 2)
       bilinear_pixel<T, true, kOcclusion>(f1uv, f2uv, blurred, out_uv, pitch,
                                           H / 2, Wa, lh, lw, rs, cx, cy, *t,
@@ -129,42 +205,60 @@ __global__ void __launch_bounds__(kQX * kQY) bilinear_blend_kernel(
   }
 }
 
-template <typename T, bool kOcclusion>
+template <typename T, bool kOcclusion, bool kFrac>
 int launch(const void* f1y, const void* f1uv, const void* f2y,
-           const void* f2uv, const void* blurred, const void* t, void* out_y,
-           void* out_uv, int H, int Wa, int pitch, int lh, int lw, int rs,
-           int ss, int k, int w, cudaStream_t s) {
+           const void* f2uv, const void* blurred, const void* frac,
+           const void* t, void* out_y, void* out_uv, int H, int Wa, int pitch,
+           int lh, int lw, int rs, int ss, int k, int w, cudaStream_t s) {
   const int luma_blocks = (H + kQY - 1) / kQY;
   const dim3 grid((Wa + kQX - 1) / kQX,
                   luma_blocks + (H / 2 + kQY - 1) / kQY);
-  bilinear_blend_kernel<T, kOcclusion><<<grid, dim3(kQX, kQY), 0, s>>>(
+  bilinear_blend_kernel<T, kOcclusion, kFrac><<<grid, dim3(kQX, kQY), 0, s>>>(
       static_cast<const T*>(f1y), static_cast<const T*>(f1uv),
       static_cast<const T*>(f2y), static_cast<const T*>(f2uv),
-      static_cast<const int*>(blurred), static_cast<const float*>(t),
-      static_cast<T*>(out_y), static_cast<T*>(out_uv), H, Wa, pitch, lh, lw,
-      rs, luma_blocks, ss, k, w);
+      static_cast<const int*>(blurred), static_cast<const int*>(frac),
+      static_cast<const float*>(t), static_cast<T*>(out_y),
+      static_cast<T*>(out_uv), H, Wa, pitch, lh, lw, rs, luma_blocks, ss, k,
+      w);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+using Launch = int (*)(const void*, const void*, const void*, const void*,
+                       const void*, const void*, const void*, void*, void*,
+                       int, int, int, int, int, int, int, int, int,
+                       cudaStream_t);
+
+template <typename T>
+Launch<T> launch_for(bool occlusion, bool frac) {
+  if (frac)
+    return occlusion ? &launch<T, true, true> : &launch<T, false, true>;
+  return occlusion ? &launch<T, true, false> : &launch<T, false, false>;
 }
 
 }  // namespace
 
 // f1y, f2y (H, pitch) and f1uv, f2uv (H/2, pitch) interleaved sources;
-// blurred (2, lh, lw) int32; t one float on the device; out_y (H, Wa) and
-// out_uv (H/2, Wa) interleaved; all contiguous, uint8 when ss == 0 and
-// uint16 when ss == 8; (k, w) the levels; occlusion 1 for hopperxq.
+// blurred (2, lh, lw) int32; frac null, or (2, lh, lw) int32 the sub-pel
+// field in 1/64 pel; t one float on the device; out_y (H, Wa) and out_uv
+// (H/2, Wa) interleaved; all contiguous, uint8 when ss == 0 and uint16
+// when ss == 8; (k, w) the levels; occlusion 1 for hopperxq.
 extern "C" int mfi_bilinear_blend(const void* f1y, const void* f1uv,
                                   const void* f2y, const void* f2uv,
-                                  const void* blurred, const void* t,
-                                  void* out_y, void* out_uv, int H, int Wa,
-                                  int pitch, int lh, int lw, int rs, int ss,
-                                  int k, int w, int occlusion, void* stream) {
+                                  const void* blurred, const void* frac,
+                                  const void* t, void* out_y, void* out_uv,
+                                  int H, int Wa, int pitch, int lh, int lw,
+                                  int rs, int ss, int k, int w, int occlusion,
+                                  void* stream) {
   if (H < 6 || Wa < 6 || (Wa & 1) || pitch < Wa || lh < 1 || lw < 1 ||
       (ss != 0 && ss != 8))
     return (int)cudaErrorInvalidValue;
-  const auto go = ss ? (occlusion ? &launch<uint16_t, true>
-                                  : &launch<uint16_t, false>)
-                     : (occlusion ? &launch<uint8_t, true>
-                                  : &launch<uint8_t, false>);
-  return go(f1y, f1uv, f2y, f2uv, blurred, t, out_y, out_uv, H, Wa, pitch, lh,
-            lw, rs, ss, k, w, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ss)
+    return launch_for<uint16_t>(occlusion, frac != nullptr)(
+        f1y, f1uv, f2y, f2uv, blurred, frac, t, out_y, out_uv, H, Wa, pitch,
+        lh, lw, rs, ss, k, w, s);
+  return launch_for<uint8_t>(occlusion, frac != nullptr)(
+      f1y, f1uv, f2y, f2uv, blurred, frac, t, out_y, out_uv, H, Wa, pitch, lh,
+      lw, rs, ss, k, w, s);
 }

@@ -31,7 +31,7 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
 SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu",
            "warp_sample.cu", "blend_levels.cu", "warp_bilinear.cu",
-           "pack_probe.cu", "dma_probe.cu")
+           "subpel.cu", "pack_probe.cu", "dma_probe.cu")
 HEADERS = ("warp_common.cuh", "warp_runs.cuh", "blur_tile.cuh")
 
 # --fmad=false: no multiply-add contraction, so the warp's f32
@@ -46,14 +46,17 @@ I = ctypes.c_int
 # C signature of every entry point: (argtypes); restype is int
 _SIGNATURES = {
     # f1y f1u f1v y2 u2 v2 in_x in_y field blurred sums | steps (host
-    # ints) | n_steps sums_words radius ds nbs rs H W lh lw f1y_pitch
-    # f1c_pitch sample_bytes luma_shift | timeline stream
-    "mfi_flow_pyramid": (P,) * 11 + (ctypes.POINTER(I),) + (I,) * 14
+    # ints) | n_steps sums_words layers radius ds nbs rs H W lh lw
+    # f1y_pitch f1c_pitch sample_bytes luma_shift | timeline stream
+    "mfi_flow_pyramid": (P,) * 11 + (ctypes.POINTER(I),) + (I,) * 15
     + (P, P),
-    # sample_bytes | per_sm (one host int, out)
-    "mfi_flow_pyramid_occupancy": (I, ctypes.POINTER(I)),
+    # sample_bytes layers radius | per_sm (one host int, out)
+    "mfi_flow_pyramid_occupancy": (I, I, I, ctypes.POINTER(I)),
     # in out | lh lw | stream
     "mfi_blur_flow": (P, P, I, I, P),
+    # offset f1y f1u f1v y2 u2 v2 out | lh lw rs H W f1y_pitch f1c_pitch
+    # sample_bytes luma_shift | stream
+    "mfi_subpel_refine": (P,) * 8 + (I,) * 9 + (P,),
     # f1y f1uv f2y f2uv blurred ts out_y out_uv | n H Wa pitch lh lw rs
     # scale_shift black white vec | stream
     "mfi_pair_blend": (P,) * 8 + (I,) * 11 + (P,),
@@ -66,9 +69,9 @@ _SIGNATURES = {
     # s12y s12uv s21y s21uv t out_y out_uv | H Wa scale_shift black white
     # vec occlusion | stream
     "mfi_blend_levels": (P,) * 7 + (I,) * 7 + (P,),
-    # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
+    # f1y f1uv f2y f2uv blurred frac t out_y out_uv | H Wa pitch lh lw rs
     # scale_shift black white occlusion | stream
-    "mfi_bilinear_blend": (P,) * 8 + (I,) * 10 + (P,),
+    "mfi_bilinear_blend": (P,) * 9 + (I,) * 10 + (P,),
     # in out | n_words | stream
     "mfi_probe_b32": (P, P, I, P),
     # in out | R C shift method | stream

@@ -21,6 +21,12 @@ open).  See the header of csrc/flow_step.cu.  The kernel is templated on
 the sample type: uint8 planes for NV12, uint16 for P010, whose SAD is
 shifted right by `luma_shift` before the delta scalar.
 
+Its work follows the search radius (1..256): it is instantiated on a
+chunk of 5, 8 or 16 layers (``KERNEL_LAYERS``, the engine's default layer
+buckets), and a launch runs the instantiation that serves the `layers`
+the caller chose (``kernel_layers``); radii above 16 take 16-layer chunks
+in a loop inside the launch.  The output depends on the radius alone.
+
 Both entry points dispatch on the device of their tensors: CPU tensors
 take ``flow_step_plain`` / ``flow_pyramid_plain``, CUDA tensors launch the
 kernel (or raise).
@@ -35,13 +41,28 @@ import torch
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as _blur
 from mpv_frame_interpolator_tpu_torch.ops.flow import (
-    mirror_inside, signed_square)
+    MAX_RADIUS, mirror_inside, signed_square)
 
 counts = _build.LaunchCounts()
 
 _MASK = 0xFFFFFFFF
 MAX_STEPS = 64          # csrc/flow_step.cu kMaxSteps
 MAX_WINDOW = 1 << 30
+KERNEL_LAYERS = (5, 8, 16)   # the kernel's instantiations (layers a chunk)
+
+
+def kernel_layers(radius: int, layers=None) -> int:
+    """The layers a chunk of the instantiation that runs `radius` for a
+    caller that chose `layers` (>= radius; None: the radius itself): the
+    smallest of ``KERNEL_LAYERS`` that holds min(layers, 16), and 16 above
+    a radius of 16 (16-layer chunks in a loop)."""
+    layers = radius if layers is None else layers
+    if layers < radius:
+        raise ValueError(f"{layers} layers cannot serve radius {radius}")
+    if radius > KERNEL_LAYERS[-1]:
+        return KERNEL_LAYERS[-1]
+    return next(b for b in KERNEL_LAYERS if b >= min(layers,
+                                                     KERNEL_LAYERS[-1]))
 
 
 def flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
@@ -120,8 +141,8 @@ def flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int,
 
 
 def _check_scalars(radius: int, ds: int, nbs: int, luma_shift: int, steps):
-    if not 1 <= radius <= 16:
-        raise ValueError(f"radius {radius} outside [1, 16]")
+    if not 1 <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius {radius} outside [1, {MAX_RADIUS}]")
     if not (0 <= ds <= 31 and 0 <= nbs <= 31):
         raise ValueError("delta and neighbour-bias scalars must be in "
                          "[0, 31]")
@@ -141,10 +162,11 @@ def _check_scalars(radius: int, ds: int, nbs: int, luma_shift: int, steps):
 
 def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
             ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
-            timeline=None, blur: bool = False):
+            timeline=None, blur: bool = False, layers=None):
     """One cooperative launch of the pyramid kernel over `steps`, from
-    (off_x, off_y), or from zero when both are None.  Returns the (2, lh,
-    lw) int32 field it wrote, or (field, its blur) with `blur`."""
+    (off_x, off_y), or from zero when both are None, on the instantiation
+    ``kernel_layers(radius, layers)``.  Returns the (2, lh, lw) int32
+    field it wrote, or (field, its blur) with `blur`."""
     if timeline is not None:
         _build.require(timeline, "timeline", torch.int64,
                        (2 + 2 * len(steps) + int(blur),), y2.device)
@@ -172,6 +194,8 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
     words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
                  if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
                               else 1])
+    if words >= 1 << 31:
+        raise ValueError(f"{words} sums words do not fit the kernel's int")
     field = torch.empty((2, lh, lw), dtype=torch.int32, device=dev)
     blurred = torch.empty_like(field) if blur else None
     sums = torch.empty((2, words), dtype=torch.int32, device=dev)
@@ -184,7 +208,8 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
         f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
         u2.data_ptr(), v2.data_ptr(), *start, field.data_ptr(),
         None if blurred is None else blurred.data_ptr(), sums.data_ptr(),
-        codes, len(steps), words, radius, ds, nbs, rs, H, W, lh, lw,
+        codes, len(steps), words, kernel_layers(radius, layers), radius,
+        ds, nbs, rs, H, W, lh, lw,
         f1y.shape[1], f1u.shape[1], f1y.element_size(), luma_shift,
         None if timeline is None else timeline.data_ptr(),
         _build.stream_of(y2))
@@ -198,10 +223,13 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
 
 def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
                  windows, first_nb_iteration: int, rs: int, H: int, W: int,
-                 luma_shift: int = 0, timeline=None, blur: bool = False):
+                 luma_shift: int = 0, timeline=None, blur: bool = False,
+                 layers=None):
     """Every step of one pair's pyramid, from a zero field: the x axis then
     the y axis at each window of `windows`, the neighbour bias from
-    iteration `first_nb_iteration` on.  Planes as for ``flow_step``.
+    iteration `first_nb_iteration` on.  Planes as for ``flow_step``;
+    `layers` (>= radius, default the radius) picks the kernel's
+    instantiation (``kernel_layers``) and leaves the output as it is.
     Returns the (2, lh, lw) int32 field, plane 0 the x offsets and plane 1
     the y offsets; with `blur`, (field, its 8x8 blur), on the card from
     the same launch (``blur.counts.fused``), on the CPU from
@@ -214,6 +242,7 @@ def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
     step, and after the blur phase."""
     steps = pyramid_steps(windows, first_nb_iteration)
     _check_scalars(radius, ds, nbs, luma_shift, steps)
+    kernel_layers(radius, layers)
     if y2.device.type == "cpu":
         counts.plain += 1
         field = flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius, ds,
@@ -221,22 +250,25 @@ def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
                                    W, luma_shift)
         return (field, _blur.blur_flow(field)) if blur else field
     return _launch(f1y, f1u, f1v, y2, u2, v2, None, None, steps, radius, ds,
-                   nbs, rs, H, W, luma_shift, timeline, blur)
+                   nbs, rs, H, W, luma_shift, timeline, blur, layers)
 
 
-def blocks_per_sm(sample_bytes: int) -> int:
-    """The pyramid kernel's resident blocks an SM on the current card (its
-    cooperative grid is this times the SMs, at most one block a tile)."""
+def blocks_per_sm(sample_bytes: int, layers: int = 16,
+                  radius: int = 16) -> int:
+    """The resident blocks an SM on the current card of the pyramid
+    kernel that serves (layers, radius) (its cooperative grid is this
+    times the SMs, at most one block a tile)."""
     per_sm = ctypes.c_int()
     _build.check("flow_pyramid_occupancy", _build.load()
-                 .mfi_flow_pyramid_occupancy(sample_bytes,
-                                             ctypes.byref(per_sm)))
+                 .mfi_flow_pyramid_occupancy(
+                     sample_bytes, kernel_layers(radius, layers), radius,
+                     ctypes.byref(per_sm)))
     return per_sm.value
 
 
 def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
               radius: int, ds: int, nbs: int, window: int, nb_enabled: bool,
-              rs: int, H: int, W: int, luma_shift: int = 0):
+              rs: int, H: int, W: int, luma_shift: int = 0, layers=None):
     """One pyramid step on axis `is_y` (0: x, 1: y).
 
     f1y (H', W') and f1u/f1v (H'/2, W'/2) are the older frame's planes
@@ -246,9 +278,10 @@ def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
     frame height and stride, against which the candidates mirror; each
     candidate's SAD is shifted right by `luma_shift` (8 for P010).
     Returns the new (off_x, off_y); the axis not stepped is returned as
-    it was given."""
+    it was given.  `layers` as for ``flow_pyramid``."""
     _check_scalars(radius, ds, nbs, luma_shift,
                    ((window, is_y, nb_enabled),))
+    kernel_layers(radius, layers)
     if off_x.device.type == "cpu":
         counts.plain += 1
         return flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y,
@@ -256,5 +289,5 @@ def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
                                rs, H, W, luma_shift)
     field = _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y,
                     ((window, is_y, nb_enabled),), radius, ds, nbs, rs, H, W,
-                    luma_shift)
+                    luma_shift, layers=layers)
     return (off_x, field[1]) if is_y else (field[0], off_y)

@@ -15,6 +15,11 @@ Bound on the card: operations -- a 4K position reads the two source
 frames and writes one (3 x 12.4 MB at 8 bits, ~11 us at 3.35 TB/s), and
 its ~80 scalar operations a sample take ~15 us at 67 TOP/s.
 
+With the measured sub-pel flow (the ``subpel_flow`` option) a (2, lh,
+lw) int32 field ``frac`` in 1/64 pel comes with the flow, and the
+positions are taken from (flow << 6) + frac (the kernel's ``kFrac``
+instantiation).
+
 ``ops/warp.bilinear_blend`` (with ``bilinear_sample``) is the plain
 version and the specification.  ``bilinear_blend`` here dispatches on the
 device: CPU tensors take the plain version, CUDA tensors launch the
@@ -36,15 +41,16 @@ bilinear_blend_plain = W.bilinear_blend
 
 def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
                    actual_width: int, scale_shift: int = 0, levels=(0, 255),
-                   occlusion: bool = False):
+                   occlusion: bool = False, frac=None):
     """One blended position at 1/64-pel bilinear samples.
 
     f1y/f2y (H, stride) and f1uv/f2uv (H/2, stride) interleaved planes of
     the older and newer frame, uint8 for scale_shift 0 and uint16 for 8;
     blurred (2, lh, lw) int32 flow; t a one-element float32 tensor on the
     planes' device; levels (k, w) as ints on the 8-bit scale
-    (``ops/warp.level_ints``); occlusion True for hopperxq.  Returns (y
-    (H, Wa), uv (H/2, Wa) interleaved) of the planes' dtype."""
+    (``ops/warp.level_ints``); occlusion True for hopperxq; frac None or
+    the (2, lh, lw) int32 sub-pel field.  Returns (y (H, Wa), uv (H/2,
+    Wa) interleaved) of the planes' dtype."""
     H, pitch, sample = warp_pair.check_args(f1y, f1uv, f2y, f2uv, blurred,
                                             actual_width, scale_shift)
     if actual_width % 2 or actual_width < 6:
@@ -57,7 +63,7 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
         counts.plain += 1
         return bilinear_blend_plain(f1y, f1uv, f2y, f2uv, blurred, t, rs,
                                     actual_width, scale_shift, levels,
-                                    occlusion)
+                                    occlusion, frac)
     dev = f1y.device
     hc = H // 2
     _build.require(f1y, "f1y", sample, (H, pitch), dev)
@@ -67,12 +73,15 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
     _build.require(blurred, "blurred", torch.int32, None, dev)
     _build.require(t, "t", torch.float32, None, dev)
     _, lh, lw = blurred.shape
+    if frac is not None:
+        _build.require(frac, "frac", torch.int32, tuple(blurred.shape), dev)
     k, w = levels
     y = torch.empty((H, actual_width), dtype=sample, device=dev)
     uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
     rc = _build.load().mfi_bilinear_blend(
         f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
-        blurred.data_ptr(), t.data_ptr(), y.data_ptr(), uv.data_ptr(), H,
+        blurred.data_ptr(), None if frac is None else frac.data_ptr(),
+        t.data_ptr(), y.data_ptr(), uv.data_ptr(), H,
         actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(occlusion),
         _build.stream_of(f1y))
     _build.check("bilinear_blend", rc)

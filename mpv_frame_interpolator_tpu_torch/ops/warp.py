@@ -57,15 +57,21 @@ def iround(x: torch.Tensor) -> torch.Tensor:
     return (torch.sign(x) * torch.floor(x.abs() + 0.5)).to(torch.int32)
 
 
+def back_cells(blurred: torch.Tensor, rs: int):
+    """(bscy, bscx): each low-res cell minus the flow >> rs, clamped to
+    the field -- where the reverse flow is read."""
+    _, lh, lw = blurred.shape
+    ly = torch.arange(lh, device=blurred.device)[:, None]
+    lx = torch.arange(lw, device=blurred.device)[None, :]
+    return ((ly - (blurred[1] >> rs)).clamp(0, lh - 1),
+            (lx - (blurred[0] >> rs)).clamp(0, lw - 1))
+
+
 def reverse_fields(blurred: torch.Tensor, rs: int):
     """Low-res forward flow (ox12, oy12) and the reverse flow
     (ox21, oy21) read at each cell minus the flow >> rs, clamped."""
-    _, lh, lw = blurred.shape
     ox12, oy12 = blurred[0], blurred[1]
-    ly = torch.arange(lh, device=blurred.device)[:, None]
-    lx = torch.arange(lw, device=blurred.device)[None, :]
-    bscy = (ly - (oy12 >> rs)).clamp(0, lh - 1)
-    bscx = (lx - (ox12 >> rs)).clamp(0, lw - 1)
+    bscy, bscx = back_cells(blurred, rs)
     return ox12, oy12, ox12[bscy, bscx], oy12[bscy, bscx]
 
 
@@ -341,7 +347,7 @@ def _bilinear_mix(q12: torch.Tensor, q21: torch.Tensor, t: torch.Tensor,
 
 def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
                    actual_width: int, scale_shift: int = 0,
-                   levels=(0, 255), occlusion: bool = False):
+                   levels=(0, 255), occlusion: bool = False, frac=None):
     """One blended position of the hopperq (occlusion=False) or hopperxq
     (occlusion=True) family: (y (H, Wa), uv (H/2, Wa) interleaved) of the
     planes' dtype (ops/warp._warp_sample, bilinear=True).
@@ -353,9 +359,23 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
     from the u samples and v from the v samples of the interleaved plane,
     each output column with the flow of its own interleaved column.  Then
     _bilinear_mix and the level maps.  t is a one-element float32
-    tensor."""
+    tensor.
+
+    With `frac`, the (2, lh, lw) int32 sub-pel field in 1/64 pel (the
+    subpel_flow option; the JAX branch with its FX fields), each flow is
+    (flow << 6) + frac, the reverse frac read at the same back-projected
+    cell as the reverse flow, and the positions are p << 6 plus
+    iround(that * t) (chroma: * (t * 0.5)); at frac = 0 they are the
+    positions above."""
     k, w = levels
-    ox12, oy12, ox21, oy21 = reverse_fields(blurred, rs)
+    fields = reverse_fields(blurred, rs)
+    if frac is None:
+        units = (64.0, 32.0)
+    else:
+        bscy, bscx = back_cells(blurred, rs)
+        fracs = (frac[0], frac[1], frac[0][bscy, bscx], frac[1][bscy, bscx])
+        fields = [(f << 6) + q for f, q in zip(fields, fracs)]
+        units = (1.0, 0.5)
     t = t.to(torch.float32).reshape(())
     fs21 = 1.0 - t
     H, dev, dtype = f1y.shape[0], f1y.device, f1y.dtype
@@ -364,19 +384,20 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
     def positions(up, rows, base_y, base_x, unit):
         s12, s21 = t * unit, fs21 * unit
         grid = [up(f, rs, rows, actual_width).to(torch.float32)
-                for f in (ox12, oy12, ox21, oy21)]
+                for f in fields]
         return ((base_y + iround(grid[1] * s12), base_x + iround(grid[0] * s12)),
                 (base_y - iround(grid[3] * s21), base_x - iround(grid[2] * s21)))
 
     cy = torch.arange(H, device=dev, dtype=torch.int32)[:, None]
     cx = torch.arange(actual_width, device=dev, dtype=torch.int32)[None, :]
-    p12, p21 = positions(upsample_y, H, cy << 6, cx << 6, 64.0)
+    p12, p21 = positions(upsample_y, H, cy << 6, cx << 6, units[0])
     b_y = _bilinear_mix(bilinear_sample(f1y, *p12, H, actual_width),
                         bilinear_sample(f2y, *p21, H, actual_width), t,
                         scale_shift, occlusion)
 
     cy = torch.arange(hc, device=dev, dtype=torch.int32)[:, None]
-    p12, p21 = positions(upsample_uv, hc, cy << 6, (cx >> 1) << 6, 32.0)
+    p12, p21 = positions(upsample_uv, hc, cy << 6, (cx >> 1) << 6,
+                         units[1])
     planes = []
     for par in (0, 1):      # u on the even columns, v on the odd
         def at(p):

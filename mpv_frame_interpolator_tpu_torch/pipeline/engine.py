@@ -7,8 +7,15 @@ Per source pair, on the engine's device and without a host sync:
 1. the scene-cut score (``pipeline/scene.cut_score``);
 2. the flow pyramid and its blur (``ops/flow.flow``: one launch of the
    flow-pyramid kernel, whose last phase is the blur) for the flow
-   families (hopper, hopperx, hopperq, hopperxq); ``blend`` and
-   ``repeat`` search no flow and take a zero field;
+   families (hopper, hopperx, hopperq, hopperxq), on the kernel's
+   instantiation for the layer count of the live radius
+   (``layer_buckets``); ``blend`` and ``repeat`` search no flow and take
+   a zero field.  Under ``subpel_flow`` the pyramid runs without its blur
+   phase, the sub-pel kernel (``ops/cuda/subpel.py``) turns the unblurred
+   offset into the 1/64-pel field (offset << 6) + frac, and the blur
+   kernel blurs that on its own; hopperq and hopperxq take the floor of
+   the blur and its 1/64-pel remainder, hopper and hopperx the blur
+   rounded to the nearest pel;
 3. the cut folded in on the device: where the score exceeds the
    threshold the flow is zeroed and the blend positions snap to the
    nearer source (``torch.where``, no host branch); model ``repeat`` then
@@ -30,7 +37,8 @@ Per source pair, on the engine's device and without a host sync:
      hopperx off its pair and fused kernels too);
    * mode 2, models hopperq and hopperxq, under any sampler: one call of
      the bilinear kernel (``ops/cuda/warp_bilinear.py``) per position,
-     hopperxq with the occlusion correction;
+     hopperxq with the occlusion correction, with the sub-pel field under
+     ``subpel_flow``;
    * modes 0 / 1 (warp12 / warp21), under any sampler and model: one call
      of the one-direction sampler per position, its raw samples as they
      are;
@@ -52,16 +60,24 @@ blend keeps 16 fraction bits, and the outputs are uint16 capped at
 engine is made.
 
 The host side -- output cadence (``CadenceEngine``), the auto-quality
-controller (``QualityController``) and the stats -- are the port's copies
-of the JAX package's modules.  The duration the controller reads is the
-pair's calc time: CUDA events from before the pair's first launch is
-enqueued to after its last kernel completes, so it holds the host's
-enqueue time as well as the card's work (wall time on the CPU).  It is read back at the next push so that no push
-waits for its own pair.
+controller (``QualityController``, with its degradation ladder) and the
+stats -- are the port's copies of the JAX package's modules.  The duration
+the controller reads is the pair's calc time: CUDA events from before the
+pair's first launch is enqueued to after its last kernel completes, so it
+holds the host's enqueue time as well as the card's work (wall time on the
+CPU).  It is read back at the next push so that no push waits for its own
+pair.  With split timing one more event between the flow and the warp
+stage gives ``flow_time``, ``warp_total`` and ``warp_time`` from the same
+read-back.
 
-Not ported yet: search radii above 16, degradation rungs, ``push_many``,
-split timing, sub-pel flow, background precompile and the compile cache.
-A configuration the port does not cover raises ``NotImplementedError``.
+The degradation ladder (``degrade_rungs``): each level past 0 runs its
+rung's geometry (fewer pyramid iterations at a lower calc resolution) and
+model; the controller steps onto a rung once the radius is at its floor
+and unwinds the level before it grows the radius again.
+
+Not ported yet: ``push_many`` and the grouped pipeline.  Nothing compiles
+per shape, rung or batch size, so ``batch_shapes``, background precompile
+and the compile cache have nothing to do here (``convert.NO_OP_KNOBS``).
 """
 
 from __future__ import annotations
@@ -125,6 +141,19 @@ class EngineConfig:
     # "pallas" route and hopperq/hopperxq Q1 under any sampler; modes 0,
     # 1 and 3 always run on K5, modes 4-6 on none
     warp_sampling: str = "pair"
+    # the flow kernel's layer count for a radius: the smallest bucket >=
+    # the radius, else the radius (at least 16); () runs 16 layers up to
+    # radius 16.  The output depends on the radius alone.
+    layer_buckets: tuple = (5, 8, 16)
+    # the ladder past the radius floor: (iteration_delta, res_divisor[,
+    # model]) per rung, relative to the configured setup
+    degrade_rungs: tuple = ((2, 2), (3, 4), (3, 4, "blend"))
+    # flow/warp split telemetry: "auto" once request_split_timing() is
+    # called, "always" every pair, "off" never
+    split_timing: str = "auto"
+    # measured 1/64-pel refinement of the flow (a quality option: it
+    # changes the flow families' outputs)
+    subpel_flow: bool = False
     device: str = "cuda"
 
     def __post_init__(self):
@@ -148,11 +177,24 @@ class EngineConfig:
                                       "fused"):
             raise ValueError(
                 "warp_sampling must be shift|gather|pallas|pair|fused")
+        if self.split_timing not in ("auto", "always", "off"):
+            raise ValueError("split_timing must be auto|always|off")
         models.validate(self.model)
-        if self.initial_search_radius > flow_ops.MAX_SEARCH_RADIUS:
-            raise NotImplementedError(
-                f"search radius above {flow_ops.MAX_SEARCH_RADIUS} is not "
-                "ported")
+        self.layer_buckets = tuple(sorted(int(b) for b in
+                                          self.layer_buckets))
+        if any(b < 2 for b in self.layer_buckets):
+            raise ValueError("layer buckets must be >= 2")
+        rungs = []
+        for rung in self.degrade_rungs:
+            d, r = int(rung[0]), int(rung[1])
+            m = rung[2] if len(rung) > 2 else None
+            if d < 0 or r < 1:
+                raise ValueError("degrade rungs must be (iteration_delta"
+                                 ">=0, res_divisor>=1[, model])")
+            if m is not None:
+                models.validate(m)
+            rungs.append((d, r, m))
+        self.degrade_rungs = tuple(rungs)
 
 
 def _to_numpy(plane) -> np.ndarray:
@@ -202,29 +244,46 @@ FLOW_MODELS = ("hopper", "hopperx", "hopperq", "hopperxq")
 
 def _flow_stage(geom, scale_shift: int, scene_enabled: bool, model: str,
                 f1: DeviceFrame, f2: DeviceFrame, radius: int, ds: int,
-                nbs: int):
-    """Scene score + hierarchical flow of one pair: (blurred flow,
-    cut_score or None).  The blend and repeat families search no flow:
-    their field is zero (the score still runs)."""
+                nbs: int, layers: int, subpel: bool = False):
+    """Scene score + hierarchical flow of one pair: (blurred flow, frac or
+    None, cut_score or None).  `layers` is the kernel's layer count for
+    the radius.  The blend and repeat families search no flow: their field
+    is zero (the score still runs).  Under `subpel` the unblurred offset
+    is refined to 1/64 pel and that field blurred (JAX engine.py:486-515):
+    hopperq and hopperxq take its floor and the 1/64-pel remainder `frac`,
+    hopper and hopperx its rounding to the nearest pel."""
     score = (scene_mod.cut_score(f1.y, f2.y, geom.res_scalar, scale_shift)
              if scene_enabled else None)
     if model not in FLOW_MODELS:
         return torch.zeros((2, geom.low_h, geom.low_w), dtype=torch.int32,
-                           device=f1.y.device), score
-    _, blurred = flow_ops.flow(geom, f1.y, f1.u, f1.v, f2.y, f2.u, f2.v,
-                               radius, ds, nbs, scale_shift)
-    return blurred, score
+                           device=f1.y.device), None, score
+    args = (geom, f1.y, f1.u, f1.v, f2.y, f2.u, f2.v)
+    if not subpel:
+        _, blurred = flow_ops.flow(*args, radius, ds, nbs, scale_shift,
+                                   layers=layers)
+        return blurred, None, score
+    offset = flow_ops.flow(*args, radius, ds, nbs, scale_shift,
+                           layers=layers, blur=False)
+    b64 = flow_ops.blur_flow(flow_ops.subpel_flow(*args[:1], offset,
+                                                  *args[1:], scale_shift))
+    if model in ("hopperq", "hopperxq"):
+        blurred = b64 >> 6
+        return blurred, b64 - (blurred << 6), score
+    return (b64 + 32) >> 6, None, score
 
 
 def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
                 mode: int, sampling: str, model: str, planes, blurred, cut,
-                ts):
+                ts, frac=None):
     """Cut folding + every output of the pair: (y, uv), each indexable by
     position -- (N, H, Wa) and (N, H/2, Wa) tensors from one pair-blend
     call, or lists of N planes.  `planes` is (f1y, f1uv, f2y, f2uv);
-    `cut` is a 0-dim bool tensor or None."""
+    `cut` is a 0-dim bool tensor or None; `frac` the sub-pel field of the
+    bilinear families (their blended mode reads it) or None."""
     if cut is not None:
         blurred = blurred.masked_fill(cut, 0)
+        if frac is not None:
+            frac = frac.masked_fill(cut, 0)
         ts_cut = ((ts >= 0.5).to(torch.float32) if cut_policy == "nearest"
                   else torch.zeros_like(ts))
         ts = torch.where(cut, ts_cut, ts)
@@ -240,7 +299,7 @@ def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
         return [y] * n, [uv] * n
     if blended and model in ("hopperq", "hopperxq"):
         outs = [bilinear_blend(*args, ts[i], rs, wa, scale_shift, levels,
-                               model == "hopperxq") for i in range(n)]
+                               model == "hopperxq", frac) for i in range(n)]
     elif blended and model == "hopperx":
         outs = [_blended_from_samples(mode, scale_shift, levels, rs, wa,
                                       args, ts[i], occlusion=True)
@@ -299,19 +358,25 @@ class InterpolationEngine:
         self.quality = QualityController(
             enabled=self.config.auto_quality,
             search_radius=self.config.initial_search_radius,
-            too_slow_patience=self.config.too_slow_patience)
+            too_slow_patience=self.config.too_slow_patience,
+            max_level=len(self.config.degrade_rungs))
         self.stats = StatsRegistry()
         self.levels = warp_ops.level_ints(self.config.black_level,
                                           self.config.white_level)
 
         self.geom: Optional[flow_ops.FlowGeometry] = None
+        self._geoms: List[flow_ops.FlowGeometry] = []  # [level 0, rung 1..]
+        self._level_models: List[str] = []             # model per level
         self._scale_shift = 0
         self._fmt: Optional[FrameFormat] = None
         self._prev: Optional[DeviceFrame] = None
         self._cur: Optional[DeviceFrame] = None
         self._warm = False          # a pair of this geometry has run
         self._last_calc_duration = 0.0
-        self._pending_timing = None  # (start, end) events of the last pair
+        # the last pair's (start, flow end or None, end) CUDA events and
+        # its output count
+        self._pending_timing = None
+        self._split_wanted = self.config.split_timing == "always"
         self._last_cut_score = None
         self._cuts = None           # device count of folded scene cuts
         self._ts_cache = {}
@@ -344,6 +409,14 @@ class InterpolationEngine:
         self.geom = flow_ops.FlowGeometry.create(
             fmt.height, fmt.stride, fmt.width, self.config.max_calc_res,
             self.config.num_iterations)
+        self._geoms = [self.geom]
+        self._level_models = [self.config.model]
+        for d_iter, res_div, model in self.config.degrade_rungs:
+            self._geoms.append(flow_ops.FlowGeometry.create(
+                fmt.height, fmt.stride, fmt.width,
+                max(self.config.max_calc_res // res_div, 64),
+                max(self.geom.iterations - d_iter, 1)))
+            self._level_models.append(model or self.config.model)
         self._scale_shift = 0 if fmt.pixfmt == NV12 else 8
         self._fmt = fmt
         self._prev = None
@@ -352,6 +425,35 @@ class InterpolationEngine:
         self.cadence.reset()
         log.info("flow geometry: %s (pixfmt=%s, device %s)", self.geom,
                  fmt.pixfmt, self.device)
+
+    def _active_level(self) -> int:
+        """The degradation level this push runs: the controller's level.
+        The JAX engine demotes it to the nearest rung whose programs have
+        compiled, and gates the controller's steps on that
+        (``QualityController.rung_warm``); the port compiles nothing per
+        shape or rung -- its kernel library builds once, at first use --
+        so every rung is warm once it is loaded, and it sets no gate."""
+        return self.quality.level
+
+    def _layers_for(self, radius: int) -> int:
+        """The flow kernel's layer count serving `radius`: the smallest
+        configured bucket >= radius (``EngineConfig.layer_buckets``), else
+        the radius itself, at least MAX_SEARCH_RADIUS (JAX engine.py
+        ``_layers_for``)."""
+        for b in self.config.layer_buckets:
+            if b >= radius:
+                return b
+        return max(radius, flow_ops.MAX_SEARCH_RADIUS)
+
+    def request_split_timing(self):
+        """Called by a telemetry consumer: under split_timing "auto" every
+        timed pair from now on publishes its flow/warp split (one more CUDA
+        event a pair, read back with the pair's duration)."""
+        self._split_wanted = True
+
+    def _split(self) -> bool:
+        mode = self.config.split_timing
+        return mode == "always" or (mode == "auto" and self._split_wanted)
 
     def _ts_for(self, blends: tuple) -> torch.Tensor:
         """Device blend vector, cached by value: fixed-rate cadences
@@ -372,18 +474,26 @@ class InterpolationEngine:
                            matrix=self._fmt.matrix)
 
     def _collect_timing(self):
-        """Turn the previous pair's CUDA events into its duration (waits
-        for that pair only)."""
+        """Turn the previous pair's CUDA events into its duration, and its
+        flow/warp split when it recorded one (waits for that pair only)."""
         if self._pending_timing is None:
             return
-        start, end = self._pending_timing
+        start, mid, end, n_outputs = self._pending_timing
         self._pending_timing = None
         end.synchronize()
         self._record_duration(start.elapsed_time(end) * 1e-3)
+        if mid is not None:
+            self._record_split(start.elapsed_time(mid) * 1e-3,
+                               mid.elapsed_time(end) * 1e-3, n_outputs)
 
     def _record_duration(self, dur: float):
         self._last_calc_duration = dur
         self.stats.add("source_frame_time", dur)
+
+    def _record_split(self, flow_t: float, warp_t: float, n_outputs: int):
+        self.stats.add("flow_time", flow_t)
+        self.stats.add("warp_total", warp_t)
+        self.stats.add("warp_time", warp_t / max(n_outputs, 1))
 
     # ------------------------------------------------------------------ #
 
@@ -417,23 +527,32 @@ class InterpolationEngine:
         f1, f2 = self._prev, self._cur
         if f1 is None:
             f1 = f2
-        geom = self.geom
+        radius = self.quality.search_radius
+        level = self._active_level()
+        geom = self._geoms[level]
+        model = self._level_models[level]
+        n_out = len(plan.outputs)
         ts = self._ts_for(tuple(slot.blend for slot in plan.outputs))
         # the first pair of a geometry carries the kernel build: its
         # duration is no measurement (0.0, as the JAX engine's cold pair)
         timed = self.config.measure_timing and self._warm
+        split = timed and self._split()
         on_cuda = self.device.type == "cuda"
         if timed and on_cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            mid = torch.cuda.Event(enable_timing=True) if split else None
             start.record()
         t0 = time.perf_counter()
 
-        blurred, score = _flow_stage(
-            geom, self._scale_shift, self.config.scene_detection,
-            self.config.model, f1, f2,
-            self.quality.search_radius,
-            self.config.delta_scalar, self.config.neighbor_bias_scalar)
+        blurred, frac, score = _flow_stage(
+            geom, self._scale_shift, self.config.scene_detection, model,
+            f1, f2, radius, self.config.delta_scalar,
+            self.config.neighbor_bias_scalar, self._layers_for(radius),
+            self.config.subpel_flow)
+        if split and on_cuda:
+            mid.record()
+        t_mid = time.perf_counter()
         cut = None
         if score is not None:
             cut = score > self.config.scene_threshold
@@ -442,18 +561,22 @@ class InterpolationEngine:
         y, uv = _warp_stage(geom, self._scale_shift, self.levels,
                             self.config.cut_policy,
                             self.config.frame_output_mode,
-                            self.config.warp_sampling, self.config.model,
-                            (f1.y, f1.uv, f2.y, f2.uv), blurred, cut, ts)
+                            self.config.warp_sampling, model,
+                            (f1.y, f1.uv, f2.y, f2.uv), blurred, cut, ts,
+                            frac)
 
         if not timed:
             self._last_calc_duration = 0.0
         elif on_cuda:
             end.record()
-            self._pending_timing = (start, end)
+            self._pending_timing = (start, mid, end, n_out)
         else:
-            self._record_duration(time.perf_counter() - t0)
+            t_end = time.perf_counter()
+            self._record_duration(t_end - t0)
+            if split:
+                self._record_split(t_mid - t0, t_end - t_mid, n_out)
         if self.config.measure_timing:
-            self.stats.add("outputs", len(plan.outputs))
+            self.stats.add("outputs", n_out)
         self._warm = True
         self._last_cut_score = score
         out_fmt = self._out_fmt()

@@ -20,8 +20,15 @@ as absent.  Prints, with the card's name and power limit:
   SM (the occupancy API, where the tree has the query); the us of its
   phases inside the launch (the kernel's timeline, without the blur
   phase); device ms of one step at each window of the schedule;
+* K1 at search radius 5, 8, 16, 24 and 64 (the instantiation the
+  engine's default layer buckets pick; radii above 16 in 16-layer
+  chunks): device ms of the pyramid and the us of its window sums (phase
+  A) and commits (phase B) inside the launch, absent where the tree
+  refuses the radius;
 * the flow as the engine runs it (``ops/flow.flow``: the pyramid and its
   blur): device ms and launches a pair, and host ms (50 enqueued);
+* S1 (the sub-pel refinement, where the tree has it): device ms on a 4K
+  field of committed flows, 8-bit and P010;
 * K3: device ms of the standalone blur of a 4K field, and the us of the
   blur phase inside the pyramid's launch (its timeline stamp);
 * K2: device ms of the five blend positions of a 4K pair, 8-bit at the
@@ -36,14 +43,17 @@ as absent.  Prints, with the card's name and power limit:
   (hopperx);
 * Q1: device ms of one 4K bilinear position, 8-bit at the default
   levels with and without the occlusion correction (hopperxq, hopperq),
-  and P010 with levels (16, 235) and the correction;
+  and P010 with levels (16, 235) and the correction; and the same three
+  with a sub-pel field (where the tree takes one);
 * the engine alone (frames staged on the card): at 8 bits, wall ms per
   pair with a synchronise after each pair, and device ms per pair and
   busy share under torch.profiler; device ms per pair and busy share on
   the P010 fused path (levels 16/235), in mode 0 (warp12), in mode 2
-  under "pallas", in mode 3 (hsv), in mode 6 (sbs2), and in mode 2 of
+  under "pallas", in mode 3 (hsv), in mode 6 (sbs2), in mode 2 of
   each model family that --model names (default hopperx, hopperq,
-  hopperxq and blend); a path the tree refuses prints as absent.
+  hopperxq and blend), at radius 5, with hopperq under subpel_flow, and
+  on each rung of the default degradation ladder (levels 1-3); a path
+  the tree refuses prints as absent.
 
 All flows are random blocks of 8 x 8 low-res cells within +-96.
 
@@ -196,7 +206,6 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     field = flow()[0]
     out["k3_standalone_device_ms"] = device_ms(lambda: KB.blur_flow(field))
-
     out["k1_step_device_ms"] = {
         w: device_ms(lambda w=w, nb=nb: [KS.flow_step(
             f1y, f1u, f1v, *probe, zero, zero, is_y, 16, 8, 6, w, nb, rs,
@@ -255,6 +264,7 @@ def main(argv=None) -> int:
         from mpv_frame_interpolator_tpu_torch.ops.cuda import (
             warp_bilinear as KQ)
     except ImportError:
+        KQ = None
         out["q1_device_ms"] = out["q1_occlusion_device_ms"] = \
             out["q1_occlusion_p010_device_ms"] = "absent"
     else:
@@ -266,20 +276,27 @@ def main(argv=None) -> int:
             lambda: KQ.bilinear_blend(g1y, g1uv, g2y, g2uv, blurred, t, rs,
                                       W4K, 8, W.level_ints(16, 235), True))
 
-    def engine(p010=False, sampling="pair", mode=2, model="hopper"):
+    def engine(p010=False, sampling="pair", mode=2, model="hopper",
+               radius=16, subpel=False, level=0):
         """The engine alone on the moving box: (wall ms a pair with a
         synchronise after each, device ms a pair, busy share), or three
         times "absent" where the tree does not cover the path."""
         levels = (16, 235) if p010 else (0, 255)
         kw = {"model": model} if model != "hopper" else {}
+        if subpel:
+            kw["subpel_flow"] = True
         try:
             eng = InterpolationEngine(EngineConfig(
                 display_fps=120.0, frame_output_mode=mode,
-                auto_quality=False, initial_search_radius=16,
+                auto_quality=False, initial_search_radius=radius,
                 warp_sampling=sampling, black_level=levels[0],
                 white_level=levels[1], device=str(dev), **kw))
-        except NotImplementedError:
+        except (NotImplementedError, TypeError):
             return ("absent",) * 3
+        if level:
+            if not hasattr(eng, "_geoms"):
+                return ("absent",) * 3
+            eng.quality.level = level
         src = cli.make_source(cli.build_parser().parse_args(
             ["synthetic:moving_box", "--width", str(W4K), "--height",
              str(H4K), "--fps", "24", "--frames", "24"]
@@ -318,6 +335,70 @@ def main(argv=None) -> int:
     for model in models:
         _, out[f"engine_{model}_device_ms_per_pair"], \
             out[f"engine_{model}_busy_share"] = engine(model=model)
+    _, out["engine_r5_device_ms_per_pair"], \
+        out["engine_r5_busy_share"] = engine(radius=5)
+    _, out["engine_hopperq_subpel_device_ms_per_pair"], \
+        out["engine_hopperq_subpel_busy_share"] = engine(model="hopperq",
+                                                         subpel=True)
+    for level in (1, 2, 3):
+        _, out[f"engine_level{level}_device_ms_per_pair"], \
+            out[f"engine_level{level}_busy_share"] = engine(radius=5,
+                                                            level=level)
+
+    # the items this PR's tree added, after every item both trees have,
+    # so that both run those in the same order on the same card state
+    if KQ is not None and \
+            "frac" in inspect.signature(KQ.bilinear_blend).parameters:
+        frac = torch.from_numpy(rng.integers(
+            0, 64, tuple(blurred.shape)).astype(np.int32)).to(dev)
+        out["q1_frac_device_ms"] = device_ms(lambda: KQ.bilinear_blend(
+            f1y, f1uv, f2y, f2uv, blurred, t, rs, W4K, frac=frac))
+        out["q1_frac_occlusion_device_ms"] = device_ms(
+            lambda: KQ.bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t,
+                                      rs, W4K, 0, (0, 255), True, frac))
+        out["q1_frac_occlusion_p010_device_ms"] = device_ms(
+            lambda: KQ.bilinear_blend(g1y, g1uv, g2y, g2uv, blurred, t,
+                                      rs, W4K, 8, W.level_ints(16, 235),
+                                      True, frac))
+    else:
+        out["q1_frac_device_ms"] = out["q1_frac_occlusion_device_ms"] = \
+            out["q1_frac_occlusion_p010_device_ms"] = "absent"
+    for radius in (5, 8, 16, 24, 64):
+        def pyr(radius=radius, **kw):
+            return KS.flow_pyramid(f1y, f1u, f1v, *probe, radius, 8, 6,
+                                   windows, F.FIRST_NEIGHBOR_ITERATION, rs,
+                                   geom.height, geom.stride, **kw)
+        try:
+            pyr()
+        except ValueError:
+            out[f"k1_r{radius}_device_ms"] = "absent"
+            out[f"k1_r{radius}_phase_a_b_us"] = "absent"
+            continue
+        out[f"k1_r{radius}_device_ms"] = device_ms(pyr)
+        stamps = torch.zeros((10, 2 + 2 * n_steps), dtype=torch.int64,
+                             device=dev)
+        for row in stamps:
+            pyr(timeline=row)
+        d = stamps.diff(dim=1).median(dim=0).values.cpu().numpy() / 1e3
+        out[f"k1_r{radius}_phase_a_b_us"] = [float(d[1::2].sum()),
+                                             float(d[2::2].sum())]
+
+    try:
+        from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
+    except ImportError:
+        out["s1_device_ms"] = out["s1_p010_device_ms"] = "absent"
+    else:
+        out["s1_device_ms"] = device_ms(lambda: KP.subpel_refine(
+            field, f1y, f1u, f1v, *probe, rs, geom.height, geom.stride))
+        p1 = planes(np.uint16)
+        p2 = planes(np.uint16)
+        probe16 = F.subsampled_f2(geom, p2[0], p2[2], p2[3])
+        field16 = KS.flow_pyramid(p1[0], p1[2], p1[3], *probe16, 16, 8, 6,
+                                  windows, F.FIRST_NEIGHBOR_ITERATION, rs,
+                                  geom.height, geom.stride, 8)
+        out["s1_p010_device_ms"] = device_ms(lambda: KP.subpel_refine(
+            field16, p1[0], p1[2], p1[3], *probe16, rs, geom.height,
+            geom.stride, 8))
 
     print(f"card: {smi}  tree: {args.root} {args.label}")
     for key, value in out.items():

@@ -9,10 +9,16 @@
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --mode hsv
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --model hopperxq
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --mode sbs2
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --search-radius 5
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --model hopperq \
+        --subpel-flow
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --level 2
 
 Stages a synthetic ``moving_box`` clip at the main path's shape (4K,
-24 -> 120 fps, radius 16; 8-bit NV12, or P010 with --p010; output mode
---mode, blend by default; model family --model, hopper by default) on
+24 -> 120 fps, radius 16 or --search-radius; 8-bit NV12, or P010 with
+--p010; output mode --mode, blend by default; model family --model, hopper
+by default; the sub-pel option with --subpel-flow; the degradation
+ladder's rung --level N of the default ladder, 0 by default, pinned) on
 the card, pushes WARM pairs through the
 engine, then pushes PAIRS more under ``torch.profiler`` with one
 synchronise at the end.  Prints the wall per pair, the card's own time
@@ -36,7 +42,7 @@ from mpv_frame_interpolator_tpu_torch.models import MODELS
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
-WIDTH, HEIGHT, DISPLAY_FPS, RADIUS = 3840, 2160, 120.0, 16
+WIDTH, HEIGHT, DISPLAY_FPS = 3840, 2160, 120.0
 WARM, PAIRS = 3, 10
 
 
@@ -66,6 +72,11 @@ def main(argv=None) -> int:
                    choices=("pair", "fused", "pallas"))
     p.add_argument("--black-level", type=float, default=0.0)
     p.add_argument("--white-level", type=float, default=255.0)
+    p.add_argument("--search-radius", type=int, default=16)
+    p.add_argument("--subpel-flow", action="store_true")
+    p.add_argument("--level", type=int, default=0,
+                   help="pin the degradation ladder's level (0 = the "
+                        "configured quality, 1-3 the default rungs)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pair: CUDA is not available")
@@ -74,9 +85,14 @@ def main(argv=None) -> int:
     eng = InterpolationEngine(EngineConfig(
         display_fps=DISPLAY_FPS, frame_output_mode=cli.MODES[args.mode],
         model=args.model, auto_quality=False,
-        initial_search_radius=RADIUS, warp_sampling=args.warp_sampling,
+        initial_search_radius=args.search_radius,
+        warp_sampling=args.warp_sampling, subpel_flow=args.subpel_flow,
         black_level=args.black_level, white_level=args.white_level,
         device="cuda"))
+    if not 0 <= args.level <= len(eng.config.degrade_rungs):
+        raise SystemExit(f"profile_pair: --level {args.level} is not a "
+                         "level of the ladder")
+    eng.quality.level = args.level
     src = cli.make_source(cli.build_parser().parse_args(
         ["synthetic:moving_box", "--width", str(WIDTH), "--height",
          str(HEIGHT), "--fps", "24", "--frames", str(1 + WARM + PAIRS)]
@@ -103,9 +119,10 @@ def main(argv=None) -> int:
     device_ms = sum(r[2] for r in rows) / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"{WIDTH}x{HEIGHT} {'P010' if args.p010 else 'NV12'} -> "
-          f"{DISPLAY_FPS:g} fps, radius {RADIUS}, mode {args.mode}, "
-          f"model {args.model}, warp_sampling "
-          f"{args.warp_sampling}, levels ({args.black_level:g}, "
+          f"{DISPLAY_FPS:g} fps, radius {args.search_radius}, mode "
+          f"{args.mode}, model {args.model}, warp_sampling "
+          f"{args.warp_sampling}, subpel_flow {args.subpel_flow}, ladder "
+          f"level {args.level}, levels ({args.black_level:g}, "
           f"{args.white_level:g}): {PAIRS} pairs under the profiler")
     print(f"wall {wall * 1e3:.3f} ms = {wall / PAIRS * 1e3:.3f} ms/pair")
     print(f"device {device_ms:.3f} ms = {device_ms / PAIRS:.3f} ms/pair; "

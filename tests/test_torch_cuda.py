@@ -643,14 +643,16 @@ def _iround(x):
 
 
 def q1_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, scale_shift=0,
-             levels=(0, 255), occlusion=False):
+             levels=(0, 255), occlusion=False, frac=None):
     """csrc/warp_bilinear.cu's arithmetic in NumPy, addressed as the kernel
     addresses each output sample: the flow and back-projected reverse flow
     at the sample's cell, 1/64-pel positions from one float32 product
     each, chroma read from the interleaved plane at column 2x + parity of
     the half-width position x, the taps mirrored, the float32 blend in the
-    JAX order, the occlusion correction and the level maps.  Returns (y,
-    uv) of the planes' dtype."""
+    JAX order, the occlusion correction and the level maps.  With `frac`
+    (the sub-pel field) each flow is (flow << 6) + frac, the reverse frac
+    read at the back-projected cell, scaled by t (chroma t * 0.5).
+    Returns (y, uv) of the planes' dtype."""
     t = np.float32(t)
     fs21 = np.float32(1.0) - t
     inv = np.float32(1.0 / 4096.0)
@@ -672,6 +674,12 @@ def q1_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, scale_shift=0,
         bscx = np.clip(scx - (ox >> rs), 0, lw - 1)
         ox21, oy21 = blurred[0][bscy, bscx], blurred[1][bscy, bscx]
         unit = np.float32(32.0 if chroma else 64.0)
+        if frac is not None:
+            ox, oy = (ox << 6) + frac[0][scy, scx], (oy << 6) + frac[1][
+                scy, scx]
+            ox21 = (ox21 << 6) + frac[0][bscy, bscx]
+            oy21 = (oy21 << 6) + frac[1][bscy, bscx]
+            unit = np.float32(0.5 if chroma else 1.0)
         s12, s21 = t * unit, fs21 * unit
         bx, by = ((cx >> 1) if chroma else cx) << 6, cy << 6
         dim_x = wa >> 1 if chroma else wa
@@ -838,3 +846,166 @@ def test_engine_models_on_the_card_equal_the_cpu(cuda, model, mode,
         assert (k5, g1) == ((2 * warped, warped) if model == "hopperx"
                             else (0, 0))
         assert q1 == (warped if model in ("hopperq", "hopperxq") else 0)
+
+
+@pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
+@pytest.mark.parametrize("h,w,stride,mcr", [(118, 202, 202, 270),
+                                            (544, 96, 96, 270),
+                                            (48, 64, 80, 270),
+                                            (48, 64, 64, 2)])
+def test_flow_pyramid_layer_counts(cuda, dt, luma_shift, h, w, stride, mcr):
+    """Every instantiation of the pyramid kernel (5, 8 and 16 layers, and
+    16-layer chunks above radius 16) against the plain pyramid: each
+    radius under each layer count that serves it, radii up to 256 (whose
+    candidates reach past every edge), with the blur phase on some."""
+    rng = np.random.default_rng(h * w + luma_shift + 11)
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    windows = geom.window_schedule() or (2, 1)
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    for radius, layer_counts in ((2, (5, 8, 16)), (5, (5, 16)), (6, (8,)),
+                                 (8, (8, 16)), (11, (16,)), (17, (17,)),
+                                 (24, (24, 32)), (33, (64,)), (64, (64,)),
+                                 (256, (256,))):
+        args = (y1, u1, v1, *probe, radius, 8, 6, windows, 1,
+                geom.res_scalar, geom.height, geom.stride, luma_shift)
+        want = KS.flow_pyramid_plain(*args)
+        for layers in layer_counts:
+            blur = layers == layer_counts[-1]
+            before = (KS.counts.kernel, KB.counts.fused)
+            got = KS.flow_pyramid(*args, blur=blur, layers=layers)
+            assert (KS.counts.kernel, KB.counts.fused) == (
+                before[0] + 1, before[1] + int(blur))
+            if blur:
+                _equal(got, [want, KB.blur_flow_plain(want)])
+            else:
+                _equal([got], [want])
+
+
+def test_flow_pyramid_occupancy(cuda):
+    """Each instantiation keeps K1's cooperative grid: 4 blocks an SM (the
+    launch bounds), so every tile of a 4K field is resident."""
+    for sample in (1, 2):
+        for layers, radius in ((5, 5), (8, 8), (16, 16), (64, 64)):
+            assert KS.blocks_per_sm(sample, layers, radius) >= 4
+
+
+@pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
+@pytest.mark.parametrize("h,w,stride,mcr", [(118, 202, 202, 270),
+                                            (544, 96, 96, 270),
+                                            (48, 64, 80, 270),
+                                            (48, 64, 64, 2),
+                                            (256, 12, 12, 64),
+                                            (2160, 3840, 3840, 270)])
+def test_subpel_refine(cuda, dt, luma_shift, h, w, stride, mcr):
+    """S1 against its plain version: fields from the pyramid, fields of
+    wild offsets (probes past every edge), low-res fields below the
+    window's reach (2 x 2, 64 x 3) and the 4K field; uint8 and uint16."""
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
+    rng = np.random.default_rng(h * w + luma_shift + 13)
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    lh, lw = geom.low_h, geom.low_w
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    pyramid = KS.flow_pyramid_plain(
+        y1, u1, v1, *probe, 8, 8, 6, geom.window_schedule() or (2, 1), 4,
+        geom.res_scalar, geom.height, geom.stride, luma_shift)
+    wild = torch.from_numpy(rng.integers(-300, 301, (2, lh, lw)).astype(
+        np.int32)).to(cuda)
+    small = torch.from_numpy(rng.integers(-2, 3, (2, lh, lw)).astype(
+        np.int32)).to(cuda)
+    for offset in (pyramid, wild, small):
+        args = (offset, y1, u1, v1, *probe, geom.res_scalar, geom.height,
+                geom.stride, luma_shift)
+        before = KP.counts.kernel
+        got = KP.subpel_refine(*args)
+        assert KP.counts.kernel == before + 1
+        _equal([got], [KP.subpel_refine_plain(*args)])
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0))])
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("h,w,stride", [(48, 64, 80), (544, 96, 96),
+                                        (64, 34, 48)])
+def test_bilinear_blend_frac(cuda, scale_shift, levels, occlusion, h, w,
+                             stride):
+    """Q1 with a sub-pel field (its kFrac instantiation) against its plain
+    version and q1_model; a zero field gives Q1 without one."""
+    rng = np.random.default_rng(h * w + stride + scale_shift + 17)
+    dt = np.uint16 if scale_shift else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w)
+    f1 = _frames(rng, h, stride, cuda, dt)
+    f2 = _frames(rng, h, stride, cuda, dt)
+    levels = W.level_ints(*levels)
+    host = [p.cpu().numpy() for p in (*f1, *f2)]
+    for lim in (3, 400):
+        flow = _q1_flow(rng, geom, lim)
+        frac = rng.integers(0, 64, flow.shape).astype(np.int32)
+        blurred = torch.from_numpy(flow).to(cuda)
+        frac_d = torch.from_numpy(frac).to(cuda)
+        for t in (0.0, 0.2, 0.5, 0.8, 1.0, 0.37):
+            args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                    torch.tensor(t, device=cuda), geom.res_scalar, w,
+                    scale_shift, levels, occlusion)
+            before = KQ.counts.kernel
+            got = KQ.bilinear_blend(*args, frac_d)
+            assert KQ.counts.kernel == before + 1
+            _equal(got, KQ.bilinear_blend_plain(*args, frac_d))
+            model = q1_model(*host, flow, t, geom.res_scalar, w,
+                             scale_shift, levels, occlusion, frac)
+            for g, m in zip(got, model):
+                np.testing.assert_array_equal(g.cpu().numpy(), m)
+            _equal(KQ.bilinear_blend(*args, torch.zeros_like(frac_d)),
+                   KQ.bilinear_blend(*args))
+
+
+@pytest.mark.parametrize("model,pixfmt,levels,subpel,level,radius", [
+    ("hopperq", "nv12", (0.0, 255.0), True, 0, 8),
+    ("hopperxq", "p010", (16.0, 235.0), True, 0, 5),
+    ("hopper", "nv12", (0.0, 255.0), True, 0, 24),
+    ("hopperx", "p010", (16.0, 235.0), True, 0, 16),
+    ("hopper", "nv12", (0.0, 255.0), False, 1, 5),
+    ("hopper", "p010", (16.0, 235.0), False, 2, 5),
+    ("hopperq", "nv12", (0.0, 255.0), True, 3, 5),
+    ("hopper", "nv12", (0.0, 255.0), False, 0, 64)])
+def test_engine_auto_quality_path_on_the_card_equals_the_cpu(
+        cuda, model, pixfmt, levels, subpel, level, radius):
+    """The sub-pel path, the ladder's rungs (level 3: the blend family)
+    and radii above 16: the engine on the card equals the engine on the
+    CPU, with its launches: K1 once a pair (none on the blend rung), under
+    subpel_flow S1 and the standalone blur once a pair and the fused blur
+    never."""
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
+    cfg = synthetic.SyntheticConfig(width=64, height=544, fps=24.0,
+                                    pixfmt=pixfmt)
+    engines = [E.InterpolationEngine(E.EngineConfig(
+        device=d, display_fps=60.0, model=model, auto_quality=True,
+        initial_search_radius=radius, subpel_flow=subpel,
+        black_level=levels[0], white_level=levels[1]))
+        for d in ("cpu", str(cuda))]
+    for e in engines:
+        e.quality.enabled = False       # the level stays where it is set
+        e.quality.level = level
+    counts = (KS.counts, KP.counts, KB.counts)
+    before = [c.kernel for c in counts] + [KB.counts.fused]
+    for frame in synthetic.scene_cut(cfg, 6):
+        outs = [e.push(frame) for e in engines]
+        assert len(outs[0]) == len(outs[1])
+        for a, b in zip(*outs):
+            assert a.pts == b.pts
+            fa, fb = a.to_video_frame(), b.to_video_frame()
+            np.testing.assert_array_equal(fa.y, fb.y)
+            np.testing.assert_array_equal(fa.uv, fb.uv)
+    after = [c.kernel for c in counts] + [KB.counts.fused]
+    k1, s1, k3, fused = (a - b for a, b in zip(after, before))
+    flows = 0 if level == 3 else 5
+    assert k1 == flows
+    assert (s1, k3, fused) == ((flows, flows, 0) if subpel
+                               else (0, 0, flows))

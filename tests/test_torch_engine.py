@@ -124,15 +124,16 @@ def test_cli_needs_cuda_for_cuda_device(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(frame_output_mode=5,
-                                     initial_search_radius=24),
-                                dict(model="hopperq", initial_search_radius=64),
+                                     initial_search_radius=257),
+                                dict(model="hopperq", initial_search_radius=1),
                                 dict(frame_output_mode=6,
-                                     initial_search_radius=17),
-                                dict(initial_search_radius=24)])
+                                     initial_search_radius=300),
+                                dict(initial_search_radius=0)])
 def test_uncovered_configurations_raise(kw):
-    """What the port still leaves out: search radii above 16, in any
-    mode and model."""
-    with pytest.raises(NotImplementedError, match="radius"):
+    """What the engine refuses, as the JAX engine does: search radii
+    outside [2, 256], in any mode and model (radii 17-256 run since the
+    flow kernel takes 16-layer chunks, tests/test_torch_layer_buckets.py)."""
+    with pytest.raises(ValueError, match="radius"):
         port_engine.EngineConfig(device="cpu", **kw)
 
 
@@ -147,9 +148,9 @@ def test_covered_configurations(kw):
 
 
 def test_p010_raises(small_cfg):
-    """P010 runs on every sampler and in the side-by-side modes; what
-    still raises for it is a search radius that is not ported, and an
-    unknown sampler is refused outright."""
+    """P010 runs on every sampler and in the side-by-side modes, at radii
+    above 16 too; what still raises for it is a search radius outside
+    [2, 256], and an unknown sampler is refused outright."""
     cfg = dataclasses.replace(small_cfg, pixfmt="p010")
     for ws in ("pair", "fused", "pallas"):
         port = port_engine.InterpolationEngine(port_engine.EngineConfig(
@@ -162,10 +163,16 @@ def test_p010_raises(small_cfg):
     for frame in synthetic.moving_box(cfg, 2):
         outs = port.push(frame)
     assert outs and outs[0].to_video_frame().y.dtype == np.uint16
-    with pytest.raises(NotImplementedError, match="radius"):
+    port = port_engine.InterpolationEngine(port_engine.EngineConfig(
+        device="cpu", warp_sampling="pallas", frame_output_mode=5,
+        initial_search_radius=32, auto_quality=False))
+    for frame in synthetic.moving_box(cfg, 2):
+        outs = port.push(frame)
+    assert outs and outs[0].to_video_frame().y.dtype == np.uint16
+    with pytest.raises(ValueError, match="radius"):
         port_engine.EngineConfig(device="cpu", warp_sampling="pallas",
                                  frame_output_mode=5,
-                                 initial_search_radius=32)
+                                 initial_search_radius=257)
     with pytest.raises(ValueError):
         port_engine.EngineConfig(device="cpu", warp_sampling="tiles")
 

@@ -95,10 +95,16 @@ def test_stride_wider_than_width(small_cfg):
 
 
 def test_rejects_radius_above_16(small_cfg):
+    """The flow refused every radius above 16 until the kernel took
+    16-layer chunks; now radius 17 equals the JAX package's flow and the
+    oracle's, and what it refuses is what the JAX engine refuses: radii
+    outside [2, 256]."""
+    _check(small_cfg, "moving_box", 17, oracle_too=True)
     f1, f2 = _pair(small_cfg, "moving_box")
     geom = TF.FlowGeometry.create(48, 64, 64)
-    with pytest.raises(NotImplementedError):
-        _port(geom, f1, f2, 17, 8, 6)
+    for radius in (1, 257):
+        with pytest.raises(ValueError, match="radius"):
+            _port(geom, f1, f2, radius, 8, 6)
 
 
 def test_cpu_flow_composes_the_plain_pyramid_and_blur(small_cfg):

@@ -253,11 +253,12 @@ def test_cli_y4m_bytes(tmp_path, extra):
 
 @pytest.mark.parametrize("mode", ["sbs1", "6", "bogus"])
 def test_cli_modes_that_are_not_ported(mode):
-    """The side-by-side modes run (tests/test_torch_sbs.py); with a search
-    radius above 16, which is not ported, they raise, and an unknown mode
-    is refused."""
-    err = SystemExit if mode == "bogus" else NotImplementedError
+    """The side-by-side modes run (tests/test_torch_sbs.py), at any search
+    radius the engine takes (2..256, tests/test_torch_layer_buckets.py);
+    with a radius outside it they are refused, as the JAX engine refuses
+    it, and an unknown mode is refused."""
+    err = SystemExit if mode == "bogus" else ValueError
     with pytest.raises(err):
         port_cli.main(["synthetic:moving_box", "--width", "64", "--height",
                        "48", "--frames", "2", "--device", "cpu", "--mode",
-                       mode, "--search-radius", "24"])
+                       mode, "--search-radius", "257"])

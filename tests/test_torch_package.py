@@ -36,6 +36,7 @@ from mpv_frame_interpolator_tpu_torch.ops import flow as port_flow
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
@@ -167,7 +168,7 @@ def test_build_directory_is_keyed_by_the_sources():
 
 @pytest.mark.parametrize("call", ["flow_step", "blur_flow", "pair_blend",
                                   "fused_blend", "sample_dir",
-                                  "bilinear_blend"])
+                                  "bilinear_blend", "subpel_refine"])
 def test_no_fallback_off_the_cpu(call):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper's checks reject it (here a meta tensor; a CUDA tensor goes on
@@ -183,6 +184,12 @@ def test_no_fallback_off_the_cpu(call):
     elif call == "blur_flow":
         counts, fn = KB.counts, KB.blur_flow
         args = (torch.empty((2, 6, 8), dtype=torch.int32, **meta),)
+    elif call == "subpel_refine":
+        counts, fn = KP.counts, KP.subpel_refine
+        u8 = lambda *s: torch.empty(s, dtype=torch.uint8, **meta)  # noqa
+        args = (torch.empty((2, 6, 8), dtype=torch.int32, **meta),
+                u8(48, 64), u8(24, 32), u8(24, 32), u8(6, 8), u8(6, 8),
+                u8(6, 8), 3, 48, 64)
     else:
         counts, fn = {"pair_blend": (KW.counts, KW.pair_blend),
                       "fused_blend": (KF.counts, KF.fused_blend),
@@ -225,17 +232,44 @@ def test_engine_config_from_jax_round_trip():
         assert back == jcfg
 
 
-@pytest.mark.parametrize("kw,err", [
-    (dict(frame_output_mode=5, initial_search_radius=24), NotImplementedError),
-    (dict(model="hopperx", initial_search_radius=64), NotImplementedError),
-    (dict(frame_output_mode=6, subpel_flow=True), NotImplementedError),
-    (dict(subpel_flow=True), NotImplementedError),
-    (dict(split_timing="always"), NotImplementedError),
-    (dict(degrade_rungs=()), NotImplementedError)])
-def test_engine_config_from_jax_rejects(kw, err):
+@pytest.mark.parametrize("kw,override,err", [
+    (dict(frame_output_mode=5, stats_log_path="pairs.log"), {},
+     NotImplementedError),
+    (dict(model="hopperx", stats_log_path="pairs.log"), {},
+     NotImplementedError),
+    (dict(frame_output_mode=6, subpel_flow=True), dict(stats_log_path="x"),
+     NotImplementedError),
+    (dict(subpel_flow=True), dict(initial_search_radius=257), ValueError),
+    (dict(split_timing="always"), dict(split_timing="sometimes"),
+     ValueError),
+    (dict(degrade_rungs=()), dict(initial_search_radius=1), ValueError)])
+def test_engine_config_from_jax_rejects(kw, override, err):
+    """What still does not convert: a stats log (the one mechanism the
+    port leaves out), and values the JAX config itself refuses (put into
+    the mapping by hand), such as a radius outside [2, 256].  Radii above
+    16, the ladder, split timing and sub-pel flow convert
+    (test_engine_config_from_jax_auto_quality_path)."""
     mapping = dataclasses.asdict(jax_engine.EngineConfig(**kw))
+    mapping.update(override)
     with pytest.raises(err):
         convert.engine_config_from_jax(mapping)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(initial_search_radius=64, layer_buckets=(4, 24)),
+    dict(degrade_rungs=((1, 2), (2, 2, "blend")), split_timing="always"),
+    dict(degrade_rungs=(), subpel_flow=True, model="hopperq",
+         split_timing="off", layer_buckets=())])
+def test_engine_config_from_jax_auto_quality_path(kw):
+    """The auto-quality path's knobs are real fields of the port's config,
+    copied as the JAX config normalised them (buckets sorted, rungs as
+    (delta, divisor, model) triples)."""
+    jcfg = jax_engine.EngineConfig(**kw)
+    pcfg = convert.engine_config_from_jax(dataclasses.asdict(jcfg),
+                                          device="cpu")
+    for name in ("initial_search_radius", "layer_buckets", "degrade_rungs",
+                 "split_timing", "subpel_flow", "model"):
+        assert getattr(pcfg, name) == getattr(jcfg, name), name
 
 
 @pytest.mark.parametrize("mode", range(7))
@@ -386,7 +420,10 @@ def test_cadence_copy_plans_as_the_original(display, pts, nominal):
         assert ref.state.name == port.state.name
 
 
-def test_quality_copy_decides_as_the_original():
+@pytest.mark.parametrize("max_level", [0, 3])
+def test_quality_copy_decides_as_the_original(max_level):
+    """Radius, ladder level and TooSlow decisions over random durations,
+    with and without a ladder (rung 2 cold for a while: the gate)."""
     rng = np.random.default_rng(7)
     durations = list(rng.uniform(0.0, 0.05, 200)) + [0.04] * 20 + [0.0] * 3
     for patience in (1, 3):
@@ -395,13 +432,18 @@ def test_quality_copy_decides_as_the_original():
         for c in cad:
             c.on_source_frame(0.0, 24.0)
         ref = jax_quality.QualityController(search_radius=9,
-                                            too_slow_patience=patience)
+                                            too_slow_patience=patience,
+                                            max_level=max_level)
         port = port_quality.QualityController(search_radius=9,
-                                              too_slow_patience=patience)
-        for d in durations:
+                                              too_slow_patience=patience,
+                                              max_level=max_level)
+        for i, d in enumerate(durations):
+            warm = (lambda lvl, i=i: lvl != 2 or i > 100)
+            ref.rung_warm = port.rung_warm = warm
             ref.update(d, cad[0])
             port.update(d, cad[1])
             assert ref.search_radius == port.search_radius
+            assert ref.level == port.level
             assert cad[0].state.name == cad[1].state.name
 
 
