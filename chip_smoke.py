@@ -80,7 +80,19 @@ Phases (any failure raises and exits non-zero):
    over-budget durations walks radius 16 -> 5 and levels 1 -> 2 -> 3
    (the blend family), then recovers in reverse, every pair equal to a
    static engine at the rung's geometry and model; then each level's
-   device ms a pair and K1's launches (none on the blend rung).
+   device ms a pair and K1's launches (none on the blend rung);
+13. the player at 4K: a 24-frame 4K NV12 y4m file through the CLI with
+   the prefetcher's staged uploads, without them, and with --group 8
+   (CUDA graph replays): byte-equal outputs, no engine failure, each
+   run's wall split a pair (source read, upload, engine, download, y4m
+   write), out-fps and calc ms;
+14. the grouped engine at 4K, 8-bit "pair" and P010 "fused": push and
+   push_many in groups of 4 and 8, every output bit-equal to push's, with
+   device ms, engine wall, busy share, host and kernel launches a pair
+   and each graph's memory;
+15. seek, loop and end on the card: a small y4m clip through the
+   pipeline (a seek and a loop) and the CLI (--loop 1 --end 0.4), equal
+   to the CPU's frames and bytes.
 
 On every path but the sub-pel one the blur runs inside K1's launch once
 a pair and K3's standalone kernel never, G1 runs only on the "pallas"
@@ -1132,6 +1144,8 @@ def run_cli(dev, frames: int, extra):
             stats = json.load(fh)
         y4m = (*y4m_frames(out), os.path.getsize(out))
     check(rc == 0, f"cli returned {rc}")
+    check(stats["engine_failures"] == 0,
+          f"{stats['engine_failures']} engine failures (fail-open)")
     # the first source frame passes through; at 24 -> 120 every later one
     # gives the 5 outputs of its pair
     expected = 1 + 5 * (frames - 1)
@@ -1417,6 +1431,330 @@ def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
         f"{dt / pairs * 1e3:.3f} ms/pair wall, {n / dt:.1f} out-fps")
 
 
+OUR_KERNELS = ("pyramid_kernel", "pair_blend_kernel", "fused_blend_kernel",
+               "blur_kernel", "sample_dir_kernel", "blend_levels_kernel",
+               "bilinear_blend_kernel", "subpel_kernel")
+
+
+def write_y4m(path: str, frames, width: int, height: int,
+              p010: bool = False):
+    from mpv_frame_interpolator_tpu_torch.io.y4m import Y4MWriter
+    with open(path, "wb") as fh:
+        w = Y4MWriter(fh, width, height, 24.0, "p010" if p010 else "nv12")
+        for f in frames:
+            w.write(f)
+
+
+def same_bytes(a: str, b: str) -> bool:
+    """Whether two files hold the same bytes (read 16 MB at a time)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 24), fb.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def phase_player(dev):
+    """Phase 13: the player at 4K.  A 24-frame 4K NV12 y4m file runs
+    through the CLI (24 -> 120, radius 16, y4m sink) three ways: with the
+    prefetcher's staged uploads (page-locked reads, the copy stream), with
+    --no-stage-uploads, and with --group 8 (push_many, CUDA graph
+    replays).  The three outputs must be byte-equal, no engine failure
+    counted, no plain version run, and K1 launched once a pair (grouped:
+    once a pair of each replay and of each graph's warm-up); prints each
+    run's wall split a pair, out-fps and calc ms a pair.  Returns the
+    launches of the staged run."""
+    from mpv_frame_interpolator_tpu_torch import cli
+    counts = kernel_counts()
+    n = 24
+    pairs = n - 1
+    expected = 1 + 5 * pairs
+    equal = {}
+    staged_launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.y4m")
+        t0 = time.perf_counter()
+        write_y4m(src, synthetic_frames("moving_box", W4K, H4K, n), W4K,
+                  H4K)
+        log(f"  source: {n} frames of {W4K}x{H4K} NV12, "
+            f"{os.path.getsize(src)} bytes, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ref = os.path.join(tmp, "ref.y4m")
+        for name, extra in (("staged uploads", []),
+                            ("no staged uploads", ["--no-stage-uploads"]),
+                            ("--group 8", ["--group", "8"])):
+            out = ref if not extra else os.path.join(tmp, "out.y4m")
+            stats_path = os.path.join(tmp, "stats.json")
+            argv = [src, "--display-fps", "120", "--search-radius", "16",
+                    "--no-auto-quality", "--untimed", "--frames", "0",
+                    "--device", str(dev), "-o", out, "--dump-stats",
+                    stats_path, *extra]
+            for c in counts.values():
+                c.reset()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            launches = {k: c.kernel for k, c in counts.items()}
+            plain = {k: c.plain for k, c in counts.items()}
+            with open(stats_path) as fh:
+                stats = json.load(fh)
+            frames = y4m_frames(out)
+            if out != ref:
+                equal[name] = same_bytes(out, ref)
+                os.remove(out)
+            check(rc == 0, f"{name}: cli returned {rc}")
+            check(stats["engine_failures"] == 0,
+                  f"{name}: {stats['engine_failures']} engine failures")
+            check(stats["frames_out"] == expected and frames[2] == expected,
+                  f"{name}: {stats['frames_out']} outputs, the y4m holds "
+                  f"{frames[2]}, the cadence expects {expected}")
+            check(not any(plain.values()),
+                  f"{name}: a plain version ran: {plain}")
+            graphs = stats["graphs"]
+            if graphs:
+                k1 = sum(g["key"][3] * (g["replays"] + 1) for g in graphs)
+                total = sum(g["kernel_launches"] * (g["replays"] + 1)
+                            for g in graphs)
+                check(launches["flow_step"] == k1
+                      and sum(launches.values()) == total,
+                      f"{name}: launches {launches} against the graphs' "
+                      f"{graphs}")
+            else:
+                check(launches["flow_step"] == pairs
+                      and launches["pair_blend"] == pairs,
+                      f"{name}: K1 {launches['flow_step']} and K2 "
+                      f"{launches['pair_blend']} launches for {pairs} "
+                      f"pairs")
+            if not extra:
+                staged_launches = launches
+            w = stats["wall"]
+            pair = stats["stats"].get("source_frame_time", {})
+            log(f"  {name}: {stats['frames_in']} source -> "
+                f"{stats['frames_out']} frames in {wall:.2f} s = "
+                f"{stats['frames_out'] / wall:.1f} out-fps (cli "
+                f"{stats['seconds']:.2f} s); calc ms a pair mean "
+                f"{pair.get('mean', 0) * 1e3:.3f} over "
+                f"{pair.get('count', 0)}; engine failures "
+                f"{stats['engine_failures']}, underruns {stats['underruns']}")
+            captures = sum(g["capture_s"] for g in graphs)
+            log(f"    wall split, ms a pair: source read "
+                f"{w['read'] / pairs * 1e3:.3f} (reader thread), upload "
+                f"{w['upload_device'] / pairs * 1e3:.3f} (copy-stream "
+                f"events; reader thread's stage calls "
+                f"{w['stage'] / pairs * 1e3:.3f}), engine "
+                f"{w['engine'] / pairs * 1e3:.3f} (of it graph captures "
+                f"{captures / pairs * 1e3:.3f}), download "
+                f"{w['download'] / pairs * 1e3:.3f}, y4m write "
+                f"{w['write'] / pairs * 1e3:.3f}; launches {launches}")
+            if graphs:
+                log(f"    graphs: {graphs}; group stats "
+                    f"{stats['group_stats']}")
+    log(f"  the same bytes as the staged run's: {equal}")
+    check(all(equal.values()),
+          f"the three runs wrote different bytes: {equal}")
+    return staged_launches
+
+
+def _run_engine(e, frames, group: int, keep: bool = True):
+    """push (group 1) or push_many the frames; the outputs, or none when
+    not `keep` (each chunk's outputs dropped as a sink would drop them,
+    so their memory goes back to the allocator's cache)."""
+    outs = []
+    step = 1 if group == 1 else group
+    for i in range(0, len(frames), step):
+        chunk = frames[i:i + step]
+        got = (e.push(chunk[0]) if group == 1
+               else e.push_many(chunk, group_size=group))
+        if keep:
+            outs += got
+    return outs
+
+
+def phase_grouped_engine(dev, p010: bool = False, sampling: str = "pair"):
+    """Phase 14: the grouped engine at 4K 24 -> 120, radius 16, frames
+    staged on the card: push (group 1) and push_many in groups of 4 and 8
+    (one CUDA graph replay a group).  Each group size first runs warm
+    pairs and a window of 32 pairs keeping every output: the grouped
+    outputs must equal push's, bit for bit.  Then a fresh engine, after
+    the same warm pairs (each group size's graph captured), runs two
+    windows of 32 pairs timed on the host clock to a synchronise (engine
+    wall; outputs dropped as a sink would), and a third under
+    torch.profiler (device ms, busy share, kernel rows).  The launches a
+    pair counted by the wrappers (grouped: each graph's captured launches
+    times its replays) and the profiler's rows of the port's kernels a
+    pair must equal push's.  Returns {group: numbers}."""
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
+        EngineConfig, InterpolationEngine)
+    from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
+    levels = (16, 235) if p010 else (0, 255)
+
+    def make():
+        return InterpolationEngine(EngineConfig(
+            display_fps=120.0, auto_quality=False, initial_search_radius=16,
+            warp_sampling=sampling, black_level=levels[0],
+            white_level=levels[1], device=str(dev)))
+
+    pairs = 32
+    base = make()
+    frames = [base.stage(f) for f in synthetic_frames(
+        "moving_box", W4K, H4K, 1 + 16 + 3 * pairs, p010)]
+    warm = frames[:17]
+    windows = [frames[17 + i * pairs:17 + (i + 1) * pairs] for i in range(3)]
+    counts = kernel_counts()
+    what = f"{'P010' if p010 else 'NV12'} {sampling}"
+    ref = None
+    results = {}
+    for group in (1, 4, 8):
+        e = make()
+        _run_engine(e, warm, group)
+        outs = _run_engine(e, windows[0], group)
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = outs
+        else:
+            check(len(ref) == len(outs) and all(
+                _same_outputs([x], [y]) for x, y in zip(ref, outs)),
+                f"{what} group {group}: outputs differ from push's")
+        del outs
+
+        e = make()
+        _run_engine(e, warm, group, keep=False)
+        torch.cuda.synchronize()
+        walls = []
+        for n, window in enumerate(windows[:2]):
+            if n == 1:
+                for c in counts.values():
+                    c.reset()
+                before = dict(e.group_stats)
+            t0 = time.perf_counter()
+            _run_engine(e, window, group, keep=False)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / pairs * 1e3)
+        launches = sum(c.kernel for c in counts.values())
+        host = {k: e.group_stats[k] - before[k] for k in before}
+        check(not any(c.plain for c in counts.values()),
+              f"{what} group {group}: a plain version ran")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _run_engine(e, windows[2], group, keep=False)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        rows = [(ev.key, ev.count, self_device_us(ev))
+                for ev in prof.key_averages() if self_device_us(ev) > 0]
+        dev_ms = sum(r[2] for r in rows) / 1e3 / pairs
+        kernel_rows = sum(r[1] for r in rows
+                          if any(k in r[0] for k in OUR_KERNELS)) / pairs
+        check(dev_ms > 0, f"{what} group {group}: no device rows")
+        if group == 1:
+            push_counts = (launches, kernel_rows)
+            host_launches = sum(r[1] for r in rows) / pairs
+            host_what = "every device op enqueued from Python"
+        else:
+            check((launches, kernel_rows) == push_counts,
+                  f"{what} group {group}: {launches} launches and "
+                  f"{kernel_rows} profiler kernel rows a pair, push "
+                  f"{push_counts}")
+            host_launches = (host["replays"] + host["copies"]) / pairs
+            host_what = (f"graph launches {host['replays'] / pairs:.3f} + "
+                         f"copies {host['copies'] / pairs:.3f}")
+        wall = min(walls)
+        results[group] = dict(device_ms=dev_ms, wall_ms=walls,
+                              busy=dev_ms / wall,
+                              busy_profiled=dev_ms / (pwall / pairs * 1e3),
+                              host_launches=host_launches,
+                              kernel_launches=launches / pairs)
+        graphs = [(g["key"][3], g["bytes"], round(g["capture_s"], 3))
+                  for g in e.graph_stats()]
+        log(f"  {what} group {group}: device {dev_ms:.4f} ms a pair "
+            f"(profiler), engine wall {walls[0]:.4f} / {walls[1]:.4f} ms a "
+            f"pair (two windows), device / engine wall {dev_ms / wall:.3f} "
+            f"(busy share under the profiler "
+            f"{dev_ms / (pwall / pairs * 1e3):.3f}, its wall "
+            f"{pwall / pairs * 1e3:.4f} ms a pair); host launches a pair "
+            f"{host_launches:.3f} ({host_what}); kernel launches a pair "
+            f"{launches / pairs:.3f} (profiler kernel rows "
+            f"{kernel_rows:.3f}); graphs (k, bytes, capture s) {graphs}")
+    return results
+
+
+def phase_player_commands(dev):
+    """Phase 15: seek, loop and end on the card.  A 64x48 y4m clip of 12
+    frames through the pipeline on the card and on the CPU: a seek back to
+    frame 3 after the 7th output and one loop (staged uploads, page-locked
+    reads on the card), and the CLI with --loop 1 --end 0.4: the card's
+    frames, pts and bytes equal the CPU's, no engine failure, the card
+    runs no plain version."""
+    from mpv_frame_interpolator_tpu_torch import cli
+    from mpv_frame_interpolator_tpu_torch.io.pinned import PinnedPool
+    from mpv_frame_interpolator_tpu_torch.io.y4m import Y4MReader
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
+        EngineConfig, InterpolationEngine)
+    from mpv_frame_interpolator_tpu_torch.pipeline.player import Pipeline
+    counts = kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "clip.y4m")
+        write_y4m(src, synthetic_frames("moving_box", 64, 48, 12), 64, 48)
+        runs = {}
+        for device in ("cpu", str(dev)):
+            for c in counts.values():
+                c.reset()
+            frames = []
+            pipe_ref = []
+
+            class Sink:
+                def write(self, out):
+                    f = out.to_video_frame()
+                    frames.append((out.pts, np.array(f.y), np.array(f.uv)))
+                    if len(frames) == 7:
+                        pipe_ref[0].seek(3 / 24.0)
+
+                def close(self):
+                    pass
+
+            engine = InterpolationEngine(EngineConfig(
+                display_fps=60.0, auto_quality=False,
+                initial_search_radius=8, device=device))
+            with open(src, "rb") as fh:
+                pipe = Pipeline(Y4MReader(fh, pool=PinnedPool(8, device)),
+                                engine, Sink(), present=None)
+                pipe_ref.append(pipe)
+                pipe.loop = 1
+                pipe.run()
+            check(pipe.engine_failures() == 0,
+                  f"{device}: {pipe.engine_failures()} engine failures")
+            out = os.path.join(tmp, f"out-{device}.y4m")
+            check(cli.main([src, "--device", device, "--untimed",
+                            "--no-auto-quality", "--loop", "1", "--end",
+                            "0.4", "--frames", "0", "-o", out]) == 0,
+                  f"{device}: cli --loop 1 --end 0.4 failed")
+            with open(out, "rb") as fh:
+                cli_bytes = fh.read()
+            if device != "cpu":
+                check(not any(c.plain for c in counts.values()),
+                      "a plain version ran on the card")
+                check(counts["flow_step"].kernel > 0,
+                      "K1 never launched on the card")
+            runs[device] = (frames, pipe.seeks, pipe.frames_in, cli_bytes)
+        (a, sa, na, ca), (b, sb, nb, cb) = runs.values()
+        check((sa, na) == (sb, nb) == (2, na) and len(a) == len(b) > 0,
+              f"seeks / frames in: CPU {(sa, na)}, card {(sb, nb)}")
+        check(all(p == q and np.array_equal(y1, y2)
+                  and np.array_equal(u1, u2)
+                  for (p, y1, u1), (q, y2, u2) in zip(a, b)),
+              "seek + loop: the card's frames differ from the CPU's")
+        check(ca == cb and ca.count(b"FRAME") > 0,
+              "--loop 1 --end 0.4: the card's bytes differ from the CPU's")
+        log(f"  seek + loop: {len(b)} frames, {sb} seeks, {nb} source "
+            f"frames, equal to the CPU; --loop 1 --end 0.4: "
+            f"{cb.count(b'FRAME')} frames, {len(cb)} bytes, equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke "
@@ -1475,6 +1813,16 @@ def main() -> int:
     log("phase 12: the auto-quality ladder on the card (engine, 4K "
         "24->120, radius 16 -> 5, levels 0 -> 3 -> 0)")
     phase_ladder(dev)
+    log("phase 13: the player at 4K (cli on a 24-frame 4K y4m file, 24->120,"
+        " radius 16: staged uploads, unstaged, --group 8)")
+    player_launches = phase_player(dev)
+    log("phase 14: the grouped engine at 4K (push, push_many in groups of 4 "
+        "and 8 from captured CUDA graphs)")
+    grouped = {"NV12 pair": phase_grouped_engine(dev),
+               "P010 fused": phase_grouped_engine(dev, p010=True,
+                                                  sampling="fused")}
+    log("phase 15: seek, loop and end on the card against the CPU")
+    phase_player_commands(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
     # main path (K3 as the blur phase of K1's launches), K4 on the P010
@@ -1550,6 +1898,8 @@ def main() -> int:
         f"on the pallas blend path {pallas_launches}, on the hopperxq path "
         f"{hopperxq_launches}, on the hopperx path {hopperx_launches}, on "
         f"the sub-pel hopperq path {subpel_launches}")
+    log(f"launches on the staged 4K player run {player_launches}")
+    log(f"grouped engine, a pair: {json.dumps(grouped)}")
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,11 @@ copies.  The port covers every model family (hopper, hopperx, hopperq,
 hopperxq, blend, repeat), scene detection, 8-bit NV12 and 10-bit P010,
 any black/white levels, output modes 0-6 (warp12, warp21, blend, hsv,
 grey, sbs1, sbs2) and every warp sampler of mode 2 ("pair", "shift" and
-"gather" on K2, "fused" on K4, "pallas" on K5 and G1); it raises
-``NotImplementedError`` for a search radius above 16.
+"gather" on K2, "fused" on K4, "pallas" on K5 and G1), search radii 2-256 with the degradation ladder,
+and the player around the engine (``pipeline/player.Pipeline``: a
+prefetch thread with staged uploads from page-locked buffers, seek,
+pause, frame-step, loop and end, counted fail-open) with the grouped
+encode path (``InterpolationEngine.push_many``, CUDA graph replays).
 
 Its device work is hand-written CUDA kernels (``csrc/*.cu``), one for each
 Pallas kernel of the JAX package plus G1 and Q1, each with a plain

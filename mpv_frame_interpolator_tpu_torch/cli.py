@@ -14,6 +14,9 @@ Examples:
   python -m mpv_frame_interpolator_tpu_torch synthetic:moving_box \
       --model hopperq --subpel-flow --degrade-rungs 2:2,3:4:blend -o q.y4m
   python -m mpv_frame_interpolator_tpu_torch input.y4m --device cpu -o out.y4m
+  python -m mpv_frame_interpolator_tpu_torch input.y4m --group 8 -o out.y4m
+  python -m mpv_frame_interpolator_tpu_torch input.y4m --loop 1 --end 2.5 \
+      --untimed -o out.y4m
 
 The device is explicit: ``--device cuda`` (the default) needs a card and
 fails if there is none; nothing falls back to the CPU.
@@ -30,6 +33,7 @@ import torch
 
 from mpv_frame_interpolator_tpu_torch.frame import NV12, P010
 from mpv_frame_interpolator_tpu_torch.io import sinks, synthetic, y4m
+from mpv_frame_interpolator_tpu_torch.io.pinned import PinnedPool
 from mpv_frame_interpolator_tpu_torch.models import MODELS
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
@@ -116,6 +120,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "restore real-time; empty disables)")
     p.add_argument("-o", "--output", default="",
                    help="write outputs to a .y4m file")
+    p.add_argument("--group", type=int, default=1,
+                   help="encode throughput: dispatch N source pairs per "
+                        "group (engine.push_many; on the card one CUDA "
+                        "graph replay a group).  Adds up to N source "
+                        "intervals of latency and disables pause/seek, so "
+                        "it requires -o and implies --untimed")
+    p.add_argument("--loop", type=int, default=0,
+                   help="replay the source N more times after EOF "
+                        "(-1 = forever; --loop-file analog; needs a "
+                        "seekable source: a .y4m file)")
+    p.add_argument("--end", type=float, default=None,
+                   help="stop playback at this source pts (seconds; mpv "
+                        "--end analog)")
+    p.add_argument("--no-stage-uploads", action="store_true",
+                   help="upload each frame on the engine's thread instead "
+                        "of the prefetch thread")
     p.add_argument("--device", default="cuda",
                    help="torch device the engine runs on (default cuda)")
     p.add_argument("--dump-stats", default="",
@@ -136,7 +156,9 @@ def make_source(args):
                                         pixfmt=P010 if args.p010 else NV12)
         return gen(cfg, args.frames or 1 << 30), cfg.width, cfg.height
     if args.source.endswith(".y4m"):
-        rdr = y4m.Y4MReader(open(args.source, "rb"))
+        # page-locked read buffers when the frames go to a card
+        rdr = y4m.open_source(args.source,
+                              pool=PinnedPool(8, device=args.device))
         return rdr, rdr.width, rdr.height
     raise SystemExit(f"unsupported source {args.source!r} (the port reads "
                      ".y4m files and synthetic:<name>)")
@@ -159,6 +181,11 @@ def main(argv=None) -> int:
         if mode is None:
             raise SystemExit(f"unknown mode {args.mode!r}")
 
+    group = max(args.group, 1)
+    if group > 1 and not args.output:
+        raise SystemExit("--group requires -o: grouped dispatch buffers N "
+                         "source intervals, which realtime playback cannot "
+                         "absorb")
     source, width, height = make_source(args)
     engine = InterpolationEngine(EngineConfig(
         display_fps=args.display_fps,
@@ -189,30 +216,57 @@ def main(argv=None) -> int:
     sink = (sinks.Y4MFileSink(args.output, width, height, args.display_fps,
                               P010 if args.p010 else NV12)
             if args.output else sinks.NullSink())
-    present = (None if args.no_present
-               else PresentClock(args.display_fps, untimed=args.untimed))
-    pipe = Pipeline(source, engine, sink, present)
+    present = None
+    if not args.no_present and group == 1:
+        present = PresentClock(args.display_fps, untimed=args.untimed)
+    pipe = Pipeline(source, engine, sink, present,
+                    stage_uploads=not args.no_stage_uploads, group=group)
+    pipe.loop = args.loop
+    pipe.end_pts = args.end
 
     t0 = time.perf_counter()
     n = pipe.run(max_source_frames=args.frames or None)
     dt = time.perf_counter() - t0
-    s = engine.stats.summary().get("source_frame_time", {})
+    summary = engine.stats.summary()
+    s = summary.get("source_frame_time", {})
+    failures = pipe.engine_failures()
     if args.dump_stats:
+        upload = summary.get("upload_time", {})
         with open(args.dump_stats, "w") as fh:
-            json.dump({"stats": engine.stats.summary(),
+            json.dump({"stats": summary,
                        "search_radius": engine.quality.search_radius,
                        "level": engine.quality.level,
                        "state": engine.cadence.state.name,
                        "frames_in": pipe.frames_in,
                        "frames_out": pipe.frames_out,
                        "scene_cuts": engine.scene_cuts(),
+                       "engine_failures": failures,
+                       "underruns": pipe.underruns,
+                       "sources_dropped": pipe.sources_dropped,
+                       "seeks": pipe.seeks,
+                       "group": group,
+                       "group_stats": engine.group_stats,
+                       "graphs": [dict(g, key=list(g["key"]))
+                                  for g in engine.graph_stats()],
+                       # seconds over the run: the reader thread's in the
+                       # source and in uploads (overlapping the rest),
+                       # the copies' device time, the engine calls', and
+                       # the sink's downloads and writes
+                       "wall": {
+                           "read": pipe.read_time,
+                           "stage": pipe.stage_time,
+                           "upload_device": upload.get("mean", 0.0)
+                           * upload.get("count", 0),
+                           "engine": pipe.engine_time,
+                           "download": getattr(sink, "download_time", 0.0),
+                           "write": getattr(sink, "write_time", 0.0)},
                        "device": str(engine.device),
                        "seconds": dt}, fh, indent=2)
     log.info("%d source -> %d output frames in %.2fs (%.1f out-fps); "
-             "per-pair mean=%.2fms p99=%.2fms; radius=%d",
-             pipe.frames_in, n, dt, n / dt if dt else 0.0,
+             "per-pair mean=%.2fms p99=%.2fms; radius=%d; engine failures "
+             "%d", pipe.frames_in, n, dt, n / dt if dt else 0.0,
              s.get("mean", 0.0) * 1e3, s.get("p99", 0.0) * 1e3,
-             engine.quality.search_radius)
+             engine.quality.search_radius, failures)
     return 0
 
 

@@ -255,7 +255,10 @@ def visualize_flow(off_x, off_y, curr_8, channel, res_impact: int):
                     .clamp(0.0, 255.0)).to(torch.int32)
     v = torch.trunc((r * 0.5 + g * -0.418688 + b * -0.081312 + 128.0)
                     .clamp(0.0, 255.0)).to(torch.int32)
-    channel = torch.as_tensor(channel, device=y.device)
+    if isinstance(channel, int):
+        # no host scalar copied to the device: the grouped path captures
+        # this in a CUDA graph, which refuses a synchronous copy
+        return (y, u, v)[channel]
     return torch.where(channel == 0, y, torch.where(channel == 1, u, v))
 
 

@@ -75,15 +75,27 @@ rung's geometry (fewer pyramid iterations at a lower calc resolution) and
 model; the controller steps onto a rung once the radius is at its floor
 and unwinds the level before it grows the radius again.
 
-Not ported yet: ``push_many`` and the grouped pipeline.  Nothing compiles
-per shape, rung or batch size, so ``batch_shapes``, background precompile
-and the compile cache have nothing to do here (``convert.NO_OP_KNOBS``).
+Uploads (``stage``) run on the engine's own copy stream, from page-locked
+buffers where the source reads into them (``io/pinned.PinnedPool``), on
+the caller's thread -- the pipeline's prefetcher; the compute stream
+waits for each frame's copies on the device before first use.
+
+``push_many`` is the grouped encode path (JAX ``push_many``): the same
+outputs as ``push``, with the pairs of a group run from static input
+slots by one replay of a CUDA graph captured from the same pair body
+(``_pair_outputs``), which replaces the ~20 launches a pair enqueues
+from Python with one graph launch a group plus the slot and output
+copies.  On the CPU the body runs eagerly over the same slots.  Nothing
+compiles per shape, rung or batch size, so ``batch_shapes``, background
+precompile and the compile cache have nothing to do here
+(``convert.NO_OP_KNOBS``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 from typing import List, Optional, Union
 
 import numpy as np
@@ -96,6 +108,11 @@ from mpv_frame_interpolator_tpu_torch.frame import (
     NV12, FrameFormat, VideoFrame)
 from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
+from mpv_frame_interpolator_tpu_torch.ops.cuda import (
+    blend_levels as _k_blend_levels, blur as _k_blur,
+    flow_step as _k_flow_step, subpel as _k_subpel,
+    warp_bilinear as _k_bilinear, warp_fused as _k_fused,
+    warp_pair as _k_pair, warp_sample as _k_sample)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.blend_levels import (
     blend_levels)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_bilinear import (
@@ -345,6 +362,118 @@ def _blended_from_samples(mode: int, scale_shift: int, levels, rs: int,
             warp_ops.levels_uv(b_uv, w, scale_shift).to(dtype))
 
 
+# every kernel wrapper's launch counters: a replayed graph calls no
+# wrapper, so the engine adds each graph's captured launches per replay
+_KERNEL_COUNTS = (_k_flow_step.counts, _k_blur.counts, _k_pair.counts,
+                  _k_fused.counts, _k_sample.counts, _k_blend_levels.counts,
+                  _k_bilinear.counts, _k_subpel.counts)
+
+
+def _snapshot_counts():
+    return [(c.kernel, getattr(c, "fused", 0)) for c in _KERNEL_COUNTS]
+
+
+def _restore_counts(snapshot):
+    for c, (kernel, fused) in zip(_KERNEL_COUNTS, snapshot):
+        c.kernel = kernel
+        if hasattr(c, "fused"):
+            c.fused = fused
+
+
+class _GroupSlots:
+    """Static inputs of a group of k chained pairs: k + 1 frames (pair j
+    runs frame j -> frame j + 1) and the (k, n_batch) blend positions,
+    filled by device-to-device copies before each run of the group's
+    body (a captured graph reads these addresses and no others)."""
+
+    def __init__(self, fmt: FrameFormat, k: int, n_batch: int, device):
+        h, s = fmt.height, fmt.stride
+        dt = torch.uint8 if fmt.pixfmt == NV12 else torch.uint16
+        self.y = torch.empty((k + 1, h, s), dtype=dt, device=device)
+        self.uv = torch.empty((k + 1, h // 2, s), dtype=dt, device=device)
+        self.u = torch.empty((k + 1, h // 2, s // 2), dtype=dt,
+                             device=device)
+        self.v = torch.empty_like(self.u)
+        self.ts = torch.empty((k, n_batch), dtype=torch.float32,
+                              device=device)
+        self.frames = [DeviceFrame(self.y[j], self.uv[j], self.u[j],
+                                   self.v[j], fmt) for j in range(k + 1)]
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in (self.y, self.uv, self.u, self.v,
+                                    self.ts))
+
+    def fill(self, chunk, ts: torch.Tensor) -> int:
+        """Copy the chunk's frames and blend positions in; returns the
+        copies enqueued."""
+        sources = [chunk[0][0]] + [f2 for _, f2, _, _ in chunk]
+        for slot, src in zip(self.frames, sources):
+            for dst, plane in ((slot.y, src.y), (slot.uv, src.uv),
+                               (slot.u, src.u), (slot.v, src.v)):
+                dst.copy_(plane)
+        self.ts.copy_(ts)
+        return 4 * len(sources) + 1
+
+
+class _GroupGraph:
+    """A group's body captured once as a CUDA graph and replayed for every
+    later group with the same key.
+
+    Warm-up: the body runs once eagerly on a side stream before capture
+    (torch.cuda.graph's rule; it also builds and loads the kernel library,
+    and the capture would refuse any host sync in the body); its launches
+    ran and stay counted.  The capture calls every kernel wrapper, which
+    counts a launch that did not run: the counters are put back, and each
+    replay adds the launches captured (`launches`, by counter).
+    `nbytes`: the device memory the capture reserved for the graph's
+    private pool (intermediates and outputs), plus the static slots;
+    `capture_s` the host seconds of warm-up and capture."""
+
+    def __init__(self, slots: _GroupSlots, body, cuts: torch.Tensor):
+        dev = slots.y.device
+        t0 = time.perf_counter()
+        self.slots = slots
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            body(slots, torch.zeros((), dtype=torch.int32, device=dev))
+            after_warm = _snapshot_counts()
+            reserved = torch.cuda.memory_reserved(dev)
+            # thread-local capture: the prefetch thread goes on uploading
+            # (its copies, event waits and page-locked allocations are
+            # not the capture's); torch.cuda.graph's device sync, garbage
+            # collection and cache flush are not needed here
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.outs = body(slots, cuts)
+            finally:
+                self.graph.capture_end()
+        cur.wait_stream(side)
+        after = _snapshot_counts()
+        _restore_counts(after_warm)
+        self.launches = [(a[0] - b[0], a[1] - b[1])
+                         for a, b in zip(after, after_warm)]
+        # the capture allocates from a private pool: the growth is its
+        # segments
+        self.nbytes = (torch.cuda.memory_reserved(dev) - reserved
+                       + slots.nbytes)
+        self.replays = 0
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self):
+        self.graph.replay()
+        self.replays += 1
+        _restore_counts([(c.kernel + n, getattr(c, "fused", 0) + f)
+                         for c, (n, f) in zip(_KERNEL_COUNTS,
+                                              self.launches)])
+
+    def kernel_launches(self) -> int:
+        """Kernel launches one replay runs (K3's fused phases are part of
+        K1's launches)."""
+        return sum(n for n, _ in self.launches)
+
+
 class InterpolationEngine:
     def __init__(self, config: Optional[EngineConfig] = None):
         self.config = config or EngineConfig()
@@ -378,8 +507,22 @@ class InterpolationEngine:
         self._pending_timing = None
         self._split_wanted = self.config.split_timing == "always"
         self._last_cut_score = None
-        self._cuts = None           # device count of folded scene cuts
+        # device count of folded scene cuts, added to in place (a captured
+        # graph adds to this tensor at every replay)
+        self._cuts = torch.zeros((), dtype=torch.int32, device=self.device)
         self._ts_cache = {}
+        # the stream uploads run on (stage), off the compute stream
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        # push_many: captured group graphs by key, least recently used
+        # first; group keys that ran once (their duration is a
+        # measurement from the second run on)
+        self._graphs: "OrderedDict[tuple, _GroupGraph]" = OrderedDict()
+        self._group_warm = set()
+        # host work of the grouped path: graphs captured, replays, copies
+        # enqueued around them (slot fills and output copy-outs), pairs
+        self.group_stats = {"captures": 0, "replays": 0, "copies": 0,
+                            "pairs": 0, "groups": 0}
 
     # ------------------------------------------------------------------ #
 
@@ -395,10 +538,40 @@ class InterpolationEngine:
 
     def stage(self, frame: Union[VideoFrame, DeviceFrame]) -> DeviceFrame:
         """Upload a host frame to the engine's device (a frame already
-        staged is returned as it is)."""
+        staged is returned as it is); safe to call from a reader thread
+        (the pipeline's prefetcher does), while another thread pushes.
+
+        On a card the copies run on the engine's copy stream without
+        blocking the host (``convert.frame_to_device``); push and push_many
+        make the compute stream wait for them on the device.  A frame with
+        a ``recycle`` hook is handed back to its pool once its copies have
+        completed, which this call waits for; their device time is then
+        recorded as ``upload_time``."""
         if isinstance(frame, DeviceFrame):
             return frame
-        return frame_to_device(frame, self.device)
+        if self._copy_stream is None:
+            return frame_to_device(frame, self.device)
+        start = None
+        if frame.recycle is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self._copy_stream)
+        staged = frame_to_device(frame, self.device, self._copy_stream)
+        if start is not None:       # frame_to_device waited for the copy
+            self.stats.add("upload_time",
+                           start.elapsed_time(staged.ready) * 1e-3)
+        return staged
+
+    def _use(self, frame: Union[VideoFrame, DeviceFrame]) -> DeviceFrame:
+        """The frame on the device, with the compute stream ordered after
+        its upload.  A host frame is uploaded here without its recycle
+        hook (``with_pts`` drops it, as the JAX engine's own upload never
+        recycles): its buffers stay the caller's, who may still pass them
+        through."""
+        if not isinstance(frame, DeviceFrame):
+            frame = self.stage(frame.with_pts(frame.pts))
+        if self.device.type == "cuda":
+            frame.wait_on(torch.cuda.current_stream(self.device))
+        return frame
 
     def _ensure_geometry(self, fmt: FrameFormat):
         if self._fmt is not None and (fmt.height, fmt.stride, fmt.width,
@@ -422,6 +595,8 @@ class InterpolationEngine:
         self._prev = None
         self._cur = None
         self._warm = False
+        self._graphs.clear()
+        self._group_warm.clear()
         self.cadence.reset()
         log.info("flow geometry: %s (pixfmt=%s, device %s)", self.geom,
                  fmt.pixfmt, self.device)
@@ -474,14 +649,15 @@ class InterpolationEngine:
                            matrix=self._fmt.matrix)
 
     def _collect_timing(self):
-        """Turn the previous pair's CUDA events into its duration, and its
-        flow/warp split when it recorded one (waits for that pair only)."""
+        """Turn the previous pair's (or group's) CUDA events into its
+        duration a pair, and its flow/warp split when it recorded one
+        (waits for that pair or group only)."""
         if self._pending_timing is None:
             return
-        start, mid, end, n_outputs = self._pending_timing
+        start, mid, end, n_outputs, pairs = self._pending_timing
         self._pending_timing = None
         end.synchronize()
-        self._record_duration(start.elapsed_time(end) * 1e-3)
+        self._record_duration(start.elapsed_time(end) * 1e-3 / pairs)
         if mid is not None:
             self._record_split(start.elapsed_time(mid) * 1e-3,
                                mid.elapsed_time(end) * 1e-3, n_outputs)
@@ -500,37 +676,21 @@ class InterpolationEngine:
     def push(self, frame: Union[VideoFrame, DeviceFrame]) -> List[OutputFrame]:
         """Process one source frame; returns the output frames due."""
         self._ensure_geometry(frame.fmt)
-        # SideBySide2 interpolates on the first source frame as well (its
-        # pair is the frame with itself)
-        plan = self.cadence.on_source_frame(
-            frame.pts, frame.nominal_fps,
-            first_frame_interpolates=(self.config.frame_output_mode
-                                      == warp_ops.SIDE_BY_SIDE_2))
-        if plan.inconsistent_detected:
-            log.warning("Inconsistent frame timings detected. Using less "
-                        "accurate frame timing method to maintain A/V sync.")
-
+        plan = self._plan(frame)
         if plan.passthrough:
-            if self.cadence.state == InterpolationState.ACTIVE \
-                    and self.cadence.source_frame_num == 1:
-                # first frame: keep it as the flow anchor
-                self._prev = self._cur
-                self._cur = self.stage(frame)
-            return [OutputFrame(frame.pts, frame.fmt, frame.y, frame.uv)]
+            return [self._passthrough(frame)]
 
         # the controller reads the previous pair's duration
         self._collect_timing()
         self.quality.update(self._last_calc_duration, self.cadence)
 
         self._prev = self._cur
-        self._cur = self.stage(frame)
+        self._cur = self._use(frame)
         f1, f2 = self._prev, self._cur
         if f1 is None:
             f1 = f2
         radius = self.quality.search_radius
         level = self._active_level()
-        geom = self._geoms[level]
-        model = self._level_models[level]
         n_out = len(plan.outputs)
         ts = self._ts_for(tuple(slot.blend for slot in plan.outputs))
         # the first pair of a geometry carries the kernel build: its
@@ -544,37 +704,25 @@ class InterpolationEngine:
             mid = torch.cuda.Event(enable_timing=True) if split else None
             start.record()
         t0 = time.perf_counter()
+        t_mid = [t0]
 
-        blurred, frac, score = _flow_stage(
-            geom, self._scale_shift, self.config.scene_detection, model,
-            f1, f2, radius, self.config.delta_scalar,
-            self.config.neighbor_bias_scalar, self._layers_for(radius),
-            self.config.subpel_flow)
-        if split and on_cuda:
-            mid.record()
-        t_mid = time.perf_counter()
-        cut = None
-        if score is not None:
-            cut = score > self.config.scene_threshold
-            self._cuts = cut.to(torch.int32) if self._cuts is None \
-                else self._cuts + cut
-        y, uv = _warp_stage(geom, self._scale_shift, self.levels,
-                            self.config.cut_policy,
-                            self.config.frame_output_mode,
-                            self.config.warp_sampling, model,
-                            (f1.y, f1.uv, f2.y, f2.uv), blurred, cut, ts,
-                            frac)
+        def flow_done():
+            if split and on_cuda:
+                mid.record()
+            t_mid[0] = time.perf_counter()
 
+        y, uv, score = self._pair_outputs(level, radius, f1, f2, ts,
+                                          self._cuts, flow_done)
         if not timed:
             self._last_calc_duration = 0.0
         elif on_cuda:
             end.record()
-            self._pending_timing = (start, mid, end, n_out)
+            self._pending_timing = (start, mid, end, n_out, 1)
         else:
             t_end = time.perf_counter()
             self._record_duration(t_end - t0)
             if split:
-                self._record_split(t_mid - t0, t_end - t_mid, n_out)
+                self._record_split(t_mid[0] - t0, t_end - t_mid[0], n_out)
         if self.config.measure_timing:
             self.stats.add("outputs", n_out)
         self._warm = True
@@ -582,6 +730,236 @@ class InterpolationEngine:
         out_fmt = self._out_fmt()
         return [OutputFrame(slot.pts, out_fmt, y, uv, index=i)
                 for i, slot in enumerate(plan.outputs)]
+
+    def _plan(self, frame):
+        # SideBySide2 interpolates on the first source frame as well (its
+        # pair is the frame with itself)
+        plan = self.cadence.on_source_frame(
+            frame.pts, frame.nominal_fps,
+            first_frame_interpolates=(self.config.frame_output_mode
+                                      == warp_ops.SIDE_BY_SIDE_2))
+        if plan.inconsistent_detected:
+            log.warning("Inconsistent frame timings detected. Using less "
+                        "accurate frame timing method to maintain A/V sync.")
+        return plan
+
+    def _passthrough(self, frame) -> OutputFrame:
+        """The output of a frame the cadence passes through (its own
+        planes, host or device: the engine's upload of a host frame leaves
+        its buffers to the caller).  The first frame of a stream is kept
+        as the flow anchor."""
+        if self.cadence.state == InterpolationState.ACTIVE \
+                and self.cadence.source_frame_num == 1:
+            self._prev = self._cur
+            self._cur = self._use(frame)
+        return OutputFrame(frame.pts, frame.fmt, frame.y, frame.uv)
+
+    def _pair_outputs(self, level: int, radius: int, f1: DeviceFrame,
+                      f2: DeviceFrame, ts: torch.Tensor, cuts: torch.Tensor,
+                      flow_done=None):
+        """The body of one pair at the given level and radius: the flow
+        stage, the cut folded in (added in place to `cuts`, so a captured
+        graph adds at every replay), then every output of `ts`.  Returns
+        (y, uv, cut score or None); `flow_done` is called between the
+        stages (split timing).  push runs it once a pair, push_many k
+        times a group."""
+        geom, model = self._geoms[level], self._level_models[level]
+        blurred, frac, score = _flow_stage(
+            geom, self._scale_shift, self.config.scene_detection, model,
+            f1, f2, radius, self.config.delta_scalar,
+            self.config.neighbor_bias_scalar, self._layers_for(radius),
+            self.config.subpel_flow)
+        if flow_done is not None:
+            flow_done()
+        cut = None
+        if score is not None:
+            cut = score > self.config.scene_threshold
+            cuts.add_(cut)
+        y, uv = _warp_stage(geom, self._scale_shift, self.levels,
+                            self.config.cut_policy,
+                            self.config.frame_output_mode,
+                            self.config.warp_sampling, model,
+                            (f1.y, f1.uv, f2.y, f2.uv), blurred, cut, ts,
+                            frac)
+        return y, uv, score
+
+    # -- grouped dispatch (the encode path) ------------------------------
+
+    _GROUP_BUCKETS = (8, 4, 2, 1)
+    GRAPH_CACHE = 4         # captured group graphs kept, least recent out
+
+    def push_many(self, frames, group_size: int = 8) -> List[OutputFrame]:
+        """Process many source frames with pair-grouped dispatch: the
+        outputs of push(f) for every frame (the same pts and bit-identical
+        planes), with the interpolating pairs run a group of up to
+        `group_size` at a time (JAX ``engine.push_many``).
+
+        A group of k pairs copies its k + 1 frames and its blend positions
+        into static slots (``_GroupSlots``) and runs the pair body k times
+        over them: on a card as one replay of a CUDA graph captured once
+        per key (level, layers, radius, k, n_batch, mode, model, sampler,
+        pixel format, geometry; ``_GroupGraph``, the last GRAPH_CACHE
+        kept), whose outputs are then copied out on the stream (the next
+        replay overwrites the graph's own); on the CPU eagerly, in place
+        of the replay.  Groups are chunked to the sizes in _GROUP_BUCKETS;
+        pairs whose output counts differ within a group are padded to the
+        group's largest count (padded outputs computed, never emitted).
+        Passthrough frames come out in stream order, and a geometry
+        switch drains the pending pairs first.  The quality controller is
+        updated once per group, and a timed group's duration (CUDA events
+        around it, read one group later) is divided by its pair count.
+        Adds up to `group_size` source intervals of latency: an encode
+        path; playback keeps push()."""
+        outputs: List[OutputFrame] = []
+        pending = []    # (f1, f2, blends, slots) awaiting a group
+        for frame in frames:
+            if pending and self._fmt is not None and (
+                    frame.fmt.height, frame.fmt.stride, frame.fmt.width,
+                    frame.fmt.pixfmt) != (
+                    self._fmt.height, self._fmt.stride, self._fmt.width,
+                    self._fmt.pixfmt):
+                # a geometry switch resets engine state: drain the old
+                # geometry's pairs first
+                self._flush_group(pending, outputs, group_size)
+            self._ensure_geometry(frame.fmt)
+            plan = self._plan(frame)
+            if plan.passthrough:
+                # emit in stream order: queued pairs precede this frame
+                self._flush_group(pending, outputs, group_size)
+                outputs.append(self._passthrough(frame))
+                continue
+            self._prev = self._cur
+            self._cur = self._use(frame)
+            f1 = self._prev if self._prev is not None else self._cur
+            pending.append((f1, self._cur,
+                            tuple(slot.blend for slot in plan.outputs),
+                            plan.outputs))
+            if len(pending) >= group_size:
+                self._flush_group(pending, outputs, group_size)
+        self._flush_group(pending, outputs, group_size)
+        return outputs
+
+    def _flush_group(self, pending, outputs, group_size: int):
+        while pending:
+            k = next(b for b in self._GROUP_BUCKETS
+                     if b <= len(pending) and b <= max(group_size, 1))
+            chunk = pending[:k]
+            del pending[:k]
+            outputs.extend(self._dispatch_group(chunk))
+
+    def _dispatch_group(self, chunk) -> List[OutputFrame]:
+        # controller ordering mirrors push(): the previous measurement
+        # first
+        self._collect_timing()
+        self.quality.update(self._last_calc_duration, self.cadence)
+        k = len(chunk)
+        for (_, f2, _, _), (f1, _, _, _) in zip(chunk, chunk[1:]):
+            if f1 is not f2:
+                raise RuntimeError("a group's pairs must chain (each "
+                                   "pair's newer frame the next one's "
+                                   "older)")
+        n_batch = max(len(blends) for _, _, blends, _ in chunk)
+        radius = self.quality.search_radius
+        level = self._active_level()
+        fmt = self._fmt
+        key = (level, self._layers_for(radius), radius, k, n_batch,
+               self.config.frame_output_mode, self._level_models[level],
+               self.config.warp_sampling, fmt.pixfmt,
+               (fmt.height, fmt.stride, fmt.width))
+        padded = tuple(blends + (blends[-1],) * (n_batch - len(blends))
+                       for _, _, blends, _ in chunk)
+        ts = self._ts_for(padded)
+        timed = self.config.measure_timing and key in self._group_warm
+        on_cuda = self.device.type == "cuda"
+        if timed and on_cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+
+        def body(slots, cuts):
+            return [self._pair_outputs(level, radius, slots.frames[j],
+                                       slots.frames[j + 1], slots.ts[j],
+                                       cuts) for j in range(k)]
+
+        if on_cuda:
+            graph = self._graphs.pop(key, None)
+            if graph is None:
+                slots = _GroupSlots(fmt, k, n_batch, self.device)
+                self.group_stats["copies"] += slots.fill(chunk, ts)
+                graph = _GroupGraph(slots, body, self._cuts)
+                self.group_stats["captures"] += 1
+                log.info("captured a group graph %s: %d kernel launches a "
+                         "replay, %.1f MB", key, graph.kernel_launches(),
+                         graph.nbytes / 1e6)
+                if len(self._graphs) >= self.GRAPH_CACHE:
+                    # a key captured again carries a capture: untimed
+                    self._group_warm.discard(
+                        self._graphs.popitem(last=False)[0])
+            else:
+                self.group_stats["copies"] += graph.slots.fill(chunk, ts)
+            self._graphs[key] = graph
+            graph.replay()
+            self.group_stats["replays"] += 1
+            results = self._copy_out(graph.outs)
+        else:
+            slots = _GroupSlots(fmt, k, n_batch, self.device)
+            slots.fill(chunk, ts)
+            results = body(slots, self._cuts)
+        self.group_stats["groups"] += 1
+        self.group_stats["pairs"] += k
+
+        n_out = sum(len(out_slots) for _, _, _, out_slots in chunk)
+        if not timed:
+            self._last_calc_duration = 0.0
+        elif on_cuda:
+            end.record()
+            self._pending_timing = (start, None, end, n_out, k)
+        else:
+            self._record_duration((time.perf_counter() - t0) / k)
+        if self.config.measure_timing:
+            self.stats.add("outputs", n_out)
+        self._group_warm.add(key)
+        self._warm = True
+        self._last_cut_score = results[-1][2]
+        out_fmt = self._out_fmt()
+        return [OutputFrame(slot.pts, out_fmt, y, uv, index=i)
+                for (y, uv, _), (_, _, _, out_slots) in zip(results, chunk)
+                for i, slot in enumerate(out_slots)]
+
+    def _copy_out(self, outs):
+        """The graph's outputs copied out on the stream (each tensor once,
+        a tensor repeated in a list once; of the cut scores the last), so
+        that the next replay cannot overwrite frames the caller still
+        holds."""
+        copies = {}
+
+        def out(t):
+            if t is None:
+                return None
+            if id(t) not in copies:
+                copies[id(t)] = t.clone()
+            return copies[id(t)]
+
+        results = []
+        for j, (y, uv, score) in enumerate(outs):
+            if isinstance(y, torch.Tensor):
+                y, uv = out(y), out(uv)
+            else:
+                y, uv = [out(p) for p in y], [out(p) for p in uv]
+            # only the group's last cut score is read (last_cut_score)
+            results.append((y, uv, out(score) if j == len(outs) - 1
+                            else None))
+        self.group_stats["copies"] += len(copies)
+        return results
+
+    def graph_stats(self) -> List[dict]:
+        """Each captured group graph kept: its key, kernel launches a
+        replay, replays and device memory."""
+        return [{"key": key, "kernel_launches": g.kernel_launches(),
+                 "replays": g.replays, "bytes": g.nbytes,
+                 "capture_s": g.capture_s}
+                for key, g in self._graphs.items()]
 
     def flush(self) -> List[OutputFrame]:
         """End of stream: nothing is held back; reads the last pair's
@@ -597,4 +975,4 @@ class InterpolationEngine:
 
     def scene_cuts(self) -> int:
         """How many pairs so far had a scene cut folded in (host sync)."""
-        return 0 if self._cuts is None else int(self._cuts)
+        return int(self._cuts)

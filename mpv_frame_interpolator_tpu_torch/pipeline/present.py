@@ -1,7 +1,6 @@
-"""Present clock: display pacing and display-sync accounting (the port's
-copy of the JAX package's ``pipeline/present.py``, without the feedback
-statistics -- refresh estimate and jitter -- that the port does not
-report yet).
+"""Present clock: display pacing, display-sync accounting and the
+presentation feedback statistics (the port's copy of the JAX package's
+``pipeline/present.py``).
 
 Host-side analog of the reference's VO timing machinery:
 
@@ -59,6 +58,18 @@ class PresentClock:
         self._pts0: Optional[float] = None
         self._vsync_error = 0.0   # sub-vsync drift accumulator (video.c:868)
 
+    def get_display_fps(self) -> float:
+        """mp_stream_info.get_display_fps analog (filters/filter.h:400-414)."""
+        return self.display_fps
+
+    def reset(self):
+        """Re-anchor the vblank grid at the next present (seek, resume)."""
+        self._t0 = None
+        self._vsync_index = -1
+        self._last_pts = None
+        self._pts0 = None
+        self._vsync_error = 0.0
+
     def present(self, pts: float) -> PresentInfo:
         """Schedule one output frame carrying content timestamp `pts`.
 
@@ -112,3 +123,29 @@ class PresentClock:
         self._flips.append((now2, slot))
         self.presented += 1
         return PresentInfo(slot, num_vsyncs, target, late, dropped)
+
+    # --- presentation feedback statistics (vo.c:416-530 analog) ---------
+
+    def estimated_display_fps(self) -> float:
+        """Vsyncs elapsed / time elapsed over the flip ring -- the vblank
+        rate, NOT the frame rate (frames holding num_vsyncs > 1 advance
+        the slot counter accordingly, vo.c:481-530)."""
+        if len(self._flips) < 10:
+            return self.display_fps
+        (t0, s0), (t1, s1) = self._flips[0], self._flips[-1]
+        if t1 <= t0 or s1 <= s0:
+            return self.display_fps
+        return (s1 - s0) / (t1 - t0)
+
+    def vsync_jitter(self) -> float:
+        """Stddev of PER-VSYNC flip intervals (vo.c vsync_jitter analog);
+        intervals spanning multiple vblanks are normalized by their slot
+        distance first."""
+        if len(self._flips) < 3:
+            return 0.0
+        flips = list(self._flips)
+        ivals = [(tb - ta) / max(sb - sa, 1)
+                 for (ta, sa), (tb, sb) in zip(flips, flips[1:])]
+        mean = sum(ivals) / len(ivals)
+        var = sum((x - mean) ** 2 for x in ivals) / len(ivals)
+        return var ** 0.5

@@ -13,6 +13,8 @@
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --model hopperq \
         --subpel-flow
     python -m mpv_frame_interpolator_tpu_torch.profile_pair --level 2
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --group 8
+    python -m mpv_frame_interpolator_tpu_torch.profile_pair --stage
 
 Stages a synthetic ``moving_box`` clip at the main path's shape (4K,
 24 -> 120 fps, radius 16 or --search-radius; 8-bit NV12, or P010 with
@@ -21,10 +23,16 @@ by default; the sub-pel option with --subpel-flow; the degradation
 ladder's rung --level N of the default ladder, 0 by default, pinned) on
 the card, pushes WARM pairs through the
 engine, then pushes PAIRS more under ``torch.profiler`` with one
-synchronise at the end.  Prints the wall per pair, the card's own time
+synchronise at the end.  With --group N the pairs go through
+``push_many`` N at a time (the warm pairs too, so each group replays a
+captured CUDA graph); with --stage the frames wait on the host in
+page-locked buffers and each is uploaded by ``engine.stage`` inside the
+profiled window (the copy stream's copies and split show in the rows).
+Prints the wall per pair, the card's own time
 per pair (the sum of every kernel's and memset's device time as CUPTI
 reports it), the share of the wall the card was busy, and the device
-time and count per pair of each kernel.  The
+time and count per pair of each kernel, and under --group the host's
+launches a pair (graph replays and copies).  The
 profiler adds host cost per launch, so the wall here is longer than an
 unprofiled run's; the device times are the card's alone.
 """
@@ -60,6 +68,26 @@ def self_device_us(evt) -> float:
     return 0.0
 
 
+def pinned_frames(frames):
+    """Host frames copied into page-locked pool buffers, each with the
+    recycle hook that hands them back."""
+    from mpv_frame_interpolator_tpu_torch.frame import VideoFrame
+    from mpv_frame_interpolator_tpu_torch.io.pinned import PinnedPool
+    pool = PinnedPool(2 * len(frames), device="cuda")
+    out = []
+    for f in frames:
+        y = pool.get(f.y.shape, f.y.dtype)
+        uv = pool.get(f.uv.shape, f.uv.dtype)
+        y[:], uv[:] = f.y, f.uv
+
+        def recycle(y=y, uv=uv):
+            pool.give_back(y)
+            pool.give_back(uv)
+
+        out.append(VideoFrame(y, uv, f.fmt, f.pts, f.nominal_fps, recycle))
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="profile_pair", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -77,6 +105,11 @@ def main(argv=None) -> int:
     p.add_argument("--level", type=int, default=0,
                    help="pin the degradation ladder's level (0 = the "
                         "configured quality, 1-3 the default rungs)")
+    p.add_argument("--group", type=int, default=1,
+                   help="push_many groups of N pairs (CUDA graph replays)")
+    p.add_argument("--stage", action="store_true",
+                   help="upload each frame (engine.stage, from page-locked "
+                        "buffers) inside the profiled window")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pair: CUDA is not available")
@@ -93,20 +126,37 @@ def main(argv=None) -> int:
         raise SystemExit(f"profile_pair: --level {args.level} is not a "
                          "level of the ladder")
     eng.quality.level = args.level
-    src = cli.make_source(cli.build_parser().parse_args(
+    group = max(args.group, 1)
+    # whole groups only: a partial group would capture a graph of its own
+    # inside the window
+    pairs = group * -(-PAIRS // group)
+    warm = WARM if group == 1 else 2 * group
+    src = list(cli.make_source(cli.build_parser().parse_args(
         ["synthetic:moving_box", "--width", str(WIDTH), "--height",
-         str(HEIGHT), "--fps", "24", "--frames", str(1 + WARM + PAIRS)]
-        + (["--p010"] if args.p010 else [])))[0]
-    staged = [eng.stage(f) for f in src]
-    for f in staged[:1 + WARM]:
-        eng.push(f)
+         str(HEIGHT), "--fps", "24", "--frames", str(1 + warm + pairs)]
+        + (["--p010"] if args.p010 else [])))[0])
+    frames = [eng.stage(f) for f in src[:1 + warm]]
+    frames += pinned_frames(src[1 + warm:]) if args.stage else \
+        [eng.stage(f) for f in src[1 + warm:]]
+
+    def push(chunk):
+        if group == 1:
+            for f in chunk:
+                eng.push(f)
+        else:
+            eng.push_many(chunk, group_size=group)
+
+    push(frames[:1 + warm])
     torch.cuda.synchronize()
+    before = dict(eng.group_stats)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in staged[1 + WARM:]:
-            eng.push(f)
+        todo = frames[1 + warm:]
+        for i in range(0, len(todo), group):
+            chunk = todo[i:i + group]
+            push([eng.stage(f) for f in chunk] if args.stage else chunk)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -123,13 +173,19 @@ def main(argv=None) -> int:
           f"{args.mode}, model {args.model}, warp_sampling "
           f"{args.warp_sampling}, subpel_flow {args.subpel_flow}, ladder "
           f"level {args.level}, levels ({args.black_level:g}, "
-          f"{args.white_level:g}): {PAIRS} pairs under the profiler")
-    print(f"wall {wall * 1e3:.3f} ms = {wall / PAIRS * 1e3:.3f} ms/pair")
-    print(f"device {device_ms:.3f} ms = {device_ms / PAIRS:.3f} ms/pair; "
+          f"{args.white_level:g}), group {group}, staged uploads in the "
+          f"window {args.stage}: {pairs} pairs under the profiler")
+    print(f"wall {wall * 1e3:.3f} ms = {wall / pairs * 1e3:.3f} ms/pair")
+    print(f"device {device_ms:.3f} ms = {device_ms / pairs:.3f} ms/pair; "
           f"busy share {device_ms / (wall * 1e3):.3f}")
+    if group > 1:
+        d = {k: eng.group_stats[k] - before[k] for k in before}
+        print(f"host launches/pair: graph replays {d['replays'] / pairs:.3f}"
+              f" + copies {d['copies'] / pairs:.3f}; graphs "
+              f"{eng.graph_stats()}")
     print("device ms/pair  launches/pair  kernel")
     for key, count, us in rows:
-        print(f"{us / 1e3 / PAIRS:14.4f}  {count / PAIRS:13.2f}  {key[:100]}")
+        print(f"{us / 1e3 / pairs:14.4f}  {count / pairs:13.2f}  {key[:100]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0

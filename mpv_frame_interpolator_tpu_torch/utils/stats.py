@@ -50,6 +50,11 @@ class StatsRegistry:
     def add(self, name: str, value: float):
         self.series(name).add(value)
 
+    def count(self, name: str) -> int:
+        """How many values `name` has had (0 if none)."""
+        s = self._series.get(name)
+        return s.count if s is not None else 0
+
     def summary(self) -> Dict[str, dict]:
         return {
             k: {"last": s.last, "mean": s.mean(),

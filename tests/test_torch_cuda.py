@@ -1009,3 +1009,180 @@ def test_engine_auto_quality_path_on_the_card_equals_the_cpu(
     assert k1 == flows
     assert (s1, k3, fused) == ((flows, flows, 0) if subpel
                                else (0, 0, flows))
+
+
+# --- the grouped path (CUDA graphs) and staged uploads ----------------------
+
+def test_k1_is_captured_in_a_cuda_graph(cuda):
+    """K1's cooperative launch inside a CUDA graph: a replay equals the
+    eager launch, and a replay on new inputs follows them."""
+    rng = np.random.default_rng(7)
+    geom = F.FlowGeometry.create(48, 80, 64)
+    ins = [_frames(rng, 48, 80, cuda) for _ in range(2)]
+    planes = [(y, uv[:, 0::2].contiguous(), uv[:, 1::2].contiguous())
+              for y, uv in ins]
+    static = [p.clone() for f in planes for p in f]
+
+    def run():
+        return F.flow(geom, *static, 8, layers=8)
+
+    eager = run()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = run()
+    g.replay()
+    _equal(captured, eager)
+    other = [_frames(rng, 48, 80, cuda) for _ in range(2)]
+    for dst, src in zip(static, [p for y, uv in other
+                                 for p in (y, uv[:, 0::2], uv[:, 1::2])]):
+        dst.copy_(src)
+    g.replay()
+    _equal(captured, run())
+
+
+GROUP_CASES = [
+    *[(m, 2, "pair", "nv12") for m in ("hopper", "hopperx", "hopperq",
+                                       "hopperxq", "blend", "repeat")],
+    *[("hopper", m, "pair", "nv12") for m in (0, 1, 3, 4, 5, 6)],
+    ("hopper", 2, "fused", "p010"), ("hopper", 2, "pallas", "nv12"),
+    ("hopperxq", 6, "pair", "p010")]
+
+
+@pytest.mark.parametrize("model,mode,sampling,pixfmt", GROUP_CASES)
+def test_push_many_replays_equal_push(cuda, model, mode, sampling, pixfmt):
+    """push_many on the card (captured CUDA graphs, replayed) equals push
+    on the card bit for bit, for every family and mode: 24 -> 60 with a
+    cut, groups of 4 and 2 pairs (two keys), each key replayed more than
+    once, every output checked only after the last replay (a graph's own
+    outputs would have been overwritten).  The counters count each
+    graph's captured launches once a replay."""
+    cfg = synthetic.SyntheticConfig(width=64, height=48, fps=24.0,
+                                    pixfmt=pixfmt, stride=80)
+    frames = list(synthetic.scene_cut(cfg, 15, cut_at=9))
+    engines = [E.InterpolationEngine(E.EngineConfig(
+        device=str(cuda), display_fps=60.0, frame_output_mode=mode,
+        model=model, auto_quality=False, initial_search_radius=8,
+        warp_sampling=sampling, black_level=16.0, white_level=235.0))
+        for _ in range(2)]
+    ref = [o for f in frames for o in engines[0].push(f)]
+    before = [(c.kernel, getattr(c, "fused", 0)) for c in E._KERNEL_COUNTS]
+    got = engines[1].push_many(frames, group_size=4)
+    torch.cuda.synchronize()
+    _same_frames(ref, got)
+    assert engines[0].scene_cuts() == engines[1].scene_cuts() > 0
+    stats = engines[1].group_stats
+    graphs = engines[1].graph_stats()
+    assert stats["captures"] == len(graphs) and stats["replays"] > len(graphs)
+    assert all(g["replays"] >= 1 and g["bytes"] > 0 for g in graphs)
+    # each replay adds its graph's captured launches; the warm-up before
+    # each capture launched the same kernels once eagerly
+    after = [(c.kernel, getattr(c, "fused", 0)) for c in E._KERNEL_COUNTS]
+    launched = sum(a[0] - b[0] for a, b in zip(after, before))
+    assert launched == sum((g["replays"] + 1) * g["kernel_launches"]
+                           for g in graphs)
+
+
+def _same_frames(ref, got):
+    """The same pts and host bytes (a passed-through frame's planes stay
+    on the host)."""
+    assert len(got) == len(ref) > 0
+    for a, b in zip(ref, got):
+        assert a.pts == b.pts
+        fa, fb = a.to_video_frame(), b.to_video_frame()
+        np.testing.assert_array_equal(fa.y, fb.y)
+        np.testing.assert_array_equal(fa.uv, fb.uv)
+
+
+def test_graph_outputs_survive_the_next_replay(cuda):
+    """Outputs of one group are copied out of the graph: replaying the
+    same graph for the next group leaves them as they were."""
+    cfg = synthetic.SyntheticConfig(width=64, height=48, fps=24.0)
+    frames = list(synthetic.moving_box(cfg, 9))
+    e = E.InterpolationEngine(E.EngineConfig(
+        device=str(cuda), display_fps=120.0, auto_quality=False,
+        initial_search_radius=8))
+    first = e.push_many(frames[:5], group_size=4)[1:]  # past the first
+    snap = [tuple(p.clone() for p in o.device_planes()) for o in first]
+    second = e.push_many(frames[5:], group_size=4)    # the same key
+    assert e.group_stats["captures"] == 1
+    assert e.group_stats["replays"] == 2
+    torch.cuda.synchronize()
+    for o, s in zip(first, snap):
+        _equal(o.device_planes(), s)
+    assert not torch.equal(first[-1].device_planes()[0],
+                           second[-1].device_planes()[0])
+
+
+def test_staged_upload_equals_synchronous_upload(cuda):
+    """engine.stage from another thread (pinned pool, copy stream, event)
+    gives the planes a synchronous upload gives, and push orders the
+    compute stream after the copies."""
+    import io as _io
+    import threading
+    from mpv_frame_interpolator_tpu_torch.io import synthetic as PS
+    from mpv_frame_interpolator_tpu_torch.io.pinned import PinnedPool
+    from mpv_frame_interpolator_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    cfg = PS.SyntheticConfig(width=640, height=368, fps=24.0)
+    buf = _io.BytesIO()
+    w = Y4MWriter(buf, 640, 368, 24.0)
+    src = list(PS.moving_box(cfg, 6))
+    for f in src:
+        w.write(f)
+    buf.seek(0)
+    pool = PinnedPool(4, device=str(cuda))
+    assert pool.pinned
+    e = E.InterpolationEngine(E.EngineConfig(
+        device=str(cuda), display_fps=60.0, auto_quality=False))
+    staged = []
+    t = threading.Thread(target=lambda: staged.extend(
+        e.stage(f) for f in Y4MReader(buf, pool=pool)))
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and len(staged) == 6
+    assert pool.stats()["hits"] > 0 and pool.stats()["lent"] == 0
+    for s, f in zip(staged, src):
+        ref = frame_to_device(f, cuda)
+        torch.cuda.synchronize()
+        s.wait_on(torch.cuda.current_stream(cuda))
+        _equal((s.y, s.uv, s.u, s.v), (ref.y, ref.uv, ref.u, ref.v))
+    assert e.stats.count("upload_time") == 6
+    ref_e = E.InterpolationEngine(E.EngineConfig(
+        device=str(cuda), display_fps=60.0, auto_quality=False))
+    for s, f in zip(staged, src):
+        _same_frames(ref_e.push(f), e.push(s))
+
+
+def test_buffers_are_recycled_only_after_their_copy(cuda):
+    """The recycle hook runs only once the frame's copies on the engine's
+    copy stream have completed (4K planes: a copy long enough to be
+    caught in flight)."""
+    from mpv_frame_interpolator_tpu_torch.frame import FrameFormat
+    from mpv_frame_interpolator_tpu_torch.frame import VideoFrame
+    from mpv_frame_interpolator_tpu_torch.io.pinned import PinnedPool
+    e = E.InterpolationEngine(E.EngineConfig(device=str(cuda)))
+    pool = PinnedPool(4, device=str(cuda))
+    fmt = FrameFormat(3840, 2160)
+    seen = []
+    for i in range(4):
+        y = pool.get((2160, 3840), np.uint8)
+        uv = pool.get((1080, 3840), np.uint8)
+        y.fill(i)
+        uv.fill(255 - i)
+
+        def recycle(y=y, uv=uv):
+            seen.append(e._copy_stream.query())
+            pool.give_back(y)
+            pool.give_back(uv)
+
+        # a long kernel ahead of the copies on the copy stream
+        with torch.cuda.stream(e._copy_stream):
+            torch.cuda._sleep(10_000_000)
+        staged = e.stage(VideoFrame(y, uv, fmt, recycle=recycle))
+        torch.cuda.synchronize()
+        assert int(staged.y[0, 0]) == i and int(staged.uv[-1, -1]) == 255 - i
+    assert seen == [True] * 4
