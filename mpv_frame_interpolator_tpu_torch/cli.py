@@ -17,6 +17,23 @@ Examples:
   python -m mpv_frame_interpolator_tpu_torch input.y4m --group 8 -o out.y4m
   python -m mpv_frame_interpolator_tpu_torch input.y4m --loop 1 --end 2.5 \
       --untimed -o out.y4m
+  python -m mpv_frame_interpolator_tpu_torch archive.mkv --untimed -o out.mkv
+  python -m mpv_frame_interpolator_tpu_torch a.y4m b.mkv --cache yes \
+      --play-direction backward --vf crop=640:360,vflip -o out.y4m
+  python -m mpv_frame_interpolator_tpu_torch mf://shots/*.png --mf-fps 24 \
+      --dump-png frames/
+  cat clip.mkv | python -m mpv_frame_interpolator_tpu_torch - -o - > out.y4m
+
+Inputs: .y4m (the native reader ring, or the Python reader under
+``--ingest python``), Matroska/WebM, AVI and MP4/MOV holding raw video,
+FFV1 v0/1, Ut Video or MJPEG (decoded by the port's native host library,
+built at first use with g++; ``--ingest python`` takes the Python
+codecs), ``mf://`` image sequences and single images, raw .mjpeg dumps,
+raw .yuv files, ``-`` (a y4m or a container on stdin), tcp/unix/http(s)
+streams, playlists and mpv EDL timelines; ffmpeg decodes anything else
+where it is installed.  Outputs: .y4m, ``-`` (y4m on stdout), .mkv
+(FFV1), ``--dump-pgm``/``--dump-png`` directories, ``--osd`` on any of
+them.
 
 The device is explicit: ``--device cuda`` (the default) needs a card and
 fails if there is none; nothing falls back to the CPU.
@@ -25,14 +42,20 @@ fails if there is none; nothing falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import io
 import json
+import os
 import sys
+import threading
 import time
+from typing import Optional
 
 import torch
 
 from mpv_frame_interpolator_tpu_torch.frame import NV12, P010
-from mpv_frame_interpolator_tpu_torch.io import sinks, synthetic, y4m
+from mpv_frame_interpolator_tpu_torch.io import (
+    cache, decode, filters, ingest, jpeg, mf, playlist, reverse, sinks,
+    stream, synthetic, y4m)
 from mpv_frame_interpolator_tpu_torch.io.pinned import PinnedPool
 from mpv_frame_interpolator_tpu_torch.models import MODELS
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
@@ -53,15 +76,23 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mpv_frame_interpolator_tpu_torch",
         description="optical-flow frame interpolation on PyTorch + CUDA")
-    p.add_argument("source",
-                   help="input: a .y4m path or synthetic:<moving_box|"
-                        "gradient_pan|noise|scene_cut>")
+    p.add_argument("source", nargs="+",
+                   help="input(s): a media path (.y4m, .mkv/.webm, .avi, "
+                        ".mp4/.mov, .mjpeg, .yuv, images, mf://...), - "
+                        "for stdin, a tcp/unix/http(s) URL or "
+                        "synthetic:<moving_box|gradient_pan|noise|"
+                        "scene_cut>; several inputs play as one gapless "
+                        "playlist, .edl inputs expand into their segments")
+    p.add_argument("--playlist", default="",
+                   help="read more entries from this file: plain lists, "
+                        "m3u/m3u8, pls or mpv EDL v0 timelines; relative "
+                        "entries resolve against its directory")
     p.add_argument("--width", type=int, default=1920,
-                   help="synthetic width")
+                   help="synthetic/raw .yuv width")
     p.add_argument("--height", type=int, default=1080,
-                   help="synthetic height")
+                   help="synthetic/raw .yuv height")
     p.add_argument("--fps", type=float, default=24.0,
-                   help="synthetic source fps")
+                   help="synthetic/raw .yuv/.mjpeg source fps")
     p.add_argument("--frames", type=int, default=96,
                    help="max source frames to process (0 = all)")
     p.add_argument("--p010", action="store_true",
@@ -119,20 +150,53 @@ def build_parser() -> argparse.ArgumentParser:
                         "interpolator family when radius alone cannot "
                         "restore real-time; empty disables)")
     p.add_argument("-o", "--output", default="",
-                   help="write outputs to a .y4m file")
+                   help="write outputs to a .y4m file, to stdout as y4m "
+                        "(-), or FFV1 in Matroska (.mkv)")
+    p.add_argument("--dump-pgm", default="",
+                   help="dump luma planes as PGM files into this directory")
+    p.add_argument("--dump-png", default="",
+                   help="dump outputs as colour PNGs into this directory")
+    p.add_argument("--osd", action="store_true",
+                   help="burn a stats line into the output frames")
     p.add_argument("--group", type=int, default=1,
                    help="encode throughput: dispatch N source pairs per "
                         "group (engine.push_many; on the card one CUDA "
                         "graph replay a group).  Adds up to N source "
                         "intervals of latency and disables pause/seek, so "
-                        "it requires -o and implies --untimed")
+                        "it requires an encode sink (-o/--dump-pgm/"
+                        "--dump-png) and implies --untimed")
     p.add_argument("--loop", type=int, default=0,
                    help="replay the source N more times after EOF "
                         "(-1 = forever; --loop-file analog; needs a "
-                        "seekable source: a .y4m file)")
+                        "seekable source)")
+    p.add_argument("--start", type=float, default=None,
+                   help="start at this source pts (seconds): a seek where "
+                        "the source can, else the frames before it are "
+                        "skipped")
     p.add_argument("--end", type=float, default=None,
                    help="stop playback at this source pts (seconds; mpv "
                         "--end analog)")
+    p.add_argument("--play-direction", default="forward",
+                   choices=("forward", "backward"),
+                   help="backward plays a seekable source last-to-first "
+                        "(chunked reverse reads); pipes spool through the "
+                        "cache first")
+    p.add_argument("--cache", default="auto", choices=("auto", "yes", "no"),
+                   help="seekable frame cache over the source (spooled to "
+                        "a temporary file); auto = only when the source "
+                        "cannot seek by itself (not for synthetic clips)")
+    p.add_argument("--ingest", default="auto",
+                   choices=("auto", "native", "python"),
+                   help="host ingest: the native library's reader rings "
+                        "(page-locked buffers on a card) and codecs "
+                        "(native), the Python readers and codecs (python), "
+                        "or native with the Python y4m reader for "
+                        "odd-sized y4m (auto)")
+    p.add_argument("--mf-fps", type=float, default=1.0,
+                   help="frame rate of mf:// image sequences")
+    p.add_argument("--vf", default="",
+                   help="host filter chain before interpolation, e.g. "
+                        "'crop=640:360,vflip,fps=24'")
     p.add_argument("--no-stage-uploads", action="store_true",
                    help="upload each frame on the engine's thread instead "
                         "of the prefetch thread")
@@ -144,24 +208,272 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_source(args):
-    """(frame iterator, width, height) for a synthetic or .y4m source."""
-    if args.source.startswith("synthetic:"):
-        name = args.source.split(":", 1)[1]
+def make_source(args, entry: Optional[str] = None):
+    """(frame iterator, width, height) of one input (default: the first
+    positional one).  Readers of files that go to a card read into
+    page-locked buffers; `--ingest python` takes the Python readers and
+    codecs, anything else the native ones."""
+    if entry is None:
+        entry = args.source[0]
+    pixfmt = P010 if args.p010 else NV12
+    use_native = args.ingest != "python"
+    if entry.startswith("mf://") or (
+            "://" not in entry and not entry.startswith("synthetic:")
+            and mf.is_image_path(entry)):
+        try:
+            rdr = mf.MFReader(entry, fps=args.mf_fps, pixfmt=pixfmt,
+                              use_native=use_native)
+        except mf.MFError as e:
+            raise SystemExit(f"cannot open image sequence {entry!r}: {e}")
+        return rdr, rdr.width, rdr.height
+    if entry.startswith("synthetic:"):
+        name = entry.split(":", 1)[1]
         gen = getattr(synthetic, name, None)
         if gen is None:
             raise SystemExit(f"unknown synthetic source {name!r}")
         cfg = synthetic.SyntheticConfig(width=args.width, height=args.height,
-                                        fps=args.fps,
-                                        pixfmt=P010 if args.p010 else NV12)
+                                        fps=args.fps, pixfmt=pixfmt)
         return gen(cfg, args.frames or 1 << 30), cfg.width, cfg.height
-    if args.source.endswith(".y4m"):
-        # page-locked read buffers when the frames go to a card
-        rdr = y4m.open_source(args.source,
-                              pool=PinnedPool(8, device=args.device))
+    if entry == "-":
+        return _stdin_source(args)
+    if stream.is_stream_url(entry):
+        return _stream_source(entry)
+    if entry.endswith(".yuv"):
+        rdr = y4m.RawYUVReader(open(entry, "rb"), args.width, args.height,
+                               args.fps, pixfmt)
+        return rdr, args.width, args.height
+    if entry.endswith((".mjpeg", ".mjpg")):
+        # raw concatenated JPEGs (an IP camera's dump); the rate is --fps
+        with open(entry, "rb") as probe:
+            head = probe.read(1 << 20)
+        first = next(jpeg.split_jpeg_stream(io.BytesIO(head).read), None)
+        if first is None:
+            raise SystemExit(f"{entry!r}: no JPEG frames found")
+        h0, w0 = jpeg.decode_jpeg_planes(first, use_native)[0].shape
+        return (jpeg.mjpeg_source(entry, fps=args.fps, use_native=use_native),
+                w0 + w0 % 2, h0 + h0 % 2)
+    if entry.endswith(".y4m"):
+        if args.ingest == "python":
+            rdr = y4m.Y4MReader(open(entry, "rb"),
+                                pool=PinnedPool(8, device=args.device))
+        elif args.ingest == "native":
+            rdr = ingest.NativeY4MSource(entry, device=args.device)
+        else:
+            rdr = ingest.open_y4m(entry, device=args.device)
         return rdr, rdr.width, rdr.height
-    raise SystemExit(f"unsupported source {args.source!r} (the port reads "
-                     ".y4m files and synthetic:<name>)")
+    kind = ingest.container_reader(entry)
+    if kind is not None:
+        err_cls = kind[1]
+        try:
+            rdr = _open_container_path(args, entry, kind[0])
+            return rdr, rdr.width, rdr.height
+        except err_cls as e:
+            # a codec no native decoder takes: ffmpeg's job
+            if not decode.have_ffmpeg():
+                raise SystemExit(f"cannot open {entry!r}: {e}")
+            log.info("native %s demux declined (%s); using ffmpeg",
+                     kind[2], e)
+    if not decode.have_ffmpeg():
+        raise SystemExit(f"cannot open {entry!r}: the port reads .y4m, "
+                         ".yuv, .mjpeg, images and MKV/MP4/AVI with raw "
+                         "video, FFV1, Ut Video or MJPEG; anything else "
+                         "needs ffmpeg, which is not installed")
+    return decode.ffmpeg_source(entry, pixfmt), args.width, args.height
+
+
+def _open_container_path(args, path: str, reader_cls):
+    if args.ingest == "python":
+        return reader_cls(path, use_native=False)
+    # raw video through the native indexed ring, compressed video
+    # through the reader's native decoders
+    return ingest.open_container(path, device=args.device)
+
+
+def _stdin_source(args):
+    """A y4m stream or a container piped on stdin."""
+    raw = sys.stdin.buffer.raw
+    # sniff the pipe: EBML / ISO-BMFF / RIFF-AVI magic means a piped
+    # container (spooled to a file for the indexed readers); anything
+    # else is y4m
+    magic = b""
+    while len(magic) < 12:
+        chunk = raw.read(12 - len(magic))
+        if not chunk:
+            break
+        magic += chunk
+    is_ebml = magic.startswith(b"\x1aE\xdf\xa3")
+    is_mp4 = len(magic) >= 8 and magic[4:8] == b"ftyp"
+    is_avi = (len(magic) >= 12 and magic[:4] == b"RIFF"
+              and magic[8:12] == b"AVI ")
+    if is_ebml or is_mp4 or is_avi:
+        path = _spool_stdin_container(
+            raw, magic, ".mkv" if is_ebml else ".avi" if is_avi else ".mp4")
+        reader_cls, err_cls, name = ingest.container_reader(path)
+        try:
+            rdr = _open_container_path(args, path, reader_cls)
+        except err_cls as e:
+            raise SystemExit(f"cannot open piped {name}: {e}")
+        return rdr, rdr.width, rdr.height
+    if args.ingest != "python":
+        # the C++ ring reads an fd directly (no buffered layer stealing
+        # bytes); the sniffed magic is replayed through a feeder pipe.
+        # Pipes stream, they just cannot seek.
+        rdr = ingest.NativeY4MSource(_replay_fd(magic, raw),
+                                     device=args.device)
+    else:
+        rdr = y4m.Y4MReader(io.BufferedReader(
+            io.FileIO(_replay_fd(magic, raw), "rb")),
+            pool=PinnedPool(8, device=args.device))
+    return rdr, rdr.width, rdr.height
+
+
+def _stream_source(url: str):
+    """A tcp/unix/http(s) stream: y4m, or a container over http(s) with
+    byte-range seeking."""
+    from urllib.parse import urlparse
+    upath = urlparse(url).path
+    kind = ingest.container_reader(upath)
+    if kind is not None and url.startswith("http"):
+        fh = stream.open_http_file(url)
+        if fh is None:
+            raise SystemExit(
+                f"{url!r}: server lacks byte-range support; containers "
+                "need it (serve as .y4m to stream instead)")
+        rdr = kind[0](fh)
+        return rdr, rdr.width, rdr.height
+    rdr = y4m.Y4MReader(stream.open_stream(url))
+    return rdr, rdr.width, rdr.height
+
+
+def _spool_stdin_container(raw, magic: bytes, suffix: str) -> str:
+    """A piped container spooled to a temporary file (removed at exit),
+    so the indexed readers can serve it: the demux cache's
+    make-pipes-seekable move, done at the byte layer because a container
+    index needs random access."""
+    import atexit
+    import shutil
+    import tempfile
+    tf = tempfile.NamedTemporaryFile(suffix=suffix, delete=False)
+    tf.write(magic)
+    shutil.copyfileobj(raw, tf)
+    tf.close()
+    atexit.register(lambda: os.path.exists(tf.name) and os.unlink(tf.name))
+    log.info("spooled piped container to %s", tf.name)
+    return tf.name
+
+
+def _replay_fd(first: bytes, src) -> int:
+    """Read end of a pipe that replays `first` then pumps `src` (hands
+    sniffed stdin bytes back to fd-level readers)."""
+    r, w = os.pipe()
+
+    def pump():
+        try:
+            data = first
+            while data:
+                os.write(w, data)
+                data = src.read(1 << 16) or b""
+        except OSError:
+            pass
+        finally:
+            os.close(w)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return r
+
+
+def open_entries(args):
+    """The playlist's entries (positional inputs, --playlist, .edl
+    segments) opened as one source: (source, width, height)."""
+    entries = list(args.source)
+    if args.playlist:
+        try:
+            entries.extend(playlist.parse_playlist(args.playlist))
+        except OSError as e:
+            raise SystemExit(f"cannot read playlist {args.playlist!r}: {e}")
+        except ValueError as e:
+            raise SystemExit(f"bad playlist {args.playlist!r}: {e}")
+    expanded = []
+    for e in entries:
+        if isinstance(e, str) and e.lower().endswith(".edl"):
+            try:
+                expanded.extend(playlist.parse_playlist(e))
+            except (OSError, ValueError) as err:
+                raise SystemExit(f"bad EDL {e!r}: {err}")
+        else:
+            expanded.append(e)
+    if len(expanded) == 1 and not isinstance(expanded[0],
+                                             playlist.EDLEntry):
+        return make_source(args, expanded[0])
+
+    def open_entry(entry):
+        if isinstance(entry, playlist.EDLEntry):
+            return playlist.ClipSource(make_source(args, entry.path)[0],
+                                       entry.start, entry.length)
+        return make_source(args, entry)[0]
+
+    source = playlist.ChainedSource(expanded, open_entry)
+    log.info("playlist: %d entries, %dx%d timeline", len(expanded),
+             source.width, source.height)
+    return source, source.width, source.height
+
+
+def source_options(args, source):
+    """--cache, --play-direction and --start around the opened source.
+    ``--cache auto`` caches a source that cannot seek by itself (a pipe,
+    a stream), but not a synthetic clip, which is generated, not read."""
+    seekable = (hasattr(source, "seek_pts")
+                and getattr(source, "seekable", lambda: False)())
+    generated = all(isinstance(e, str) and e.startswith("synthetic:")
+                    for e in args.source) and not args.playlist
+    if args.cache == "yes" or (args.cache == "auto" and not seekable
+                               and not generated):
+        source = cache.CachedSource(source)
+        log.info("seekable frame cache enabled")
+    if args.play_direction == "backward":
+        if args.start is not None:
+            log.warning("--start is ignored with --play-direction=backward")
+        try:
+            return reverse.ReversedSource(source)
+        except reverse.ReverseError as e:
+            raise SystemExit(f"--play-direction=backward: {e}")
+    if args.start:
+        if (hasattr(source, "seek_pts")
+                and getattr(source, "seekable", lambda: False)()):
+            actual = source.seek_pts(args.start)
+            log.info("seeked source to %.3fs (requested %.3fs)", actual,
+                     args.start)
+        else:
+            source = _skip_until(source, args.start)
+    return source
+
+
+def _skip_until(src, t0: float):
+    for f in src:
+        if f.pts >= t0 - 1e-9:
+            yield f
+        elif f.recycle is not None:
+            f.recycle()
+
+
+def make_sink(args, width: int, height: int, engine):
+    pixfmt = P010 if args.p010 else NV12
+    if args.output == "-":
+        sink = sinks.Y4MFileSink(sys.stdout.buffer, width, height,
+                                 args.display_fps, pixfmt)
+    elif args.output.lower().endswith((".mkv", ".mka")):
+        sink = sinks.FFV1MKVSink(args.output, width, height,
+                                 args.display_fps, pixfmt)
+    elif args.output:
+        sink = sinks.Y4MFileSink(args.output, width, height,
+                                 args.display_fps, pixfmt)
+    elif args.dump_pgm:
+        sink = sinks.PgmDumpSink(args.dump_pgm)
+    elif args.dump_png:
+        sink = sinks.PngDumpSink(args.dump_png)
+    else:
+        sink = sinks.NullSink()
+    return sinks.OsdSink(sink, engine) if args.osd else sink
 
 
 def main(argv=None) -> int:
@@ -182,11 +494,16 @@ def main(argv=None) -> int:
             raise SystemExit(f"unknown mode {args.mode!r}")
 
     group = max(args.group, 1)
-    if group > 1 and not args.output:
-        raise SystemExit("--group requires -o: grouped dispatch buffers N "
-                         "source intervals, which realtime playback cannot "
-                         "absorb")
-    source, width, height = make_source(args)
+    if group > 1 and not (args.output or args.dump_pgm or args.dump_png):
+        raise SystemExit("--group requires an encode sink (-o/--dump-pgm/"
+                         "--dump-png): grouped dispatch buffers N source "
+                         "intervals, which realtime playback cannot absorb")
+    source, width, height = open_entries(args)
+    opened = [source]
+    source = source_options(args, source)
+    opened.append(source)
+    if args.vf:
+        source = filters.apply_chain(filters.parse_chain(args.vf), source)
     engine = InterpolationEngine(EngineConfig(
         display_fps=args.display_fps,
         frame_output_mode=mode,
@@ -213,9 +530,7 @@ def main(argv=None) -> int:
         device=args.device))
     if args.speed != 1.0:
         engine.set_speed(args.speed)
-    sink = (sinks.Y4MFileSink(args.output, width, height, args.display_fps,
-                              P010 if args.p010 else NV12)
-            if args.output else sinks.NullSink())
+    sink = make_sink(args, width, height, engine)
     present = None
     if not args.no_present and group == 1:
         present = PresentClock(args.display_fps, untimed=args.untimed)
@@ -225,7 +540,12 @@ def main(argv=None) -> int:
     pipe.end_pts = args.end
 
     t0 = time.perf_counter()
-    n = pipe.run(max_source_frames=args.frames or None)
+    try:
+        n = pipe.run(max_source_frames=args.frames or None)
+    finally:
+        for src in opened:
+            if hasattr(src, "close"):
+                src.close()
     dt = time.perf_counter() - t0
     summary = engine.stats.summary()
     s = summary.get("source_frame_time", {})

@@ -59,6 +59,11 @@ class FrameFormat:
     def bit_depth(self) -> int:
         return 8 if self.pixfmt == NV12 else 10
 
+    @property
+    def max_value(self) -> int:
+        # P010 carries its 10-bit payload in the top bits of 16-bit words
+        return 255 if self.pixfmt == NV12 else 65535
+
     def luma_shape(self):
         return (self.height, self.stride)
 
@@ -93,6 +98,11 @@ class VideoFrame:
     def with_pts(self, pts: float) -> "VideoFrame":
         return VideoFrame(self.y, self.uv, self.fmt, pts, self.nominal_fps)
 
+    def copy(self) -> "VideoFrame":
+        """A frame that owns copies of the planes (no recycle hook)."""
+        return VideoFrame(self.y.copy(), self.uv.copy(), self.fmt, self.pts,
+                          self.nominal_fps)
+
 
 def split_chroma(uv: np.ndarray):
     """NV12 interleaved UV -> planar (u, v), each (H/2, stride/2)."""
@@ -105,3 +115,23 @@ def interleave_chroma(u: np.ndarray, v: np.ndarray) -> np.ndarray:
     uv[:, 0::2] = u
     uv[:, 1::2] = v
     return uv
+
+
+def psnr(a: VideoFrame, b: VideoFrame, plane: str = "y") -> float:
+    """PSNR between two frames' planes (over the encoded width only)."""
+    if a.fmt.pixfmt != b.fmt.pixfmt:
+        raise ValueError(f"psnr of a {a.fmt.pixfmt} and a {b.fmt.pixfmt} "
+                         "frame")
+    w = min(a.fmt.width, b.fmt.width)
+    if plane == "y":
+        pa, pb = a.y[:, :w], b.y[:, :w]
+    else:
+        pa, pb = a.uv[:, :w], b.uv[:, :w]
+    return psnr_arrays(pa, pb, a.fmt.max_value)
+
+
+def psnr_arrays(pa: np.ndarray, pb: np.ndarray, peak: float) -> float:
+    mse = np.mean((pa.astype(np.float64) - pb.astype(np.float64)) ** 2)
+    if mse == 0:
+        return float("inf")
+    return float(10.0 * np.log10(peak * peak / mse))

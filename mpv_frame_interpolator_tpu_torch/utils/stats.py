@@ -50,6 +50,11 @@ class StatsRegistry:
     def add(self, name: str, value: float):
         self.series(name).add(value)
 
+    def last(self, name: str) -> float:
+        """The latest value of `name` (0 if none)."""
+        s = self._series.get(name)
+        return s.last if s is not None else 0.0
+
     def count(self, name: str) -> int:
         """How many values `name` has had (0 if none)."""
         s = self._series.get(name)

@@ -1186,3 +1186,63 @@ def test_buffers_are_recycled_only_after_their_copy(cuda):
         torch.cuda.synchronize()
         assert int(staged.y[0, 0]) == i and int(staged.uv[-1, -1]) == 255 - i
     assert seen == [True] * 4
+
+
+# --- the native ingest rings (page-locked buffers) -------------------------
+
+@pytest.mark.parametrize("container", ["y4m", "mkv"])
+def test_native_ring_fills_page_locked_buffers(cuda, tmp_path, container):
+    """The C++ reader rings (y4m, and the indexed ring over a raw MKV)
+    read into page-locked buffers when the frames go to the card; the
+    engine's upload hands each frame back only once its copies have
+    completed (a long kernel ahead of them on the copy stream), and the
+    uploaded planes are the Python reader's."""
+    from mpv_frame_interpolator_tpu_torch.io import ingest
+    from mpv_frame_interpolator_tpu_torch.io import synthetic as PS
+    from mpv_frame_interpolator_tpu_torch.io.mkv import MKVWriter
+    from mpv_frame_interpolator_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    w, h, n = 1920, 1080, 6
+    src = list(PS.moving_box(PS.SyntheticConfig(width=w, height=h), n))
+    path = str(tmp_path / f"in.{container}")
+    with open(path, "wb") as fh:
+        if container == "y4m":
+            wr = Y4MWriter(fh, w, h, 24.0)
+            for f in src:
+                wr.write(f)
+        else:
+            wr = MKVWriter(fh, w, h, 24.0, codec_id="V_UNCOMPRESSED")
+            for f in src:       # no colour space: I420 payloads
+                wr.add(f.y.tobytes()
+                       + np.ascontiguousarray(f.uv[:, 0::2]).tobytes()
+                       + np.ascontiguousarray(f.uv[:, 1::2]).tobytes())
+            wr.close()
+    if container == "y4m":
+        ring = ingest.NativeY4MSource(path, device=str(cuda))
+    else:
+        ring = ingest.open_container(path, device=str(cuda))
+        assert isinstance(ring, ingest.NativeIndexedSource)
+    assert ring.stats()["pinned"]
+    e = E.InterpolationEngine(E.EngineConfig(device=str(cuda)))
+    seen = []
+    staged = []
+    for f in ring:
+        assert torch.from_numpy(f.y).is_pinned()
+        assert torch.from_numpy(f.uv).is_pinned()
+        hook = f.recycle
+
+        def recycle(hook=hook):
+            seen.append(e._copy_stream.query())
+            hook()
+
+        f.recycle = recycle
+        with torch.cuda.stream(e._copy_stream):
+            torch.cuda._sleep(10_000_000)
+        staged.append(e.stage(f))
+    ring.close()
+    torch.cuda.synchronize()
+    assert seen == [True] * n
+    assert ring.stats()["recycled"] == n
+    for s, f in zip(staged, src):
+        ref = frame_to_device(f, cuda)
+        torch.cuda.synchronize()
+        _equal((s.y, s.uv), (ref.y, ref.uv))

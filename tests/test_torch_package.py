@@ -543,3 +543,104 @@ def test_y4m_reader_copy_rejects_what_the_original_rejects():
         for mod in (jax_y4m, port_y4m):
             with pytest.raises(ValueError):
                 mod.Y4MReader(io.BytesIO(header))
+
+
+# --- the native host library (native/*.cpp, built at first use) -------------
+
+def test_native_library_builds_from_its_own_sources(tmp_path, monkeypatch):
+    from mpv_frame_interpolator_tpu_torch import native
+    assert native.NATIVE_DIR == REPO / "mpv_frame_interpolator_tpu_torch" \
+        / "native"
+    cmd = native.command("g++", Path("/tmp/_mfi_native.so"))
+    sources = [Path(a) for a in cmd if a.endswith(".cpp")]
+    assert all(s.parent == native.NATIVE_DIR and s.exists()
+               for s in sources)
+    assert sorted(s.name for s in sources) == sorted(
+        p.name for p in native.NATIVE_DIR.glob("*.cpp"))
+    assert cmd[0] == "g++" and cmd[-2:] == ["-o", "/tmp/_mfi_native.so"]
+    for flag in ("-O3", "-std=c++17", "-Wall", "-pthread", "-shared",
+                 "-fPIC", f"-I{native.python_include()}"):
+        assert flag in cmd
+    # one directory per hash of the sources and the command line
+    d = native.build_dir()
+    assert d.parent == native.BUILD_ROOT
+    assert native.BUILD_ROOT.parts[-2:] == ("build", "mfi_torch_native")
+    assert d == native.build_dir() != native.build_dir("clang++")
+    copy = tmp_path / "native"
+    copy.mkdir()
+    for s in sources:
+        (copy / s.name).write_bytes(s.read_bytes())
+    monkeypatch.setattr(native, "NATIVE_DIR", copy)
+    assert native.build_dir() == d
+    with open(copy / "ffv1.cpp", "a") as fh:
+        fh.write("\n")
+    assert native.build_dir() != d
+
+
+_IMPORT_BUILDS_NOTHING = r"""
+import pkgutil, subprocess, sys
+import torch
+calls = []
+real = subprocess.Popen.__init__
+
+
+def spy(self, *a, **k):
+    calls.append(a[0] if a else k.get("args"))
+    return real(self, *a, **k)
+
+
+subprocess.Popen.__init__ = spy
+import mpv_frame_interpolator_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if not m.name.endswith("__main__"):
+        __import__(m.name)
+from mpv_frame_interpolator_tpu_torch import native
+from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
+assert calls == [], calls
+assert native.load.cache_info().currsize == 0
+assert _build.load.cache_info().currsize == 0
+assert not [m for m in sys.modules if m.endswith("_mfi_native")]
+print("NOTHING BUILT")
+"""
+
+
+def test_importing_the_port_builds_nothing():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_BUILDS_NOTHING],
+                          env=env, capture_output=True, text=True,
+                          timeout=300, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("NOTHING BUILT")
+
+
+def test_a_failed_native_build_raises(tmp_path, monkeypatch):
+    """The compiler pointed at /bin/false: the build raises with the
+    command, no library appears, and nothing falls back to the Python
+    codecs -- they run only where the caller asks for them."""
+    from mpv_frame_interpolator_tpu_torch import native
+    from mpv_frame_interpolator_tpu_torch.io import ffv1, jpeg, utvideo
+    with pytest.raises(native.NativeBuildError, match="/bin/false"):
+        native.build("/bin/false", root=tmp_path)
+    assert list(tmp_path.iterdir()) == []
+    monkeypatch.setenv("CXX", "/bin/false")
+    assert native.compiler() == "/bin/false"
+    with pytest.raises(native.NativeBuildError):
+        native.build(root=tmp_path / "env")
+
+    def broken():
+        raise native.NativeBuildError("no library")
+
+    monkeypatch.setattr(native, "load", broken)
+    with pytest.raises(native.NativeBuildError):
+        ffv1.FFV1Decoder(16, 16)
+    with pytest.raises(native.NativeBuildError):
+        jpeg.decode_jpeg_planes(b"\xff\xd8")
+    with pytest.raises(native.NativeBuildError):
+        utvideo.decode_planes(b"", "ULY0", 16, 16, 1)
+    with pytest.raises(native.NativeBuildError):
+        native.interleave_chroma_into(np.zeros((2, 2), np.uint8),
+                                      np.zeros((2, 2), np.uint8),
+                                      np.zeros((2, 4), np.uint8))
+    ffv1.FFV1Decoder(16, 16, use_native=False)     # the plain version
