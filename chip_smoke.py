@@ -100,7 +100,29 @@ Phases (any failure raises and exits non-zero):
    the CPU byte for byte (a cached playlist, backward play, --start, a
    --vf chain, Ut Video in Matroska); K1 and K2 once a pair, no engine
    failure, no plain version; each 4K run's wall split a pair and the
-   native FFV1 ms of one 4K frame.
+   native FFV1 ms of one 4K frame;
+17. the control surfaces on the card at 4K 24 -> 120, radius 16: (1) a
+   property script through api.Player (output mode 2 -> 0 -> 3 -> 2,
+   levels 16/235, both scalars, radius 16 -> 5 -> 16, model hopper ->
+   hopperx -> hopper, scene threshold, max-calc-res 270 -> 135 -> 270),
+   every output equal to a fresh engine built at that pair's settings,
+   each change taking effect at the next pair, the engine's stats log a
+   line a timed pair; (2) the same script under push_many in groups of
+   4 and 8 (the changes between groups, each a new captured graph),
+   equal to push; the calc ms a pair with the IPC and applet threads
+   polling against without them; (3) the CLI on a 4K y4m file with
+   --ipc-server, --applet-fifo, --profile-dir and
+   --save-position-on-quit, a client reading properties and telemetry,
+   pausing, resuming, taking a screenshot, sending an applet code and
+   quit-watch-later: a whole y4m, a PNG, no engine or control failure,
+   K1's and K2's rows in the trace, and a second run resuming at the
+   saved position with the bytes of a --start run there; (4) --config
+   examples/mfi.conf --profile=baseline-3 / -4 (the 4K profiles): the
+   bytes of the flags written out.
+
+The 4K synthetic CLI runs of phases 5-11 pass ``--cache no``: under
+``--cache auto`` a synthetic clip, which cannot seek, is spooled to a
+temporary file.
 
 On every path but the sub-pel one the blur runs inside K1's launch once
 a pair and K3's standalone kernel never, G1 runs only on the "pallas"
@@ -122,10 +144,12 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1135,11 +1159,14 @@ def run_cli(dev, frames: int, extra):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out.y4m")
         stats_path = os.path.join(tmp, "stats.json")
+        # --cache no: `--cache auto` would spool the synthetic clip (it
+        # cannot seek), a 4K frame written to a temporary file each
         argv = ["synthetic:moving_box", "--width", str(W4K), "--height",
                 str(H4K), "--fps", "24", "--frames", str(frames),
                 "--display-fps", "120", "--search-radius", "16",
-                "--no-auto-quality", "--untimed", "--device", str(dev),
-                "-o", out, "--dump-stats", stats_path, *extra]
+                "--no-auto-quality", "--untimed", "--cache", "no",
+                "--device", str(dev), "-o", out, "--dump-stats", stats_path,
+                *extra]
         for c in counts.values():
             c.reset()
         t0 = time.perf_counter()
@@ -1289,15 +1316,17 @@ def phase_subpel_path(dev):
     return launches
 
 
-def _same_outputs(a, b) -> bool:
-    """Whether two engines' outputs of one pair are equal, on the card."""
+def _same_outputs(a, b, pts_tol: float = 0.0) -> bool:
+    """Whether two engines' outputs of one pair are equal, on the card
+    (their pts within `pts_tol`: an engine that starts mid-stream sums
+    its output pts from another origin)."""
     if len(a) != len(b):
         return False
     for x, y in zip(a, b):
         for p, q in zip(x.device_planes(), y.device_planes()):
             if p.dtype == torch.uint16:
                 p, q = p.view(torch.int16), q.view(torch.int16)
-            if x.pts != y.pts or not torch.equal(p, q):
+            if abs(x.pts - y.pts) > pts_tol or not torch.equal(p, q):
                 return False
     return True
 
@@ -1395,12 +1424,13 @@ def phase_ladder(dev):
         dev_ms = sum(self_device_us(x) for x in prof.key_averages()) / 1e3
         k1 = counts["flow_step"].kernel
         geom = e._geoms[level]
-        log(f"  level {level} radius {radius} ({e._level_models[level]}, "
+        model = e._model_for(level, e._knobs())
+        log(f"  level {level} radius {radius} ({model}, "
             f"calc {geom.low_h}x{geom.low_w} rs {geom.res_scalar}, "
             f"{geom.iterations} iterations): device "
             f"{dev_ms / pairs:.4f} ms a pair, K1 {k1 / pairs:g} a pair, "
             f"launches {({k: c.kernel for k, c in counts.items() if c.kernel})}")
-        check(k1 == (0 if e._level_models[level] == "blend" else pairs),
+        check(k1 == (0 if model == "blend" else pairs),
               f"level {level}: K1 launched {k1} times in {pairs} pairs")
         check(not any(c.plain for c in counts.values()),
               f"level {level}: a plain version ran")
@@ -2016,6 +2046,473 @@ def phase_sources_sinks(dev):
               f"{same}")
 
 
+# the property script of phase 17: (source-frame index, [(property,
+# value)]) set through api.Player just before that frame; eight frames
+# between changes, so push_many's groups of 4 and 8 fall between them
+CONTROL_SCRIPT = [
+    (8, [("frame-output-mode", 0)]),
+    (16, [("frame-output-mode", 3), ("black-level", 16),
+          ("white-level", 235)]),
+    (24, [("frame-output-mode", 2), ("delta-scalar", 4),
+          ("neighbor-bias-scalar", 2), ("search-radius", 5)]),
+    (32, [("search-radius", 16), ("model", "hopperx")]),
+    (40, [("model", "hopper"), ("scene-threshold", 0.0)]),
+    (48, [("max-calc-res", 135), ("scene-threshold", 28.0)]),
+    (56, [("max-calc-res", 270)]),
+]
+CONTROL_FRAMES = 64
+# the properties whose change shows in the outputs of any clip
+VISIBLE = ("frame-output-mode", "black-level", "white-level",
+           "scene-threshold")
+
+
+def _static_config(player, dev):
+    """The EngineConfig of a fresh engine at the player's live settings."""
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
+    g = player.get_property
+    return EngineConfig(
+        display_fps=120.0, auto_quality=False, measure_timing=False,
+        frame_output_mode=g("frame-output-mode"),
+        black_level=g("black-level"), white_level=g("white-level"),
+        delta_scalar=g("delta-scalar"),
+        neighbor_bias_scalar=g("neighbor-bias-scalar"),
+        initial_search_radius=g("search-radius"), model=g("model"),
+        max_calc_res=g("max-calc-res"),
+        scene_detection=g("scene-detection"),
+        scene_threshold=g("scene-threshold"), device=str(dev))
+
+
+def _interpolated(outs) -> bool:
+    """Whether a push's outputs are interpolated (on the engine's device),
+    not a source frame passed through (host planes)."""
+    return bool(outs) and isinstance(outs[0].device_planes()[0],
+                                     torch.Tensor)
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def control_script_push(dev, frames, stats_log: str):
+    """Check 1: the script through api.Player (push).  Each segment of
+    constant settings is held against a fresh engine built at them and
+    fed from the frame before the segment (the flow anchor; after a
+    max-calc-res change the engine derives its geometry again and starts
+    anew from the segment's first frame, as the fresh one does): every
+    interpolated output equal; the first pair after each change equal to
+    the new settings' engine and, where the change shows in the picture,
+    different from the old settings' engine.  Returns the outputs a
+    frame, the host ms of each push (synchronised) and the pairs each
+    change took to land."""
+    from mpv_frame_interpolator_tpu_torch.api import Player
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
+        EngineConfig, InterpolationEngine)
+    player = Player(EngineConfig(
+        display_fps=120.0, auto_quality=False, initial_search_radius=16,
+        stats_log_path=stats_log, device=str(dev)))
+    changes = dict(CONTROL_SCRIPT)
+    outs, ms = [], []
+    static = old = None
+    landed, differs, compared = [], [], 0
+    for i, f in enumerate(frames):
+        before = None
+        if i == 0 or i in changes:
+            for name, value in changes.get(i, []):
+                player.set_property(name, value)
+            old = static
+            static = InterpolationEngine(_static_config(player, dev))
+            regeom = any(n == "max-calc-res" for n, _ in changes.get(i, []))
+            if i > 0 and not regeom:
+                static.push(frames[i - 1])
+            first = i
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = player.feed(f)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want = static.push(f)
+        outs.append(got)
+        if old is not None:
+            before = old.push(f)
+            if i > first:
+                old = None
+        if not _interpolated(got):
+            check(not _interpolated(want),
+                  f"frame {i}: passed through, the static engine did not")
+            continue
+        check(_same_outputs(got, want, 1e-9),
+              f"frame {i}: the outputs differ from a fresh engine at its "
+              f"settings {changes.get(first, '(initial)')}")
+        compared += 1
+        if first > 0 and i == next(j for j in range(first, i + 1)
+                                   if _interpolated(outs[j])):
+            # the change's first pair: as the new settings; against the
+            # old settings' pair where the change shows in any picture (a
+            # mode, the levels, the cut threshold: the clip's small
+            # motion can leave the flow's knobs without a visible effect)
+            landed.append(i)
+            if any(n in VISIBLE for n, _ in changes[first]):
+                differs.append(_interpolated(before)
+                               and not _same_outputs(got, before, 1e-9))
+    player.engine.flush()
+    with open(stats_log) as fh:
+        lines = fh.read().splitlines()
+    timed = player.engine.stats.count("source_frame_time")
+    check(len(lines) == timed > 0 and all(float(x) > 0 for x in lines),
+          f"the stats log holds {len(lines)} lines for {timed} timed pairs")
+    check(len(landed) == len(CONTROL_SCRIPT) and len(differs) == 5
+          and all(differs), f"changes landed at {landed}; against the old "
+          f"settings the first pair differed: {differs}")
+    return outs, ms, landed, compared, timed
+
+
+def control_script_groups(dev, frames, ref, group: int):
+    """Check 2: the same script under push_many, a call per group with
+    the changes between calls; every output equal to push's.  Returns
+    (host ms of each call, synchronised, and whether it captured)."""
+    from mpv_frame_interpolator_tpu_torch.api import Player
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
+    player = Player(EngineConfig(
+        display_fps=120.0, auto_quality=False, initial_search_radius=16,
+        measure_timing=False, device=str(dev)))
+    e = player.engine
+    changes = dict(CONTROL_SCRIPT)
+    calls = []
+    got = []
+    for a in range(0, len(frames), group):
+        for name, value in changes.get(a, []):
+            player.set_property(name, value)
+        captures = e.group_stats["captures"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        got += e.push_many(frames[a:a + group], group_size=group)
+        _sync(dev)
+        calls.append(((time.perf_counter() - t0) * 1e3,
+                      e.group_stats["captures"] > captures))
+    flat = [o for outs in ref for o in outs]
+    check(len(got) == len(flat), f"push_many group {group}: {len(got)} "
+          f"outputs, push {len(flat)}")
+    for j, (x, y) in enumerate(zip(got, flat)):
+        check(x.pts == y.pts and (
+            not isinstance(y.device_planes()[0], torch.Tensor)
+            or _same_outputs([x], [y])),
+            f"push_many group {group}: output {j} differs from push's")
+    return calls, e.group_stats
+
+
+def control_calc_with_polling(dev, frames):
+    """Calc ms a pair (the engine's CUDA events) of the same pairs without
+    and then with an IPC client and the applet's status reader polling
+    every millisecond."""
+    from mpv_frame_interpolator_tpu_torch.api import Player
+    from mpv_frame_interpolator_tpu_torch.control.applet import AppletServer
+    from mpv_frame_interpolator_tpu_torch.control.applet_client import (
+        read_status)
+    from mpv_frame_interpolator_tpu_torch.control.ipc import IPCServer
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for polled in (False, True):
+            player = Player(EngineConfig(
+                display_fps=120.0, auto_quality=False,
+                initial_search_radius=16, device=str(dev)))
+            stop = threading.Event()
+            threads, servers = [], []
+            if polled:
+                sock = os.path.join(tmp, "ipc.sock")
+                fifo = os.path.join(tmp, "hr")
+                servers = [IPCServer(sock, player),
+                           AppletServer(fifo, player.engine, period=0.001)]
+                for s in servers:
+                    s.start()
+
+                def ipc_poll():
+                    c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                    c.connect(sock)
+                    f = c.makefile("rwb")
+                    while not stop.is_set():
+                        for name in ("ofc-time", "total-time", "calc-res"):
+                            f.write(json.dumps({"command": [
+                                "get_property", name]}).encode() + b"\n")
+                            f.flush()
+                            f.readline()
+                        time.sleep(0.001)
+                    c.close()
+
+                def applet_poll():
+                    while not stop.is_set():
+                        read_status(fifo)
+
+                threads = [threading.Thread(target=ipc_poll),
+                           threading.Thread(target=applet_poll)]
+                for t in threads:
+                    t.start()
+            try:
+                for f in frames:
+                    player.feed(f)
+                player.engine.flush()
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join(60)
+                for s in servers:
+                    s.stop()
+            s = player.engine.stats.summary()["source_frame_time"]
+            result[polled] = (s["mean"] * 1e3, s["count"])
+    return result
+
+
+def control_cli(dev, tmp, frames_n: int):
+    """Check 3: the CLI on a 4K y4m file with --ipc-server, --applet-fifo,
+    --profile-dir and --save-position-on-quit, a client thread reading
+    properties, pausing and resuming, taking a screenshot, sending an
+    applet code and quit-watch-later; then a second run of the file
+    resumes at the saved position and writes the bytes of a --start run
+    there.  Returns what the client read and the trace's kernel rows."""
+    from mpv_frame_interpolator_tpu_torch import cli
+    from mpv_frame_interpolator_tpu_torch.control.applet_client import (
+        read_status, send_code)
+    from mpv_frame_interpolator_tpu_torch.pipeline import resume
+    from mpv_frame_interpolator_tpu_torch.utils.png import decode_png
+    src = os.path.join(tmp, "in.y4m")
+    w, h = (W4K, H4K) if torch.device(dev).type == "cuda" else (64, 48)
+    write_y4m(src, synthetic_frames("moving_box", w, h, frames_n), w, h)
+    sock, fifo = os.path.join(tmp, "ipc.sock"), os.path.join(tmp, "hr")
+    shot, prof = os.path.join(tmp, "shot.png"), os.path.join(tmp, "prof")
+    seen, errors = {}, []
+
+    def client():
+        f = None
+
+        def rpc(*cmd):
+            seen["last"] = cmd
+            f.write(json.dumps({"command": list(cmd)}).encode() + b"\n")
+            f.flush()
+            r = json.loads(f.readline())
+            check(r["error"] == "success", f"IPC {cmd}: {r}")
+            return r.get("data")
+
+        try:
+            deadline = time.monotonic() + 120
+            while not os.path.exists(sock):
+                check(time.monotonic() < deadline, "no IPC socket")
+                time.sleep(0.01)
+            c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            c.connect(sock)
+            f = c.makefile("rwb")
+
+            rpc("get_property", "ofc-time")         # asks for the split
+            while rpc("get_property", "time-pos") < 0.25:
+                check(time.monotonic() < deadline, "playback never began")
+                time.sleep(0.005)
+            rpc("set_property", "pause", True)
+            seen["paused"] = rpc("get_property", "pause")
+            seen["properties"] = len(rpc("property-list"))
+            for name in ("ofc-time", "warp-time", "total-time", "calc-res"):
+                seen[name] = rpc("get_property", name)
+            seen["screenshot"] = rpc("screenshot", shot)
+            seen["last"] = "applet"
+            send_code(fifo, 4)                      # mode 2: as it is
+            seen["status"] = read_status(fifo).splitlines()[:2]
+            rpc("set_property", "pause", False)
+            seen["quit"] = rpc("quit-watch-later")
+            c.close()
+        except BaseException as e:  # noqa: BLE001 - check() exits; below
+            errors.append(e)
+            if f is not None:       # never leave the run paused
+                for cmd in (("set_property", "pause", False), ("quit",)):
+                    try:
+                        rpc(*cmd)
+                    except BaseException:   # noqa: BLE001
+                        pass
+
+    common = [src, "--display-fps", "120", "--search-radius", "16",
+              "--no-auto-quality", "--untimed", "--frames", "0",
+              "--device", str(dev)]
+    stats_path = os.path.join(tmp, "stats.json")
+    out = os.path.join(tmp, "out.y4m")
+    t = threading.Thread(target=client)
+    t.start()
+    t0 = time.perf_counter()
+    rc = cli.main([*common, "-o", out, "--ipc-server", sock,
+                   "--applet-fifo", fifo, "--profile-dir", prof,
+                   "--save-position-on-quit", "--dump-stats", stats_path])
+    wall = time.perf_counter() - t0
+    t.join(60)
+    check(not t.is_alive() and not errors,
+          f"the client, at {seen.get('last')}: {errors!r}")
+    check(rc == 0, f"cli with the control surfaces returned {rc}")
+    with open(stats_path) as fh:
+        stats = json.load(fh)
+    check(stats["engine_failures"] == 0 and stats["control_failures"] == 0,
+          f"{stats['engine_failures']} engine and "
+          f"{stats['control_failures']} control failures")
+    fw, fh_, n = y4m_frames(out)
+    check((fw, fh_) == (w, h) and n == stats["frames_out"] > 0,
+          f"the y4m holds {n} {fw}x{fh_} frames of {stats['frames_out']}")
+    check(stats["frames_in"] < frames_n, "quit-watch-later did not stop "
+          f"playback ({stats['frames_in']} of {frames_n} frames)")
+    with open(shot, "rb") as fh:
+        img = decode_png(fh.read())
+    check(img.shape == (h, w, 3), f"screenshot {img.shape}")
+    check(seen["paused"] is True and seen["properties"] == 28,
+          f"pause / property-list: {seen}")
+    check(all(seen[k] > 0 for k in ("ofc-time", "warp-time", "total-time")),
+          f"telemetry: {seen}")
+    check(seen["calc-res"] == ("480x270" if w == W4K else f"{w}x{h}"),
+          f"calc-res {seen['calc-res']}")
+    check(seen["status"][0] == "Search Radius: 16",
+          f"applet status {seen['status']}")
+    state = resume.load(src)
+    check(state is not None and state["start"] > 0.2
+          and state["frame-output-mode"] == 2,
+          f"watch-later state {state}")
+    rows = {}
+    with open(os.path.join(prof, "trace.json")) as fh:
+        for ev in json.load(fh)["traceEvents"]:
+            if ev.get("cat") == "kernel":
+                name = ev.get("name", "")
+                for k in OUR_KERNELS:
+                    if k in name:
+                        rows[k] = rows.get(k, 0) + 1
+    if torch.device(dev).type == "cuda":
+        check(rows.get("pyramid_kernel", 0) > 0
+              and rows.get("pair_blend_kernel", 0) > 0,
+              f"the trace's kernel rows: {rows}")
+    # the second run resumes; a --start run at that position
+    outs = []
+    for extra in ([], ["--no-resume", "--start", str(state["start"])]):
+        path = os.path.join(tmp, f"resumed{len(outs)}.y4m")
+        check(cli.main([*common, *extra, "-o", path]) == 0,
+              f"cli {extra} failed")
+        outs.append(path)
+    check(same_bytes(*outs) and y4m_frames(outs[0])[2] > 0,
+          "the resumed run differs from the --start run")
+    resumed = y4m_frames(outs[0])[2]
+    return dict(seen, wall=wall, frames_in=stats["frames_in"],
+                frames_out=stats["frames_out"], start=state["start"],
+                resumed_frames=resumed, trace_rows=rows)
+
+
+def control_profiles(dev, tmp):
+    """Check 4: --config examples/mfi.conf --profile=baseline-3 and -4
+    (the profiles at 4K), 3 source frames of a synthetic clip: the bytes of
+    the same runs with the flags written out."""
+    from mpv_frame_interpolator_tpu_torch import cli
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "mfi.conf")
+    flags = {"baseline-3": ["--width", "3840", "--height", "2160", "--fps",
+                            "24", "--display-fps", "120", "--ingest",
+                            "native"],
+             "baseline-4": ["--width", "3840", "--height", "2160", "--fps",
+                            "24", "--display-fps", "60", "--p010", "--mode",
+                            "hsv"]}
+    done = {}
+    for name, written in flags.items():
+        outs = []
+        for argv in (["--config", conf, f"--profile={name}"],
+                     ["--no-config", "--untimed", "--scene-threshold", "28",
+                      *written]):
+            out = os.path.join(tmp, f"{name}-{len(outs)}.y4m")
+            check(cli.main(["synthetic:moving_box", "--frames", "3",
+                            "--device", str(dev), *argv, "-o", out]) == 0,
+                  f"{name}: cli {argv} failed")
+            outs.append(out)
+        info = y4m_frames(outs[0])
+        check(info[:2] == (W4K, H4K) and info[2] > 1,
+              f"{name}: the y4m is {info}")
+        check(same_bytes(*outs),
+              f"{name}: the profile's bytes differ from the flags'")
+        done[name] = info[2]
+        for p in outs:
+            os.remove(p)
+    return done
+
+
+def phase_control(dev):
+    """Phase 17: the control surfaces on the card at 4K 24 -> 120, radius
+    16 (checks 1-4 above), with the watch-later directory in a temporary
+    one.  Prints how many pairs a set_property took to land, the ms of
+    the first pair after each kind of change against a steady pair, and
+    the calc ms a pair with the IPC and applet threads polling against
+    without them."""
+    from mpv_frame_interpolator_tpu_torch.pipeline import resume
+    on_card = torch.device(dev).type == "cuda"
+    # off the card (a rehearsal) 160 rows: both max-calc-res values
+    # still give different geometries there
+    w, h = (W4K, H4K) if on_card else (64, 160)
+    counts = kernel_counts()
+    saved_dir = resume.DEFAULT_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        resume.DEFAULT_DIR = os.path.join(tmp, "watch_later")
+        try:
+            t0 = time.perf_counter()
+            host = synthetic_frames("moving_box", w, h, CONTROL_FRAMES)
+            frames = [f for f in host]
+            log(f"  {CONTROL_FRAMES} frames of {w}x{h} made in "
+                f"{time.perf_counter() - t0:.1f} s")
+            for c in counts.values():
+                c.reset()
+            outs, ms, landed, compared, timed = control_script_push(
+                dev, frames, os.path.join(tmp, "pairs.log"))
+            launches = {k: c.kernel for k, c in counts.items() if c.kernel}
+            check(not on_card or not any(c.plain for c in counts.values()),
+                  "a plain version ran in the property script")
+            log(f"  check 1: {compared} interpolated pushes equal a fresh "
+                f"engine at their settings; each of the {len(landed)} "
+                f"changes took effect at the next pair (frames {landed}; 0 "
+                f"pairs passed), which differed from the old settings' "
+                f"pair wherever the change shows; stats log {timed} lines, "
+                f"one a timed pair; "
+                f"launches {launches}")
+            firsts = {}
+            for idx, items in CONTROL_SCRIPT:
+                names = {n for n, _ in items}
+                j = idx + 1 if "max-calc-res" in names else idx
+                kind = ("geometry derived again" if "max-calc-res" in names
+                        else "model switched" if "model" in names
+                        else "mode and knobs")
+                firsts.setdefault(kind, []).append(round(ms[j], 3))
+            steady = [m for i, m in enumerate(ms)
+                      if i > 2 and all(i not in (k, k + 1)
+                                       for k, _ in CONTROL_SCRIPT)]
+            log(f"  host ms of a push, synchronised: steady median "
+                f"{statistics.median(steady):.3f}; first pair after a "
+                f"change: {firsts}")
+            for group in (4, 8):
+                calls, gstats = control_script_groups(dev, frames, outs,
+                                                       group)
+                cap = [m for m, c in calls if c]
+                rep = [m for m, c in calls if not c]
+                log(f"  check 2: push_many groups of {group} equal push "
+                    f"across the changes; {gstats}; host ms a group "
+                    f"with a capture: median "
+                    f"{statistics.median(cap) if cap else 0:.3f} "
+                    f"({len(cap)}), replayed: median "
+                    f"{statistics.median(rep) if rep else 0:.3f} "
+                    f"({len(rep)})")
+                check(not on_card or gstats["captures"] >= len(
+                    CONTROL_SCRIPT), f"captures: {gstats}")
+            polled = control_calc_with_polling(dev, frames[:24])
+            log(f"  calc ms a pair (CUDA events), mean over "
+                f"{polled[False][1]} / {polled[True][1]} pairs: "
+                f"{polled[False][0]:.4f} without, {polled[True][0]:.4f} "
+                f"with the IPC and applet threads polling")
+            del outs, frames, host
+            t1 = time.perf_counter()
+            cli_run = control_cli(dev, tmp, 24)
+            log(f"  check 3: {cli_run} ({time.perf_counter() - t1:.1f} s)")
+            if on_card:
+                t1 = time.perf_counter()
+                profiles = control_profiles(dev, tmp)
+                log(f"  check 4: --config examples/mfi.conf profiles "
+                    f"equal their flags: {profiles} frames "
+                    f"({time.perf_counter() - t1:.1f} s)")
+        finally:
+            resume.DEFAULT_DIR = saved_dir
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke "
@@ -2096,6 +2593,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_sources_sinks(dev)
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    log("phase 17: the control surfaces on the card (api.Player property "
+        "script against fresh engines, push_many across changes, the CLI "
+        "with IPC, applet, trace and resume, config profiles)")
+    t0 = time.perf_counter()
+    phase_control(dev)
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
     # main path (K3 as the blur phase of K1's launches), K4 on the P010

@@ -23,6 +23,10 @@ Examples:
   python -m mpv_frame_interpolator_tpu_torch mf://shots/*.png --mf-fps 24 \
       --dump-png frames/
   cat clip.mkv | python -m mpv_frame_interpolator_tpu_torch - -o - > out.y4m
+  python -m mpv_frame_interpolator_tpu_torch movie.y4m --ipc-server /tmp/mfi.sock \
+      --applet-fifo /tmp/hopperrender --save-position-on-quit --interactive
+  python -m mpv_frame_interpolator_tpu_torch in.y4m --config examples/mfi.conf \
+      --profile=baseline-2 -o out.y4m
 
 Inputs: .y4m (the native reader ring, or the Python reader under
 ``--ingest python``), Matroska/WebM, AVI and MP4/MOV holding raw video,
@@ -35,6 +39,20 @@ where it is installed.  Outputs: .y4m, ``-`` (y4m on stdout), .mkv
 (FFV1), ``--dump-pgm``/``--dump-png`` directories, ``--osd`` on any of
 them.
 
+Control surfaces (the JAX CLI's): a config file with profiles
+(``options.py``: ``$MFI_CONF`` or ``~/.config/mfi_tpu/mfi.conf``,
+``--config``, ``--no-config``, ``--profile``), watch-later resume of a
+single file (``pipeline/resume.py``; ``--no-resume``,
+``--save-position-on-quit``, ``--save-position-interval``), ``--script``
+(a Python file run on a thread with ``player`` and ``pipeline`` bound),
+``--interactive`` keys (``--input-conf``, ``--no-input-default-bindings``),
+the settings applet's FIFOs (``--applet-fifo``), JSON IPC on a unix
+socket (``--ipc-server``) and a ``torch.profiler`` trace
+(``--profile-dir``).  Every server and thread stops when the run ends,
+also when it fails.  ``--precompile``, ``--warp-loop`` and
+``--timing-source`` are accepted and ignored, as their engine knobs are
+(``convert.NO_OP_KNOBS``).
+
 The device is explicit: ``--device cuda`` (the default) needs a card and
 fails if there is none; nothing falls back to the CPU.
 """
@@ -42,6 +60,7 @@ fails if there is none; nothing falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -52,6 +71,9 @@ from typing import Optional
 
 import torch
 
+from mpv_frame_interpolator_tpu_torch import __version__, options
+from mpv_frame_interpolator_tpu_torch.api import Player
+from mpv_frame_interpolator_tpu_torch.control import count_failure
 from mpv_frame_interpolator_tpu_torch.frame import NV12, P010
 from mpv_frame_interpolator_tpu_torch.io import (
     cache, decode, filters, ingest, jpeg, mf, playlist, reverse, sinks,
@@ -60,6 +82,7 @@ from mpv_frame_interpolator_tpu_torch.io.pinned import PinnedPool
 from mpv_frame_interpolator_tpu_torch.models import MODELS
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
+from mpv_frame_interpolator_tpu_torch.pipeline import resume
 from mpv_frame_interpolator_tpu_torch.pipeline.player import Pipeline
 from mpv_frame_interpolator_tpu_torch.pipeline.present import PresentClock
 from mpv_frame_interpolator_tpu_torch.utils import get_logger
@@ -122,6 +145,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--neighbor-bias-scalar", type=int, default=6)
     p.add_argument("--max-calc-res", type=int, default=270)
     p.add_argument("--num-iterations", type=int, default=0)
+    p.add_argument("--precompile", action="store_true",
+                   help="accepted and ignored: the port compiles nothing "
+                        "per radius (its kernels build once, at first "
+                        "use)")
     p.add_argument("--warp-sampling", default="pair",
                    choices=("pair", "shift", "gather", "pallas", "fused"),
                    help="blend-mode warp kernel of hopper, blend and "
@@ -137,6 +164,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "hopperq/hopperxq warp at 1/64-pel, hopper/hopperx "
                         "get a round-to-nearest field (quality option; "
                         "changes the flow families' output)")
+    p.add_argument("--warp-loop", default="vmap", choices=("vmap", "scan"),
+                   help="accepted and ignored: how the JAX package "
+                        "expresses its warp batch")
+    p.add_argument("--timing-source", default="auto",
+                   choices=("auto", "block", "amortized"),
+                   help="accepted and ignored: the port times each pair "
+                        "with CUDA events")
     p.add_argument("--layer-buckets", default="5,8,16",
                    help="comma-separated flow layer counts; the live search "
                         "radius runs the smallest that covers it, so a lower "
@@ -172,7 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--start", type=float, default=None,
                    help="start at this source pts (seconds): a seek where "
                         "the source can, else the frames before it are "
-                        "skipped")
+                        "skipped; defaults to a watch-later position if "
+                        "one exists")
     p.add_argument("--end", type=float, default=None,
                    help="stop playback at this source pts (seconds; mpv "
                         "--end analog)")
@@ -184,7 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache", default="auto", choices=("auto", "yes", "no"),
                    help="seekable frame cache over the source (spooled to "
                         "a temporary file); auto = only when the source "
-                        "cannot seek by itself (not for synthetic clips)")
+                        "cannot seek by itself (pipes, streams, synthetic "
+                        "clips)")
     p.add_argument("--ingest", default="auto",
                    choices=("auto", "native", "python"),
                    help="host ingest: the native library's reader rings "
@@ -197,6 +233,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vf", default="",
                    help="host filter chain before interpolation, e.g. "
                         "'crop=640:360,vflip,fps=24'")
+    p.add_argument("--applet-fifo", default="",
+                   help="serve the HopperRender settings-applet protocol on "
+                        "this FIFO path (e.g. /tmp/hopperrender)")
+    p.add_argument("--ipc-server", default="",
+                   help="serve JSON IPC on this unix socket path "
+                        "(mpv --input-ipc-server analog)")
+    p.add_argument("--interactive", action="store_true",
+                   help="terminal keyboard control: arrows seek, space "
+                        "pause, . frame-step, [ ] speed, s screenshot, q "
+                        "quit, Q quit+save")
+    p.add_argument("--input-conf", default="",
+                   help="key bindings file (mpv input.conf line format: "
+                        "'KEY command args'; overlays the defaults)")
+    p.add_argument("--no-input-default-bindings", action="store_true",
+                   help="start from an empty bindings table")
+    p.add_argument("--script", default="",
+                   help="run a Python script on a thread with `player` (an "
+                        "api.Player) and `pipeline` bound to the live run")
+    p.add_argument("--save-position-on-quit", action="store_true",
+                   help="persist playback position + knobs per input file "
+                        "(watch-later)")
+    p.add_argument("--save-position-interval", type=float, default=60.0,
+                   help="with --save-position-on-quit: also save the "
+                        "position every N seconds, so a crash loses at "
+                        "most that much progress; 0 disables")
+    p.add_argument("--no-resume", action="store_true",
+                   help="ignore an existing watch-later entry")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace of the run (host "
+                        "ops, and every kernel with its device time on a "
+                        "card) to DIR/trace.json")
     p.add_argument("--no-stage-uploads", action="store_true",
                    help="upload each frame on the engine's thread instead "
                         "of the prefetch thread")
@@ -205,6 +272,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-stats", default="",
                    help="write the run's stats (JSON) to this file at exit")
     p.add_argument("-v", "--verbose", action="count", default=0)
+    p.add_argument("--version", action="version",
+                   version=f"mpv_frame_interpolator_tpu_torch {__version__}")
+    options.add_config_flags(p)
     return p
 
 
@@ -233,7 +303,8 @@ def make_source(args, entry: Optional[str] = None):
             raise SystemExit(f"unknown synthetic source {name!r}")
         cfg = synthetic.SyntheticConfig(width=args.width, height=args.height,
                                         fps=args.fps, pixfmt=pixfmt)
-        return gen(cfg, args.frames or 1 << 30), cfg.width, cfg.height
+        return (_SyntheticClip(gen(cfg, args.frames or 1 << 30), cfg),
+                cfg.width, cfg.height)
     if entry == "-":
         return _stdin_source(args)
     if stream.is_stream_url(entry):
@@ -279,6 +350,19 @@ def make_source(args, entry: Optional[str] = None):
                          "video, FFV1, Ut Video or MJPEG; anything else "
                          "needs ffmpeg, which is not installed")
     return decode.ffmpeg_source(entry, pixfmt), args.width, args.height
+
+
+class _SyntheticClip:
+    """A synthetic clip with the attributes a reader has (width, height,
+    fps, pixfmt), which a playlist reads from its first entry."""
+
+    def __init__(self, frames, cfg):
+        self._frames = frames
+        self.width, self.height = cfg.width, cfg.height
+        self.fps, self.pixfmt = cfg.fps, cfg.pixfmt
+
+    def __iter__(self):
+        return self._frames
 
 
 def _open_container_path(args, path: str, reader_cls):
@@ -382,9 +466,9 @@ def _replay_fd(first: bytes, src) -> int:
     return r
 
 
-def open_entries(args):
-    """The playlist's entries (positional inputs, --playlist, .edl
-    segments) opened as one source: (source, width, height)."""
+def playlist_entries(args) -> list:
+    """The playlist's entries: the positional inputs, --playlist's and
+    the segments of .edl inputs."""
     entries = list(args.source)
     if args.playlist:
         try:
@@ -402,6 +486,12 @@ def open_entries(args):
                 raise SystemExit(f"bad EDL {e!r}: {err}")
         else:
             expanded.append(e)
+    return expanded
+
+
+def open_entries(args, expanded: list):
+    """The playlist's entries opened as one source: (source, width,
+    height)."""
     if len(expanded) == 1 and not isinstance(expanded[0],
                                              playlist.EDLEntry):
         return make_source(args, expanded[0])
@@ -418,16 +508,17 @@ def open_entries(args):
     return source, source.width, source.height
 
 
+def _seekable(source) -> bool:
+    return (hasattr(source, "seek_pts")
+            and getattr(source, "seekable", lambda: False)())
+
+
 def source_options(args, source):
-    """--cache, --play-direction and --start around the opened source.
-    ``--cache auto`` caches a source that cannot seek by itself (a pipe,
-    a stream), but not a synthetic clip, which is generated, not read."""
-    seekable = (hasattr(source, "seek_pts")
-                and getattr(source, "seekable", lambda: False)())
-    generated = all(isinstance(e, str) and e.startswith("synthetic:")
-                    for e in args.source) and not args.playlist
-    if args.cache == "yes" or (args.cache == "auto" and not seekable
-                               and not generated):
+    """--cache and --play-direction around the opened source.  ``--cache
+    auto`` caches any source that cannot seek by itself: a pipe, a stream,
+    a synthetic clip (the JAX CLI's rule)."""
+    if args.cache == "yes" or (args.cache == "auto"
+                               and not _seekable(source)):
         source = cache.CachedSource(source)
         log.info("seekable frame cache enabled")
     if args.play_direction == "backward":
@@ -437,15 +528,18 @@ def source_options(args, source):
             return reverse.ReversedSource(source)
         except reverse.ReverseError as e:
             raise SystemExit(f"--play-direction=backward: {e}")
-    if args.start:
-        if (hasattr(source, "seek_pts")
-                and getattr(source, "seekable", lambda: False)()):
-            actual = source.seek_pts(args.start)
-            log.info("seeked source to %.3fs (requested %.3fs)", actual,
-                     args.start)
-        else:
-            source = _skip_until(source, args.start)
     return source
+
+
+def start_at(source, start_pts: float):
+    """The source from `start_pts` on: a seek where the source can, else
+    the frames before it are skipped."""
+    if _seekable(source):
+        actual = source.seek_pts(start_pts)
+        log.info("seeked source to %.3fs (requested %.3fs)", actual,
+                 start_pts)
+        return source
+    return _skip_until(source, start_pts)
 
 
 def _skip_until(src, t0: float):
@@ -476,8 +570,109 @@ def make_sink(args, width: int, height: int, engine):
     return sinks.OsdSink(sink, engine) if args.osd else sink
 
 
+def _watch_later_props(engine) -> dict:
+    return {"speed": engine.cadence.playback_speed,
+            "frame-output-mode": engine.frame_output_mode,
+            "search-radius": engine.quality.search_radius,
+            "black-level": engine.black_level,
+            "white-level": engine.white_level,
+            "scene-threshold": engine.scene.threshold}
+
+
+def _save_on_exit(engine, media: str, save_on_exit: list):
+    if save_on_exit[0]:
+        path = resume.save(media, engine.cadence.current_output_pts,
+                           _watch_later_props(engine))
+        log.info("watch-later state saved to %s", path)
+
+
+def _start_surfaces(args, stack: contextlib.ExitStack, engine, pipe,
+                    media: str, is_file: bool, save_on_exit: list):
+    """Start the control surfaces the flags ask for (JAX cli.py:632-708),
+    each with its stop pushed on `stack`.  Each surface drives the engine
+    through its own api.Player bound to the pipeline."""
+
+    def player():
+        p = Player(engine=engine)
+        p.bind_pipeline(pipe)
+        return p
+
+    if args.script:
+        with open(args.script) as fh:
+            code = compile(fh.read(), args.script, "exec")
+        scope = {"player": player(), "pipeline": pipe}
+
+        def run_script():
+            try:
+                exec(code, scope)
+            except Exception:   # noqa: BLE001 - a control thread's boundary
+                count_failure(engine, f"--script {args.script}")
+
+        script = threading.Thread(target=run_script, name="mfi-script",
+                                  daemon=True)
+        script.start()
+        stack.callback(_join, script, "the --script thread")
+    if args.interactive:
+        from mpv_frame_interpolator_tpu_torch.control.input import (
+            KeyDispatcher, TerminalInput, parse_input_conf)
+        bindings = None
+        if args.input_conf:
+            with open(args.input_conf) as fh:
+                bindings = parse_input_conf(fh.read())
+
+        def on_quit(watch_later: bool):
+            if watch_later and is_file:
+                save_on_exit[0] = True
+            pipe.quit()
+
+        dispatcher = KeyDispatcher(
+            player(), pipe, on_quit=on_quit, bindings=bindings,
+            default_bindings=not args.no_input_default_bindings)
+        try:
+            stack.callback(TerminalInput(dispatcher).start().stop)
+            log.info("terminal input active (q quits)")
+        except OSError as e:
+            log.warning("no controlling terminal (%s); --interactive "
+                        "disabled", e)
+    if args.applet_fifo:
+        from mpv_frame_interpolator_tpu_torch.control.applet import (
+            AppletServer)
+        applet = AppletServer(args.applet_fifo, engine)
+        applet.start()
+        stack.callback(applet.stop)
+    if args.ipc_server:
+        from mpv_frame_interpolator_tpu_torch.control.ipc import IPCServer
+        ipc = IPCServer(args.ipc_server, player())
+        ipc.start()
+        stack.callback(ipc.stop)
+    if is_file and args.save_position_on_quit \
+            and args.save_position_interval > 0:
+        stop = threading.Event()
+
+        def periodic_save():
+            while not stop.wait(args.save_position_interval):
+                try:
+                    resume.save(media, engine.cadence.current_output_pts,
+                                _watch_later_props(engine))
+                except OSError:
+                    count_failure(engine, "the watch-later save")
+
+        saver = threading.Thread(target=periodic_save, name="mfi-save",
+                                 daemon=True)
+        saver.start()
+        stack.callback(_join, saver, "the watch-later save thread")
+        stack.callback(stop.set)
+
+
+def _join(thread: threading.Thread, what: str, timeout: float = 2.0):
+    thread.join(timeout)
+    if thread.is_alive():
+        log.warning("%s is still running at exit (a daemon thread: it "
+                    "ends with the process)", what)
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    args = options.parse_with_config(build_parser(), argv)
     if args.verbose:
         set_verbosity(10)
     if torch.device(args.device).type == "cuda" \
@@ -498,12 +693,14 @@ def main(argv=None) -> int:
         raise SystemExit("--group requires an encode sink (-o/--dump-pgm/"
                          "--dump-png): grouped dispatch buffers N source "
                          "intervals, which realtime playback cannot absorb")
-    source, width, height = open_entries(args)
+    entries = playlist_entries(args)
+    first = entries[0]
+    # the single-file surfaces (watch-later) key on the first entry
+    media = first.path if isinstance(first, playlist.EDLEntry) else first
+    source, width, height = open_entries(args, entries)
     opened = [source]
     source = source_options(args, source)
     opened.append(source)
-    if args.vf:
-        source = filters.apply_chain(filters.parse_chain(args.vf), source)
     engine = InterpolationEngine(EngineConfig(
         display_fps=args.display_fps,
         frame_output_mode=mode,
@@ -530,6 +727,26 @@ def main(argv=None) -> int:
         device=args.device))
     if args.speed != 1.0:
         engine.set_speed(args.speed)
+
+    # watch-later resume (JAX cli.py:541-560) of a single file: a chained
+    # timeline's pts can exceed any one entry's duration, and backward
+    # play has a reversed timeline, so neither resumes
+    is_file = len(entries) == 1 and not media.startswith("synthetic:")
+    start_pts = args.start
+    if args.play_direction == "backward":
+        start_pts = None
+    elif is_file and not args.no_resume:
+        state = resume.load(media)
+        if state:
+            pos = resume.apply_to_player(Player(engine=engine), state)
+            if start_pts is None:
+                start_pts = pos
+            log.info("resumed watch-later state (position %.2fs, %s)",
+                     pos, {k: v for k, v in state.items() if k != "start"})
+    if start_pts:
+        source = start_at(source, start_pts)
+    if args.vf:
+        source = filters.apply_chain(filters.parse_chain(args.vf), source)
     sink = make_sink(args, width, height, engine)
     present = None
     if not args.no_present and group == 1:
@@ -540,12 +757,21 @@ def main(argv=None) -> int:
     pipe.end_pts = args.end
 
     t0 = time.perf_counter()
-    try:
-        n = pipe.run(max_source_frames=args.frames or None)
-    finally:
+    with contextlib.ExitStack() as stack:
+        # unwound in reverse, also when the run fails: the trace ends, the
+        # control surfaces stop, the position is saved, the sources close
         for src in opened:
             if hasattr(src, "close"):
-                src.close()
+                stack.callback(src.close)
+        save_on_exit = [is_file and args.save_position_on_quit]
+        stack.callback(_save_on_exit, engine, media, save_on_exit)
+        _start_surfaces(args, stack, engine, pipe, media, is_file,
+                        save_on_exit)
+        if args.profile_dir:
+            from mpv_frame_interpolator_tpu_torch.utils.trace import (
+                device_trace)
+            stack.enter_context(device_trace(args.profile_dir))
+        n = pipe.run(max_source_frames=args.frames or None)
     dt = time.perf_counter() - t0
     summary = engine.stats.summary()
     s = summary.get("source_frame_time", {})
@@ -561,6 +787,8 @@ def main(argv=None) -> int:
                        "frames_out": pipe.frames_out,
                        "scene_cuts": engine.scene_cuts(),
                        "engine_failures": failures,
+                       "control_failures":
+                           engine.stats.count("control_failures"),
                        "underruns": pipe.underruns,
                        "sources_dropped": pipe.sources_dropped,
                        "seeks": pipe.seeks,

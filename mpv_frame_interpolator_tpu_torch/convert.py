@@ -33,12 +33,11 @@ NO_OP_KNOBS = ("flow_kernel", "pallas_blur", "warp_loop", "batch_shapes",
                "compilation_cache_dir", "timing_source",
                "timing_sync_period")
 
-# Mechanisms the port leaves out (ROADMAP.md lists them).  They are
-# accepted at the JAX default, under which the port runs without them;
-# any other value raises NotImplementedError.
-OMITTED_AT_DEFAULT = {
-    "stats_log_path": "",
-}
+# Mechanisms the port leaves out, each with its JAX default: accepted at
+# that default, under which the port runs without them; any other value
+# raises NotImplementedError.  None is left out since the stats log
+# (`stats_log_path`) became a field of the port's config.
+OMITTED_AT_DEFAULT: dict = {}
 
 
 def engine_config_from_jax(mapping: dict, device: str = "cuda"):
@@ -47,10 +46,11 @@ def engine_config_from_jax(mapping: dict, device: str = "cuda"):
 
     Fields both configs have are copied, ``frame_output_mode``,
     ``model``, ``warp_sampling``, ``layer_buckets``, ``degrade_rungs``,
-    ``split_timing`` and ``subpel_flow`` among them: modes 0-6, every model
-    family, sampler, radius, ladder and timing mode convert; TPU
-    mechanism knobs are dropped; omitted mechanisms must sit at their JAX
-    default.  An unknown key raises KeyError."""
+    ``split_timing``, ``subpel_flow`` and ``stats_log_path`` among them:
+    modes 0-6, every model family, sampler, radius, ladder, timing mode
+    and stats log convert; TPU mechanism knobs are dropped; omitted
+    mechanisms must sit at their JAX default.  An unknown key raises
+    KeyError."""
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
     fields = {f.name for f in dataclasses.fields(EngineConfig)} - {"device"}
     kwargs = {"device": device}

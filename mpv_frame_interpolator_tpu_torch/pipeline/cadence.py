@@ -96,6 +96,15 @@ class CadenceEngine:
         if self.state != InterpolationState.DEACTIVATED:
             self.state = InterpolationState.ACTIVE
 
+    def set_active(self, active: bool):
+        """Applet codes 0/1 (vf_HopperRender.c:128-135)."""
+        if active:
+            self.state = InterpolationState.ACTIVE
+        else:
+            self.state = InterpolationState.DEACTIVATED
+            self.source_frame_num = 0
+            self.blending_scalar = 0.0
+
     def reset(self):
         """Seek reset (vf_HopperRender.c:562-567)."""
         self.source_frame_num = 0

@@ -56,8 +56,17 @@ Per source pair, on the engine's device and without a host sync:
 P010 frames run with scale_shift 8 (the JAX engine's ``_scale_shift``):
 the flow's SAD and the cut score are shifted back to the 8-bit scale, the
 blend keeps 16 fraction bits, and the outputs are uint16 capped at
-255 << 8.  Black/white levels are rounded half to even once, when the
-engine is made.
+255 << 8.  Black/white levels are rounded half to even.
+
+The runtime state the control surfaces set (``api.Player``, the applet,
+key bindings; JAX engine.py:808-816) is host attributes of the engine:
+``frame_output_mode``, ``black_level``, ``white_level``,
+``delta_scalar``, ``neighbor_bias_scalar``, ``scene`` (``enabled``,
+``threshold``) and ``config.model``.  Each pair reads them once
+(``PairKnobs``), so a change takes effect at the next pair; on the
+grouped path they are part of a graph's key, and a change ends the
+group being filled.  ``invalidate_geometry`` (``max-calc-res``) has the
+next pair derive the geometry again.
 
 The host side -- output cadence (``CadenceEngine``), the auto-quality
 controller (``QualityController``, with its degradation ladder) and the
@@ -94,9 +103,10 @@ precompile and the compile cache have nothing to do here
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import OrderedDict
-from typing import List, Optional, Union
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -171,6 +181,10 @@ class EngineConfig:
     # measured 1/64-pel refinement of the flow (a quality option: it
     # changes the flow families' outputs)
     subpel_flow: bool = False
+    # append each published calc time (source_frame_time, seconds) as a
+    # line to this file (JAX engine.py:1210-1212; the reference's
+    # SAVE_STATS); "" = off
+    stats_log_path: str = ""
     device: str = "cuda"
 
     def __post_init__(self):
@@ -257,6 +271,22 @@ class OutputFrame:
 
 
 FLOW_MODELS = ("hopper", "hopperx", "hopperq", "hopperxq")
+
+
+class PairKnobs(NamedTuple):
+    """The engine's runtime state as one pair reads it (JAX engine.py:
+    808-816): taken once a pair, so that a setter on a control thread
+    lands between two pairs and never inside one, and part of the grouped
+    path's graph key, since a captured graph bakes in the arguments it
+    was launched with."""
+
+    mode: int
+    model: str                  # the configured family (level 0's)
+    levels: tuple               # (k, w) of the black and white levels
+    delta_scalar: int
+    neighbor_bias_scalar: int
+    scene_enabled: bool
+    scene_threshold: float
 
 
 def _flow_stage(geom, scale_shift: int, scene_enabled: bool, model: str,
@@ -405,7 +435,7 @@ class _GroupSlots:
     def fill(self, chunk, ts: torch.Tensor) -> int:
         """Copy the chunk's frames and blend positions in; returns the
         copies enqueued."""
-        sources = [chunk[0][0]] + [f2 for _, f2, _, _ in chunk]
+        sources = [chunk[0][0]] + [pair[1] for pair in chunk]
         for slot, src in zip(self.frames, sources):
             for dst, plane in ((slot.y, src.y), (slot.uv, src.uv),
                                (slot.u, src.u), (slot.v, src.v)):
@@ -442,13 +472,20 @@ class _GroupGraph:
             reserved = torch.cuda.memory_reserved(dev)
             # thread-local capture: the prefetch thread goes on uploading
             # (its copies, event waits and page-locked allocations are
-            # not the capture's); torch.cuda.graph's device sync, garbage
-            # collection and cache flush are not needed here
+            # not the capture's); torch.cuda.graph's device sync and cache
+            # flush are not needed here.  No garbage collection may run
+            # inside it: one that frees another graph (a cycle holding an
+            # old engine) destroys that graph, which a capture forbids and
+            # so invalidates
+            collecting = gc.isenabled()
+            gc.disable()
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.outs = body(slots, cuts)
             finally:
                 self.graph.capture_end()
+                if collecting:
+                    gc.enable()
         cur.wait_stream(side)
         after = _snapshot_counts()
         _restore_counts(after_warm)
@@ -490,14 +527,29 @@ class InterpolationEngine:
             too_slow_patience=self.config.too_slow_patience,
             max_level=len(self.config.degrade_rungs))
         self.stats = StatsRegistry()
-        self.levels = warp_ops.level_ints(self.config.black_level,
-                                          self.config.white_level)
+        # the runtime-mutable state (JAX engine.py:808-816): each starts
+        # from the config, and every pair reads it (`_knobs`); the control
+        # surfaces (api.Player, the applet, key bindings) set these host
+        # attributes from their own threads and launch nothing.  The model
+        # is `config.model`, read every pair as well
+        self.scene = scene_mod.SceneChangeDetector(
+            enabled=self.config.scene_detection,
+            threshold=self.config.scene_threshold)
+        self.frame_output_mode = self.config.frame_output_mode
+        self.black_level = self.config.black_level
+        self.white_level = self.config.white_level
+        self.delta_scalar = self.config.delta_scalar
+        self.neighbor_bias_scalar = self.config.neighbor_bias_scalar
 
         self.geom: Optional[flow_ops.FlowGeometry] = None
         self._geoms: List[flow_ops.FlowGeometry] = []  # [level 0, rung 1..]
-        self._level_models: List[str] = []             # model per level
+        # each rung's own model, None where it runs the configured one
+        self._rung_models: List[Optional[str]] = []
         self._scale_shift = 0
         self._fmt: Optional[FrameFormat] = None
+        # set by invalidate_geometry (another thread): the next pair
+        # derives the geometry again
+        self._geometry_stale = False
         self._prev: Optional[DeviceFrame] = None
         self._cur: Optional[DeviceFrame] = None
         self._warm = False          # a pair of this geometry has run
@@ -506,7 +558,10 @@ class InterpolationEngine:
         # its output count
         self._pending_timing = None
         self._split_wanted = self.config.split_timing == "always"
+        # the last pair's cut score: the tensor, and on a card its value
+        # as the last timing read-back brought it to the host
         self._last_cut_score = None
+        self._host_cut_score = 0.0
         # device count of folded scene cuts, added to in place (a captured
         # graph adds to this tensor at every replay)
         self._cuts = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -528,6 +583,27 @@ class InterpolationEngine:
 
     def set_speed(self, speed: float):
         self.cadence.set_speed(speed)
+
+    @property
+    def levels(self):
+        """(k, w): the live black and white levels, rounded half to even
+        (derived again from the attributes at every read)."""
+        return warp_ops.level_ints(self.black_level, self.white_level)
+
+    def _knobs(self) -> PairKnobs:
+        return PairKnobs(int(self.frame_output_mode), self.config.model,
+                         self.levels, int(self.delta_scalar),
+                         int(self.neighbor_bias_scalar),
+                         bool(self.scene.enabled),
+                         float(self.scene.threshold))
+
+    def invalidate_geometry(self):
+        """Derive the flow geometry again at the next pair (after a
+        change of `config.max_calc_res`; the JAX Player sets the engine's
+        `_fmt` to None for this).  Host state only: safe from any thread;
+        the engine's own thread re-derives, resets the cadence and the
+        flow anchor, and drops its captured graphs."""
+        self._geometry_stale = True
 
     def reset(self):
         """Seek reset: counters only; the next two source frames
@@ -573,23 +649,31 @@ class InterpolationEngine:
             frame.wait_on(torch.cuda.current_stream(self.device))
         return frame
 
+    def _needs_geometry(self, fmt: FrameFormat) -> bool:
+        return self._geometry_stale or self._fmt is None or (
+            fmt.height, fmt.stride, fmt.width, fmt.pixfmt) != (
+            self._fmt.height, self._fmt.stride, self._fmt.width,
+            self._fmt.pixfmt)
+
     def _ensure_geometry(self, fmt: FrameFormat):
-        if self._fmt is not None and (fmt.height, fmt.stride, fmt.width,
-                                      fmt.pixfmt) == (
-                self._fmt.height, self._fmt.stride, self._fmt.width,
-                self._fmt.pixfmt):
+        if not self._needs_geometry(fmt):
             return
-        self.geom = flow_ops.FlowGeometry.create(
-            fmt.height, fmt.stride, fmt.width, self.config.max_calc_res,
+        # cleared before the config is read: a change landing meanwhile
+        # marks the geometry stale again
+        self._geometry_stale = False
+        max_calc_res = self.config.max_calc_res
+        geom = flow_ops.FlowGeometry.create(
+            fmt.height, fmt.stride, fmt.width, max_calc_res,
             self.config.num_iterations)
-        self._geoms = [self.geom]
-        self._level_models = [self.config.model]
+        self._geoms = [geom]
+        self._rung_models = [None]
         for d_iter, res_div, model in self.config.degrade_rungs:
             self._geoms.append(flow_ops.FlowGeometry.create(
                 fmt.height, fmt.stride, fmt.width,
-                max(self.config.max_calc_res // res_div, 64),
-                max(self.geom.iterations - d_iter, 1)))
-            self._level_models.append(model or self.config.model)
+                max(max_calc_res // res_div, 64),
+                max(geom.iterations - d_iter, 1)))
+            self._rung_models.append(model)
+        self.geom = geom
         self._scale_shift = 0 if fmt.pixfmt == NV12 else 8
         self._fmt = fmt
         self._prev = None
@@ -651,20 +735,26 @@ class InterpolationEngine:
     def _collect_timing(self):
         """Turn the previous pair's (or group's) CUDA events into its
         duration a pair, and its flow/warp split when it recorded one
-        (waits for that pair or group only)."""
+        (waits for that pair or group only), and bring its cut score to
+        the host (it is computed by then)."""
         if self._pending_timing is None:
             return
-        start, mid, end, n_outputs, pairs = self._pending_timing
+        start, mid, end, n_outputs, pairs, score = self._pending_timing
         self._pending_timing = None
         end.synchronize()
         self._record_duration(start.elapsed_time(end) * 1e-3 / pairs)
         if mid is not None:
             self._record_split(start.elapsed_time(mid) * 1e-3,
                                mid.elapsed_time(end) * 1e-3, n_outputs)
+        if score is not None:
+            self._host_cut_score = self.scene.last_score = float(score)
 
     def _record_duration(self, dur: float):
         self._last_calc_duration = dur
         self.stats.add("source_frame_time", dur)
+        if self.config.stats_log_path:
+            with open(self.config.stats_log_path, "a") as fh:
+                fh.write(f"{dur:.6f}\n")
 
     def _record_split(self, flow_t: float, warp_t: float, n_outputs: int):
         self.stats.add("flow_time", flow_t)
@@ -676,7 +766,8 @@ class InterpolationEngine:
     def push(self, frame: Union[VideoFrame, DeviceFrame]) -> List[OutputFrame]:
         """Process one source frame; returns the output frames due."""
         self._ensure_geometry(frame.fmt)
-        plan = self._plan(frame)
+        knobs = self._knobs()
+        plan = self._plan(frame, knobs.mode)
         if plan.passthrough:
             return [self._passthrough(frame)]
 
@@ -712,12 +803,12 @@ class InterpolationEngine:
             t_mid[0] = time.perf_counter()
 
         y, uv, score = self._pair_outputs(level, radius, f1, f2, ts,
-                                          self._cuts, flow_done)
+                                          self._cuts, knobs, flow_done)
         if not timed:
             self._last_calc_duration = 0.0
         elif on_cuda:
             end.record()
-            self._pending_timing = (start, mid, end, n_out, 1)
+            self._pending_timing = (start, mid, end, n_out, 1, score)
         else:
             t_end = time.perf_counter()
             self._record_duration(t_end - t0)
@@ -731,13 +822,12 @@ class InterpolationEngine:
         return [OutputFrame(slot.pts, out_fmt, y, uv, index=i)
                 for i, slot in enumerate(plan.outputs)]
 
-    def _plan(self, frame):
+    def _plan(self, frame, mode: int):
         # SideBySide2 interpolates on the first source frame as well (its
         # pair is the frame with itself)
         plan = self.cadence.on_source_frame(
             frame.pts, frame.nominal_fps,
-            first_frame_interpolates=(self.config.frame_output_mode
-                                      == warp_ops.SIDE_BY_SIDE_2))
+            first_frame_interpolates=mode == warp_ops.SIDE_BY_SIDE_2)
         if plan.inconsistent_detected:
             log.warning("Inconsistent frame timings detected. Using less "
                         "accurate frame timing method to maintain A/V sync.")
@@ -754,30 +844,34 @@ class InterpolationEngine:
             self._cur = self._use(frame)
         return OutputFrame(frame.pts, frame.fmt, frame.y, frame.uv)
 
+    def _model_for(self, level: int, knobs: PairKnobs) -> str:
+        """The model a level runs: its rung's, else the configured one as
+        the pair read it (a switch of `config.model` reaches level 0 and
+        every rung without a model of its own at the next pair)."""
+        return self._rung_models[level] or knobs.model
+
     def _pair_outputs(self, level: int, radius: int, f1: DeviceFrame,
                       f2: DeviceFrame, ts: torch.Tensor, cuts: torch.Tensor,
-                      flow_done=None):
-        """The body of one pair at the given level and radius: the flow
-        stage, the cut folded in (added in place to `cuts`, so a captured
-        graph adds at every replay), then every output of `ts`.  Returns
-        (y, uv, cut score or None); `flow_done` is called between the
-        stages (split timing).  push runs it once a pair, push_many k
-        times a group."""
-        geom, model = self._geoms[level], self._level_models[level]
+                      knobs: PairKnobs, flow_done=None):
+        """The body of one pair at the given level, radius and runtime
+        state: the flow stage, the cut folded in (added in place to
+        `cuts`, so a captured graph adds at every replay), then every
+        output of `ts`.  Returns (y, uv, cut score or None); `flow_done`
+        is called between the stages (split timing).  push runs it once a
+        pair, push_many k times a group."""
+        geom, model = self._geoms[level], self._model_for(level, knobs)
         blurred, frac, score = _flow_stage(
-            geom, self._scale_shift, self.config.scene_detection, model,
-            f1, f2, radius, self.config.delta_scalar,
-            self.config.neighbor_bias_scalar, self._layers_for(radius),
-            self.config.subpel_flow)
+            geom, self._scale_shift, knobs.scene_enabled, model,
+            f1, f2, radius, knobs.delta_scalar, knobs.neighbor_bias_scalar,
+            self._layers_for(radius), self.config.subpel_flow)
         if flow_done is not None:
             flow_done()
         cut = None
         if score is not None:
-            cut = score > self.config.scene_threshold
+            cut = score > knobs.scene_threshold
             cuts.add_(cut)
-        y, uv = _warp_stage(geom, self._scale_shift, self.levels,
-                            self.config.cut_policy,
-                            self.config.frame_output_mode,
+        y, uv = _warp_stage(geom, self._scale_shift, knobs.levels,
+                            self.config.cut_policy, knobs.mode,
                             self.config.warp_sampling, model,
                             (f1.y, f1.uv, f2.y, f2.uv), blurred, cut, ts,
                             frac)
@@ -797,32 +891,34 @@ class InterpolationEngine:
         A group of k pairs copies its k + 1 frames and its blend positions
         into static slots (``_GroupSlots``) and runs the pair body k times
         over them: on a card as one replay of a CUDA graph captured once
-        per key (level, layers, radius, k, n_batch, mode, model, sampler,
-        pixel format, geometry; ``_GroupGraph``, the last GRAPH_CACHE
-        kept), whose outputs are then copied out on the stream (the next
-        replay overwrites the graph's own); on the CPU eagerly, in place
-        of the replay.  Groups are chunked to the sizes in _GROUP_BUCKETS;
-        pairs whose output counts differ within a group are padded to the
-        group's largest count (padded outputs computed, never emitted).
-        Passthrough frames come out in stream order, and a geometry
-        switch drains the pending pairs first.  The quality controller is
+        per key (level, layers, radius, k, n_batch, the runtime state
+        ``PairKnobs``, model, sampler, pixel format, frame size;
+        ``_GroupGraph``, the last GRAPH_CACHE kept), whose outputs are
+        then copied out on the stream (the next replay overwrites the
+        graph's own); on the CPU eagerly, in place of the replay.  Groups
+        are chunked to the sizes in _GROUP_BUCKETS; pairs whose output
+        counts differ within a group are padded to the group's largest
+        count (padded outputs computed, never emitted).  Passthrough
+        frames come out in stream order; a geometry switch and a change
+        of the runtime state drain the pending pairs first.  The quality controller is
         updated once per group, and a timed group's duration (CUDA events
         around it, read one group later) is divided by its pair count.
         Adds up to `group_size` source intervals of latency: an encode
         path; playback keeps push()."""
         outputs: List[OutputFrame] = []
-        pending = []    # (f1, f2, blends, slots) awaiting a group
+        pending = []    # (f1, f2, blends, slots, knobs) awaiting a group
         for frame in frames:
-            if pending and self._fmt is not None and (
-                    frame.fmt.height, frame.fmt.stride, frame.fmt.width,
-                    frame.fmt.pixfmt) != (
-                    self._fmt.height, self._fmt.stride, self._fmt.width,
-                    self._fmt.pixfmt):
+            if pending and self._needs_geometry(frame.fmt):
                 # a geometry switch resets engine state: drain the old
                 # geometry's pairs first
                 self._flush_group(pending, outputs, group_size)
             self._ensure_geometry(frame.fmt)
-            plan = self._plan(frame)
+            knobs = self._knobs()
+            if pending and pending[-1][4] != knobs:
+                # a property changed: the pairs before it run as they were
+                # set, the pairs after it start a group of their own
+                self._flush_group(pending, outputs, group_size)
+            plan = self._plan(frame, knobs.mode)
             if plan.passthrough:
                 # emit in stream order: queued pairs precede this frame
                 self._flush_group(pending, outputs, group_size)
@@ -833,7 +929,7 @@ class InterpolationEngine:
             f1 = self._prev if self._prev is not None else self._cur
             pending.append((f1, self._cur,
                             tuple(slot.blend for slot in plan.outputs),
-                            plan.outputs))
+                            plan.outputs, knobs))
             if len(pending) >= group_size:
                 self._flush_group(pending, outputs, group_size)
         self._flush_group(pending, outputs, group_size)
@@ -853,21 +949,23 @@ class InterpolationEngine:
         self._collect_timing()
         self.quality.update(self._last_calc_duration, self.cadence)
         k = len(chunk)
-        for (_, f2, _, _), (f1, _, _, _) in zip(chunk, chunk[1:]):
+        for (_, f2, _, _, _), (f1, _, _, _, _) in zip(chunk, chunk[1:]):
             if f1 is not f2:
                 raise RuntimeError("a group's pairs must chain (each "
                                    "pair's newer frame the next one's "
                                    "older)")
-        n_batch = max(len(blends) for _, _, blends, _ in chunk)
+        knobs = chunk[0][4]
+        n_batch = max(len(blends) for _, _, blends, _, _ in chunk)
         radius = self.quality.search_radius
         level = self._active_level()
         fmt = self._fmt
-        key = (level, self._layers_for(radius), radius, k, n_batch,
-               self.config.frame_output_mode, self._level_models[level],
-               self.config.warp_sampling, fmt.pixfmt,
-               (fmt.height, fmt.stride, fmt.width))
+        # the flow geometry (max-calc-res) is not in the key: deriving it
+        # again drops every graph (_ensure_geometry)
+        key = (level, self._layers_for(radius), radius, k, n_batch, knobs,
+               self._model_for(level, knobs), self.config.warp_sampling,
+               fmt.pixfmt, (fmt.height, fmt.stride, fmt.width))
         padded = tuple(blends + (blends[-1],) * (n_batch - len(blends))
-                       for _, _, blends, _ in chunk)
+                       for _, _, blends, _, _ in chunk)
         ts = self._ts_for(padded)
         timed = self.config.measure_timing and key in self._group_warm
         on_cuda = self.device.type == "cuda"
@@ -880,7 +978,7 @@ class InterpolationEngine:
         def body(slots, cuts):
             return [self._pair_outputs(level, radius, slots.frames[j],
                                        slots.frames[j + 1], slots.ts[j],
-                                       cuts) for j in range(k)]
+                                       cuts, knobs) for j in range(k)]
 
         if on_cuda:
             graph = self._graphs.pop(key, None)
@@ -909,12 +1007,13 @@ class InterpolationEngine:
         self.group_stats["groups"] += 1
         self.group_stats["pairs"] += k
 
-        n_out = sum(len(out_slots) for _, _, _, out_slots in chunk)
+        n_out = sum(len(out_slots) for _, _, _, out_slots, _ in chunk)
         if not timed:
             self._last_calc_duration = 0.0
         elif on_cuda:
             end.record()
-            self._pending_timing = (start, None, end, n_out, k)
+            self._pending_timing = (start, None, end, n_out, k,
+                                    results[-1][2])
         else:
             self._record_duration((time.perf_counter() - t0) / k)
         if self.config.measure_timing:
@@ -924,7 +1023,8 @@ class InterpolationEngine:
         self._last_cut_score = results[-1][2]
         out_fmt = self._out_fmt()
         return [OutputFrame(slot.pts, out_fmt, y, uv, index=i)
-                for (y, uv, _), (_, _, _, out_slots) in zip(results, chunk)
+                for (y, uv, _), (_, _, _, out_slots, _) in zip(results,
+                                                               chunk)
                 for i, slot in enumerate(out_slots)]
 
     def _copy_out(self, outs):
@@ -969,9 +1069,20 @@ class InterpolationEngine:
 
     # telemetry
     def last_cut_score(self) -> float:
-        if self._last_cut_score is None:
+        """The last pair's cut score (0.0 before the first).  A getter of
+        the control surfaces, called from their threads: on a card it
+        serves the value that the pair's timing read-back brought to the
+        host (`_collect_timing`, on the engine's thread, after the pair's
+        end event) and never synchronises the card itself, which would be
+        illegal while the engine's thread captures a graph; untimed pairs
+        leave the last value read.  On the CPU the score is read as it
+        is."""
+        score = self._last_cut_score
+        if score is None:
             return 0.0
-        return float(self._last_cut_score)
+        if isinstance(score, torch.Tensor) and score.is_cuda:
+            return self._host_cut_score
+        return float(score)
 
     def scene_cuts(self) -> int:
         """How many pairs so far had a scene cut folded in (host sync)."""

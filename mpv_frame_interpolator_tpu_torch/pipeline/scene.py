@@ -9,6 +9,8 @@ snaps to the nearer source frame.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 
@@ -31,3 +33,15 @@ def cut_score(y1: torch.Tensor, y2: torch.Tensor, res_scalar: int,
     total = ((a - b).abs_() >> bit_shift).sum(dtype=torch.int64)
     return total.to(torch.float32) / a.numel()
 
+
+
+@dataclasses.dataclass
+class SceneChangeDetector:
+    """The runtime switch and threshold of scene-cut handling (the JAX
+    package's ``SceneChangeDetector``): the engine reads both every pair
+    and folds the cut in on the device; `last_score` is the last score
+    read back to the host."""
+
+    enabled: bool = True
+    threshold: float = 28.0     # mean |Y1-Y2| per low-res pixel, 8-bit scale
+    last_score: float = 0.0

@@ -10,8 +10,9 @@ packets; ``--osd`` against the port's own run without it).  The port
 reads through its native library (``--ingest auto``, and ``--ingest
 native`` where it is asked for) and through its Python readers
 (``--ingest python``); the JAX package reads through its Python readers
-here.  The flags whose modules the port does not have yet are refused
-by its parser.
+here.  Synthetic clips under ``--cache auto`` and a playlist of them are
+held against the JAX CLI too (``tests/test_torch_options.py`` holds the
+port's parser against every option of the JAX CLI's).
 
 Every JAX run is at 24 -> 60 fps on one 64x48 geometry, so the JAX
 engine compiles once a worker."""
@@ -313,17 +314,36 @@ def test_osd(tmp_path, fps):
             db[off + luma:off + luma * 3 // 2]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--save-position-on-quit"], ["--save-position-interval", "5"],
-    ["--no-resume"], ["--script", "x.py"], ["--interactive"],
-    ["--input-conf", "x.conf"], ["--no-input-default-bindings"],
-    ["--applet-fifo", "/tmp/x"], ["--ipc-server", "/tmp/x.sock"],
-    ["--profile-dir", "prof"], ["--config", "x.conf"]])
-def test_flags_of_later_modules_are_refused(capsys, flag):
-    with pytest.raises(SystemExit) as e:
-        port_cli.main(["synthetic:moving_box", "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+SYNTH = ["--width", str(W), "--height", str(H), "--frames", "6"]
+
+
+@pytest.mark.parametrize("options", [
+    ["--play-direction", "backward"],
+    ["--start", "0.1"],
+], ids=["backward", "start"])
+def test_cache_auto_spools_a_synthetic_clip(tmp_path, options):
+    """`--cache auto` caches any source that cannot seek by itself, a
+    synthetic clip included (the JAX CLI's rule): backward play works and
+    --start seeks the cache (to the last frame at or before it)."""
+    assert_same_bytes(*run_both(tmp_path, ["synthetic:moving_box"],
+                                [*SYNTH, *options]))
+
+
+def test_a_playlist_of_synthetic_clips(tmp_path):
+    """Two synthetic clips play as one playlist: the bytes of the same
+    clips written to y4m and played as a y4m playlist (the JAX CLI runs
+    that route; its own synthetic playlist fails on the first entry's
+    missing width)."""
+    ref = tmp_path / "ref.y4m"
+    clips = [write_y4m(tmp_path / f"{name}.y4m", frames(6, name=name))
+             for name in ("moving_box", "gradient_pan")]
+    assert jax_cli.main([*clips, *COMMON, "--frames", "6", "--no-resume",
+                         "-o", str(ref)]) == 0
+    out = tmp_path / "port.y4m"
+    assert port_cli.main(["synthetic:moving_box", "synthetic:gradient_pan",
+                          *COMMON, *SYNTH, "--device", "cpu",
+                          "-o", str(out)]) == 0
+    assert_same_bytes(ref, out)
 
 
 def test_an_unreadable_input_fails_with_a_message(tmp_path, monkeypatch):

@@ -1098,6 +1098,95 @@ def _same_frames(ref, got):
         np.testing.assert_array_equal(fa.uv, fb.uv)
 
 
+# properties set through api.Player just before the frame of that index:
+# each lands between two push_many calls, so between two groups
+GROUP_SCRIPT = {5: [("black-level", 16), ("white-level", 235)],
+                9: [("delta-scalar", 4), ("neighbor-bias-scalar", 2)],
+                13: [("scene-threshold", 3.0), ("search-radius", 5)],
+                17: [("frame-output-mode", 0), ("scene-detection", False)],
+                21: [("frame-output-mode", 2), ("model", "hopperx")],
+                25: [("model", "hopper"), ("max-calc-res", 64),
+                     ("scene-detection", True)]}
+
+
+def property_script_groups(device: str, group: int = 4):
+    """(push's outputs, push_many's outputs, push_many's engine) of one
+    clip under GROUP_SCRIPT, the same properties set on both engines at
+    the same frames (on the CPU push_many runs its body eagerly; on a card
+    it replays captured graphs, whose key must take every property)."""
+    from mpv_frame_interpolator_tpu_torch.api import Player
+    cfg = synthetic.SyntheticConfig(width=64, height=48, fps=24.0,
+                                    stride=80)
+    frames = list(synthetic.moving_box(cfg, 29))
+    players = [Player(E.EngineConfig(
+        device=device, display_fps=120.0, auto_quality=False,
+        initial_search_radius=16)) for _ in range(2)]
+    ref, got = [], []
+    cuts = [0, *sorted(GROUP_SCRIPT), len(frames)]
+    for a, b in zip(cuts, cuts[1:]):
+        for p in players:
+            for name, value in GROUP_SCRIPT.get(a, []):
+                p.set_property(name, value)
+        for f in frames[a:b]:
+            ref += players[0].engine.push(f)
+        got += players[1].engine.push_many(frames[a:b], group_size=group)
+    return ref, got, players[1].engine
+
+
+def test_property_changes_between_groups_equal_push(cuda):
+    """Property changes between push_many groups on the card (levels, both
+    scalars, the scene switch and threshold, radius, mode, model,
+    max-calc-res) give push's outputs: no graph captured under other
+    values is replayed."""
+    ref, got, e = property_script_groups(str(cuda))
+    torch.cuda.synchronize()
+    _same_frames(ref, got)
+    assert e.group_stats["captures"] >= len(GROUP_SCRIPT)
+
+
+def test_no_collection_lands_inside_a_capture(cuda, monkeypatch):
+    """A garbage collection during a capture that frees another engine's
+    graphs (a reference cycle: a Player and its engine) would destroy a
+    graph, which invalidates the capture.  Automatic collection is off
+    while a group graph captures; with a collection due at almost every
+    allocation and such garbage about, a new engine's captures succeed and
+    equal push."""
+    import gc
+    from mpv_frame_interpolator_tpu_torch.api import Player
+    cfg = synthetic.SyntheticConfig(width=64, height=48, fps=24.0)
+    frames = list(synthetic.moving_box(cfg, 9))
+    begin = torch.cuda.CUDAGraph.capture_begin
+    enabled = []
+
+    def capture_begin(self, *args, **kwargs):
+        enabled.append(gc.isenabled())
+        return begin(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                        capture_begin)
+
+    def player():
+        return Player(E.EngineConfig(device=str(cuda), display_fps=120.0,
+                                     auto_quality=False,
+                                     initial_search_radius=8))
+    old = player()
+    old.engine.push_many(frames, group_size=4)
+    assert old.engine.group_stats["captures"] > 0
+    del old                     # garbage in a cycle, graphs and all
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        got = player().engine.push_many(frames, group_size=8)
+    finally:
+        gc.set_threshold(*threshold)
+    assert enabled and not any(enabled)
+    assert gc.isenabled()
+    pushed = player().engine
+    ref = [o for f in frames for o in pushed.push(f)]
+    torch.cuda.synchronize()
+    _same_frames(ref, got)
+
+
 def test_graph_outputs_survive_the_next_replay(cuda):
     """Outputs of one group are copied out of the graph: replaying the
     same graph for the next group leaves them as they were."""

@@ -82,9 +82,9 @@ def test_no_jax_no_triton_no_cuda_init():
     assert proc.stdout.strip().endswith("CLEAN")
 
 
-_SMOKE_IMPORTS = {"__future__", "json", "os", "statistics", "subprocess",
-                  "sys", "tempfile", "time", "numpy", "torch",
-                  "mpv_frame_interpolator_tpu_torch"}
+_SMOKE_IMPORTS = {"__future__", "json", "os", "socket", "statistics",
+                  "subprocess", "sys", "tempfile", "threading", "time",
+                  "numpy", "torch", "mpv_frame_interpolator_tpu_torch"}
 
 
 def _chip_smoke():
@@ -233,26 +233,37 @@ def test_engine_config_from_jax_round_trip():
 
 
 @pytest.mark.parametrize("kw,override,err", [
-    (dict(frame_output_mode=5, stats_log_path="pairs.log"), {},
-     NotImplementedError),
-    (dict(model="hopperx", stats_log_path="pairs.log"), {},
-     NotImplementedError),
-    (dict(frame_output_mode=6, subpel_flow=True), dict(stats_log_path="x"),
-     NotImplementedError),
     (dict(subpel_flow=True), dict(initial_search_radius=257), ValueError),
     (dict(split_timing="always"), dict(split_timing="sometimes"),
      ValueError),
     (dict(degrade_rungs=()), dict(initial_search_radius=1), ValueError)])
 def test_engine_config_from_jax_rejects(kw, override, err):
-    """What still does not convert: a stats log (the one mechanism the
-    port leaves out), and values the JAX config itself refuses (put into
-    the mapping by hand), such as a radius outside [2, 256].  Radii above
-    16, the ladder, split timing and sub-pel flow convert
-    (test_engine_config_from_jax_auto_quality_path)."""
+    """What does not convert: values the JAX config itself refuses (put
+    into the mapping by hand), such as a radius outside [2, 256].  Radii
+    above 16, the ladder, split timing and sub-pel flow convert
+    (test_engine_config_from_jax_auto_quality_path), and so does the stats
+    log (test_engine_config_from_jax_stats_log); the port leaves no
+    mechanism out (`convert.OMITTED_AT_DEFAULT` is empty)."""
+    assert convert.OMITTED_AT_DEFAULT == {}
     mapping = dataclasses.asdict(jax_engine.EngineConfig(**kw))
     mapping.update(override)
     with pytest.raises(err):
         convert.engine_config_from_jax(mapping)
+
+
+@pytest.mark.parametrize("kw,override", [
+    (dict(frame_output_mode=5, stats_log_path="pairs.log"), {}),
+    (dict(model="hopperx", stats_log_path="pairs.log"), {}),
+    (dict(frame_output_mode=6, subpel_flow=True), dict(stats_log_path="x"))])
+def test_engine_config_from_jax_stats_log(kw, override):
+    """A stats log converts with the rest of the config (it refused to
+    before the port had one)."""
+    mapping = dataclasses.asdict(jax_engine.EngineConfig(**kw))
+    mapping.update(override)
+    pcfg = convert.engine_config_from_jax(mapping, device="cpu")
+    assert pcfg.stats_log_path == mapping["stats_log_path"]
+    for name in kw:
+        assert getattr(pcfg, name) == mapping[name], name
 
 
 @pytest.mark.parametrize("kw", [
@@ -350,10 +361,21 @@ def _old_package_imports(path: Path):
     return found
 
 
+# the modules of the control surfaces (copies of the JAX package's, none
+# of which imports jax, and all of which the port keeps as its own)
+CONTROL_MODULES = ("api.py", "options.py", "pipeline/resume.py",
+                   "control/__init__.py", "control/applet.py",
+                   "control/applet_client.py", "control/input.py",
+                   "control/ipc.py", "utils/trace.py")
+
+
 def test_the_port_imports_nothing_of_the_jax_package():
     files = sorted((REPO / "mpv_frame_interpolator_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    walked = {str(f.relative_to(REPO / "mpv_frame_interpolator_tpu_torch"))
+              for f in files[:-1]}
+    assert set(CONTROL_MODULES) <= walked
     bad = {str(f.relative_to(REPO)): _old_package_imports(f) for f in files}
     assert not {k: v for k, v in bad.items() if v}
 
@@ -375,6 +397,14 @@ sys.modules["mpv_frame_interpolator_tpu"] = None
 import mpv_frame_interpolator_tpu_torch.cli
 import mpv_frame_interpolator_tpu_torch.pipeline.engine
 import mpv_frame_interpolator_tpu_torch.io.sinks
+import mpv_frame_interpolator_tpu_torch.api
+import mpv_frame_interpolator_tpu_torch.options
+import mpv_frame_interpolator_tpu_torch.pipeline.resume
+import mpv_frame_interpolator_tpu_torch.control.applet
+import mpv_frame_interpolator_tpu_torch.control.applet_client
+import mpv_frame_interpolator_tpu_torch.control.input
+import mpv_frame_interpolator_tpu_torch.control.ipc
+import mpv_frame_interpolator_tpu_torch.utils.trace
 print("STANDS")
 """
 
