@@ -118,7 +118,19 @@ Phases (any failure raises and exits non-zero):
    K1's and K2's rows in the trace, and a second run resuming at the
    saved position with the bytes of a --start run there; (4) --config
    examples/mfi.conf --profile=baseline-3 / -4 (the 4K profiles): the
-   bytes of the flags written out.
+   bytes of the flags written out;
+18. the last modules on the card: ``utils/parity.run_parity`` over
+   FULL_CASES in every mode (28 rows, bit-exact against the oracle copy);
+   K1's layer slice (radius 16, slices of 4, 8 and 16 layers, every step,
+   8-bit and P010) and K2's row band (1, 2 and 4 bands, NV12 and P010 at
+   16/235) against their plain versions at 4K, timed; ``chip_pair_seconds``
+   at 4K beside the profiler's device ms a pushed pair; the pair pool on
+   two slots of this card, the multi-stream engine (sequential and
+   batched) and the stream farm (4 streams, one P010), every output equal
+   to single engines, with out-fps; the sharded step at 4K on world sizes
+   1 (nccl, in this process, its launches counted), 2 and 4 (gloo, a
+   process a rank on this card), equal to the single-device path, with
+   ms a pair; ``dryrun_multichip(4)``.
 
 The 4K synthetic CLI runs of phases 5-11 pass ``--cache no``: under
 ``--cache auto`` a synthetic clip, which cannot seek, is spooled to a
@@ -2513,6 +2525,358 @@ def phase_control(dev):
             resume.DEFAULT_DIR = saved_dir
 
 
+def slice_bound(geom, radius: int, n: int, item: int):
+    """(bound_ms, bound_by) of one rank's layer slices of a 4K pyramid:
+    K1's work (k1_bound) for n of its radius' layers, and each slice's
+    (min, layer) pair written once a window."""
+    lh, lw = geom.low_h, geom.low_w
+    cand = 2 * geom.iterations * n * lh * lw
+    planes = (H4K * W4K, H4K * W4K // 4, H4K * W4K // 4)
+    windows = sum(2 * -(-lh // w) * -(-lw // w)
+                  for w in geom.window_schedule())
+    nbytes = (sum(min(p, cand) for p in planes) * item + 3 * lh * lw * item
+              + 2 * lh * lw * 4 + 2 * windows * 4)
+    return bound(nbytes, 35 * cand)
+
+
+def phase_layer_slice(dev, rng, geom):
+    """K1's layer slice at 4K, radius 16, against its plain version:
+    slices of 4 and 8 layers (and all 16) at every window of the pyramid,
+    both axes, the neighbour bias where the pyramid has it, 8-bit and
+    P010; then one rank's slices of a pair (2 x iterations launches) timed
+    at each slice width.  Returns the entry of the kernels line (the
+    16-layer slices, world size 1) with the others under `slices`."""
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
+        pyramid_steps)
+    lh, lw, rs = geom.low_h, geom.low_w, geom.res_scalar
+    steps = pyramid_steps(geom.window_schedule(),
+                          F.FIRST_NEIGHBOR_ITERATION)
+    err = 0
+    timed = {}
+    for dt, luma_shift in ((np.uint8, 0), (np.uint16, 8)):
+        f1y, _, f1u, f1v = random_planes(rng, dev, dt)
+        f2y, _, f2u, f2v = random_planes(rng, dev, dt)
+        probe = F.subsampled_f2(geom, f2y, f2u, f2v)
+        ox = torch.from_numpy(block_field(rng, lh, lw, 8, 6, 64)).to(dev)
+        oy = torch.from_numpy(block_field(rng, lh, lw, 8, 6, 64)).to(dev)
+        for n in (4, 8, 16):
+            e = 0
+            for z0 in range(0, 16, n):
+                for window, is_y, nb in steps + ((1, 0, True),):
+                    args = (f1y, f1u, f1v, *probe, ox, oy, is_y, z0, n, 16,
+                            8, 6, window, nb, rs, geom.height, geom.stride,
+                            luma_shift)
+                    e = max(e, max_err(KS.flow_layer_slice(*args),
+                                       KS.flow_layer_slice_plain(*args)))
+            log(f"  K1 layer slice {np.dtype(dt).name} n={n}: every slice "
+                f"of radius 16 at every step: max_abs_err={e}")
+            err = max(err, e)
+            if dt == np.uint16:
+                continue
+            calls = [(f1y, f1u, f1v, *probe, ox, oy, is_y, 0, n, 16, 8, 6,
+                      window, nb, rs, geom.height, geom.stride, 0)
+                     for window, is_y, nb in steps]
+
+            def pair(calls=calls):
+                return [KS.flow_layer_slice(*a) for a in calls]
+
+            def pair_plain(calls=calls):
+                return [KS.flow_layer_slice_plain(*a) for a in calls]
+
+            timed[n] = dict(device_ms=device_ms(pair),
+                            ms=cuda_ms(pair, 10),
+                            plain_ms=cuda_ms(pair_plain, 2, 1),
+                            bound=slice_bound(geom, 16, n, 1))
+            r = timed[n]
+            log(f"  K1 layer slice n={n}, one rank's {len(calls)} slices of "
+                f"a pair: kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return dict(timed[16], max_abs_err=err, slices=timed)
+
+
+def phase_row_band(dev, rng, geom):
+    """K2's row band at 4K against its plain version and against K2's
+    whole planes: 1, 2 and 4 bands, NV12 at the default levels and P010
+    at 16/235, one position (the sharded warp's) and three; timed at each
+    band count on one position.  Returns the kernels-line entry (one band,
+    the whole frame) with the others under `bands`."""
+    from mpv_frame_interpolator_tpu_torch.ops import warp as W
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+    lh, lw, rs = geom.low_h, geom.low_w, geom.res_scalar
+    blurred = torch.from_numpy(np.stack([
+        block_field(rng, lh, lw, 8, 12, 96),
+        block_field(rng, lh, lw, 8, 12, 96)])).to(dev)
+    err = 0
+    timed = {}
+    for dt, ss, levels in ((np.uint8, 0, (0, 255)),
+                           (np.uint16, 8, W.level_ints(16, 235))):
+        f1y, f1uv, _, _ = random_planes(rng, dev, dt)
+        f2y, f2uv, _, _ = random_planes(rng, dev, dt)
+        for ts in ([0.4], [0.0, 0.4, 1.0]):
+            tt = torch.tensor(ts, dtype=torch.float32, device=dev)
+            args = (f1y, f1uv, f2y, f2uv, blurred, tt, rs, W4K)
+            whole = KW.pair_blend(*args, ss, levels)
+            for parts in (1, 2, 4):
+                bands = [KW.pair_blend_rows(*args, r0, r1, ss, levels)
+                         for r0, r1 in KW.band_rows(H4K, parts)]
+                e = max(max_err(b, KW.pair_blend_rows_plain(
+                    *args, r0, r1, ss, levels))
+                    for b, (r0, r1) in zip(bands, KW.band_rows(H4K, parts)))
+                e = max(e, max_err([torch.cat([b[0] for b in bands], 1),
+                                    torch.cat([b[1] for b in bands], 1)],
+                                   whole))
+                log(f"  K2 row band {np.dtype(dt).name} levels={levels} "
+                    f"N={len(ts)} {parts} bands: max_abs_err={e}")
+                err = max(err, e)
+                if dt != np.uint8 or len(ts) != 1:
+                    continue
+                r0, r1 = KW.band_rows(H4K, parts)[0]
+                a = (*args, r0, r1, ss, levels)
+                wb = warp_bound(1, 1, rs)
+                # ten launches a trace: a profiler trace can drop the
+                # rows of a lone short launch
+                timed[parts] = dict(
+                    device_ms=device_ms(lambda: [
+                        KW.pair_blend_rows(*a) for _ in range(10)]) / 10,
+                    ms=cuda_ms(lambda: KW.pair_blend_rows(*a), 20),
+                    plain_ms=cuda_ms(lambda: KW.pair_blend_rows_plain(*a),
+                                     3),
+                    bound=(wb[0] * (r1 - r0) / H4K, wb[1]))
+                r = timed[parts]
+                log(f"  K2 row band rows [{r0}, {r1}) of {parts} bands, "
+                    f"one position: kernel {r['ms']:.4f} ms (device "
+                    f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+                    f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return dict(timed[1], max_abs_err=err, bands=timed)
+
+
+def _warm_then_timed(run, warm, timed) -> tuple:
+    """run(warm), then run(timed) on the wall clock up to its last output
+    finished: (every output, the timed run's outputs, its seconds).  The
+    warm half pays each new engine's and stream's first allocations."""
+    outs = run(warm)
+    for o in outs:
+        o.block()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    more = run(timed)
+    for o in more:
+        o.block()
+    return outs + more, len(more), time.perf_counter() - t0
+
+
+def _equal_lists(a, b) -> bool:
+    """Whether two runs' outputs are equal: pts, and planes compared on
+    the card (a passthrough's host planes on the host), each output
+    waited for on the stream that made it."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.pts != y.pts:
+            return False
+        for p, q in zip(x.block().device_planes(), y.block().device_planes()):
+            if not isinstance(p, torch.Tensor) or \
+                    not isinstance(q, torch.Tensor):
+                p, q = (t.cpu().numpy() if isinstance(t, torch.Tensor)
+                        else t for t in (p, q))
+                if not np.array_equal(p, q):
+                    return False
+                continue
+            if p.dtype == torch.uint16:
+                p, q = p.view(torch.int16), q.view(torch.int16)
+            if not torch.equal(p, q):
+                return False
+    return True
+
+
+def phase_parallel(dev):
+    """Phase 18: the last modules on the card.  Parity (FULL_CASES in
+    every mode, 28 rows against the oracle copy), the two launch modes,
+    chip time on captured graphs beside the profiler's device ms, the pair
+    pool, the multi-stream engine and the farm against single engines,
+    the sharded step at world sizes 1 (nccl), 2 and 4 (gloo, every rank on
+    this card) at 4K, and the dry run on 4 ranks.  Returns (kernel
+    entries, the world-1 sharded step's launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch.io import synthetic as PS
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
+    from mpv_frame_interpolator_tpu_torch.parallel import dryrun
+    from mpv_frame_interpolator_tpu_torch.parallel.batch import (
+        PairParallelPool)
+    from mpv_frame_interpolator_tpu_torch.parallel.farm import StreamFarm
+    from mpv_frame_interpolator_tpu_torch.parallel.streams import (
+        MultiStreamEngine)
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
+        EngineConfig, InterpolationEngine)
+    from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
+    from mpv_frame_interpolator_tpu_torch.utils import parity
+    from mpv_frame_interpolator_tpu_torch.utils.chiptime import (
+        chip_pair_seconds)
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    rows = parity.run_parity(parity.FULL_CASES, tuple(parity.MODE_NAMES),
+                             device=str(dev))
+    bad = [name for name, ok in rows if not ok]
+    log(f"  parity: {len(rows) - len(bad)}/{len(rows)} bit-exact against "
+        f"the oracle copy ({time.perf_counter() - t0:.1f} s)")
+    check(len(rows) == 28 and not bad, f"parity rows failed: {bad}")
+
+    rng = np.random.default_rng(SEED + 18)
+    geom = F.FlowGeometry.create(H4K, W4K, W4K)
+    results = {"flow_layer_slice": phase_layer_slice(dev, rng, geom),
+               "pair_blend_rows": phase_row_band(dev, rng, geom)}
+    for name, r in results.items():
+        check(r["max_abs_err"] == 0, f"{name} disagrees with its plain "
+              f"version (max_abs_err {r['max_abs_err']})")
+
+    # chip time on captured graphs, beside the profiler's device time of
+    # pushed pairs of the same clip (gradient_pan, 5 outputs a pair)
+    t0 = time.perf_counter()
+    chip_ms = chip_pair_seconds(W4K, H4K, 5, 16, k1=4, k2=16,
+                                repeats=3) * 1e3
+    eng = InterpolationEngine(EngineConfig(
+        display_fps=120.0, auto_quality=False, initial_search_radius=16,
+        device=str(dev)))
+    clip = [eng.stage(f) for f in PS.gradient_pan(
+        PS.SyntheticConfig(width=W4K, height=H4K), 12, vx=3, vy=1)]
+    for f in clip[:4]:
+        eng.push(f)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in clip[4:]:
+            eng.push(f)
+        torch.cuda.synchronize()
+    prof_ms = sum(self_device_us(e) for e in prof.key_averages()) / 1e3 / 8
+    log(f"  chip time: {chip_ms:.4f} ms a pair from graphs of 4 and 16 "
+        f"pairs; profiler device time of 8 pushed pairs {prof_ms:.4f} ms a "
+        f"pair (ratio {chip_ms / prof_ms:.3f}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # the pool, the streams and the farm at 4K 24 -> 120, radius 16: 10
+    # frames a stream, the first 5 warm each path (its engines' and
+    # streams' first allocations), the last 5 timed
+    settings = dict(display_fps=120.0, auto_quality=False,
+                    measure_timing=False, initial_search_radius=16,
+                    device=str(dev))
+    config = EngineConfig(**settings)
+    p010_config = EngineConfig(black_level=16, white_level=235, **settings)
+    # streams 0-3 NV12, stream 4 P010 (the farm's fourth)
+    srcs = [list(PS.moving_box(PS.SyntheticConfig(
+        width=W4K, height=H4K, seed=SEED + k,
+        pixfmt="p010" if k == 4 else "nv12"), 10)) for k in range(5)]
+    warm, timed = range(5), range(5, 10)
+
+    def push_all(e, k):
+        return lambda steps: [o for i in steps for o in e.push(srcs[k][i])]
+
+    singles = []
+    for k in range(5):
+        e = InterpolationEngine(p010_config if k == 4 else config)
+        outs, n, sec = _warm_then_timed(push_all(e, k), warm, timed)
+        singles.append(outs)
+        if k == 0:
+            single_fps = n / sec
+    pool = PairParallelPool(config, devices=(dev, dev))
+    outs, n, sec = _warm_then_timed(
+        lambda steps: list(pool.run(srcs[0][i] for i in steps)), warm, timed)
+    check(_equal_lists(outs, singles[0]), "the pair pool's outputs differ "
+          "from a single engine's")
+    check(pool.pairs_per_slot() == [5, 4], f"the pool's slots ran "
+          f"{pool.pairs_per_slot()} pairs")
+    log(f"  pair pool on (cuda:0, cuda:0): {len(outs)} outputs equal to "
+        f"one engine's; {n / sec:.1f} out-fps against {single_fps:.1f} for "
+        f"one engine")
+    for batch in (False, True):
+        ms = MultiStreamEngine(config, n_streams=4, batch_dispatch=batch)
+        got = [[] for _ in range(4)]
+
+        def run_ms(steps, ms=ms, got=got):
+            new = []
+            for i in steps:
+                for k, o in ms.push_batch([s[i] for s in srcs[:4]]).items():
+                    got[k].extend(o)
+                    new.extend(o)
+            return new
+
+        _, n, sec = _warm_then_timed(run_ms, warm, timed)
+        check(all(_equal_lists(g, w) for g, w in zip(got, singles)),
+              f"the multi-stream engine (batch_dispatch={batch}) differs "
+              f"from single engines")
+        log(f"  multi-stream engine, 4 NV12 streams, batch_dispatch={batch}:"
+            f" outputs equal to single engines; {n / sec:.1f} out-fps in "
+            f"all against {single_fps:.1f} for one engine")
+    farm = StreamFarm(n_streams=4, configs=[config] * 3 + [p010_config])
+    farm_srcs = srcs[:3] + srcs[4:]
+    got = [[] for _ in range(4)]
+
+    def run_farm(steps):
+        new = []
+        for i in steps:
+            for k in range(4):
+                farm.submit(k, farm_srcs[k][i])
+        for k, batches in farm.drain_all(timeout=300).items():
+            for b in batches:
+                got[k].extend(b)
+                new.extend(b)
+        return new
+
+    try:
+        _, n, sec = _warm_then_timed(run_farm, warm, timed)
+    finally:
+        farm.close()
+    check(all(_equal_lists(g, w) for g, w in zip(got, singles[:3]
+                                                  + singles[4:])),
+          "the stream farm's outputs differ from single engines")
+    log(f"  stream farm, 4 streams (one P010 at 16/235) on 4 CUDA streams: "
+        f"outputs equal to single engines; {n / sec:.1f} out-fps in all "
+        f"against {single_fps:.1f} for one engine")
+
+    # the sharded step at 4K: world 1 on nccl in this process (its
+    # launches counted here), 2 and 4 on gloo (a process a rank)
+    f1, f2 = list(PS.moving_box(PS.SyntheticConfig(width=W4K, height=H4K,
+                                                   seed=SEED), 2))
+    planes = (f1.y, f1.uv[:, 0::2], f1.uv[:, 1::2],
+              f2.y, f2.uv[:, 0::2], f2.uv[:, 1::2])
+    launches = None
+    for world, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
+        t0 = time.perf_counter()
+        KS.slice_counts.reset()
+        KW.rows_counts.reset()
+        res = dryrun.run_sharded(world, planes, 16, (2,), 0.4, str(dev),
+                                 backend, reps=5 if world == 1 else 2,
+                                 arrays=False)
+        if world == 1:
+            launches = {"flow_layer_slice": KS.slice_counts.kernel,
+                        "pair_blend_rows": KW.rows_counts.kernel}
+        check(res["equal"], f"the sharded step on {world} ranks ({backend})"
+              " differs from the single-device path")
+        log(f"  sharded step at 4K, {world} rank(s) on {backend}: offset and "
+            f"outputs equal to the single-device path; ms a pair by rank "
+            f"{[round(m, 3) for m in res['ms_by_rank']]} "
+            f"({time.perf_counter() - t0:.1f} s: every rank started, joined "
+            f"and done at {', '.join(f'{x:.1f}' for x in res['seconds'])}"
+            f" s)")
+    steps = 2 * geom.iterations
+    # world 1: the checked step and 5 timed steps, each 2 x iterations
+    # slices and one band
+    check(launches == {"flow_layer_slice": 6 * steps,
+                       "pair_blend_rows": 6},
+          f"the world-1 sharded step launched {launches}")
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(4, device=str(dev), backend="gloo")
+    log(f"  dryrun_multichip(4) on gloo took "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return results, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke "
@@ -2599,6 +2963,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_control(dev)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    log("phase 18: the last modules on the card (parity against the "
+        "oracle copy, K1's layer slice and K2's row band, chip time on "
+        "graphs, pair pool, multi-stream engine, stream farm, the sharded "
+        "step at world sizes 1, 2 and 4, the dry run on 4 ranks)")
+    parallel_results, sharded_launches = phase_parallel(dev)
+    results.update(parallel_results)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
     # main path (K3 as the blur phase of K1's launches), K4 on the P010
@@ -2642,6 +3012,17 @@ def main() -> int:
         "subpel_refine": ("subpel.cu",
                           "mpv_frame_interpolator_tpu/ops/flow.py:833",
                           subpel_launches["subpel_refine"]),
+        # launch modes of K1 and K2 for the sharded step (phase 18, world
+        # size 1): they replace the XLA layer sums of the JAX package's
+        # shard_map body and its GSPMD row sharding
+        "flow_layer_slice": ("flow_step.cu",
+                             "mpv_frame_interpolator_tpu/parallel/"
+                             "sharding.py:60",
+                             sharded_launches["flow_layer_slice"]),
+        "pair_blend_rows": ("warp_pair.cu",
+                            "mpv_frame_interpolator_tpu/parallel/"
+                            "sharding.py:165",
+                            sharded_launches["pair_blend_rows"]),
         "pack_probe": ("pack_probe.cu", "tools/pallas_pack_probe.py:22",
                        probes["pack_probe"]["launches"]),
         "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",

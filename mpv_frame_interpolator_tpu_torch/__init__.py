@@ -35,6 +35,14 @@ and "gather" on K2, "fused" on K4, "pallas" on K5 and G1), search radii
   options.py           config files and profiles
   pipeline/resume.py   watch-later positions
   utils/trace.py       torch.profiler traces (the CLI's --profile-dir)
+  ops/oracle.py,       the NumPy oracle (a copy) and the kernels held
+  utils/parity.py      against it on the card (tools/parity_report.py)
+  ops/metrics.py       PSNR and mean |a - b| where the planes live
+  utils/chiptime.py    device time a pair from CUDA graphs of k pair
+                       bodies (tools/chip_time.py)
+  parallel/            the pair pool, the multi-stream engine, the stream
+                       farm, the layer- and row-sharded step over
+                       torch.distributed, and its dry run
 
 Its device work is hand-written CUDA kernels (``csrc/*.cu``), one for each
 Pallas kernel of the JAX package plus G1, Q1 and S1, each with a plain
@@ -42,10 +50,12 @@ PyTorch twin that is both its specification and its CPU path:
 
   ops/cuda/flow_step.py    K1: the whole flow pyramid of a pair in one
                            cooperative launch, with the blur (K3's tile
-                           body) as its last phase
+                           body) as its last phase; its layer slice (the
+                           sharded step's launch mode)
   ops/cuda/blur.py         K3: the 8x8 box blur of the flow field on its
                            own (the public ops/flow.blur_flow)
-  ops/cuda/warp_pair.py    K2: every blended output of one source pair
+  ops/cuda/warp_pair.py    K2: every blended output of one source pair;
+                           its row band (the sharded step's launch mode)
   ops/cuda/warp_fused.py   K4: the blended output of one blend position
   ops/cuda/warp_sample.py  K5: the raw samples of one direction at one
                            position (modes 0, 1, 3 and "pallas")

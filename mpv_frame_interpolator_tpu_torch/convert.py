@@ -68,6 +68,16 @@ def engine_config_from_jax(mapping: dict, device: str = "cuda"):
     return EngineConfig(**kwargs)
 
 
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" without a card raises (no entry
+    point of the port falls back to the CPU: the caller asks for it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: CUDA is not available "
+                           "(torch.cuda.is_available() is False)")
+    return device
+
+
 @dataclasses.dataclass
 class DeviceFrame:
     """A source frame whose planes live on a device: luma (H, stride) and

@@ -581,6 +581,166 @@ int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The layer slice: one pyramid step's window sums over the layers
+// [z0, z0 + n) of radius `radius`, and per window their first unsigned
+// minimum and the global layer that reaches it; no commit.  It replaces the
+// XLA function mpv_frame_interpolator_tpu/parallel/sharding.py:60
+// layer_slice_sums and the local argmin / min after it (:137-138): each rank
+// of the layer-sharded flow runs its slice, and the ranks' (min, layer)
+// pairs decide the winner (parallel/sharding.py).  The partials are those of
+// layer_partials above (the same mirrors, biases and order of the shift and
+// the delta scalar), so the sums are pyramid_kernel's phase A restricted to
+// the slice.
+//
+// What bounds it: the same work as phase A for n of the radius' layers (a
+// few MB touched, ~n x 4.4 M scalar operations at 4K); the design is the
+// simple one, not phase A's: a 32 x 8 tile of pixels a block and a chunk of
+// kSliceL layers a grid row, one layer at a time, each partial reduced over
+// its window's span of the warp with shuffles, and one atomicAdd a
+// (warp-row segment, layer) into sums zeroed by the entry; then one thread
+// a window takes the minimum over the slice.  Sums wrap mod 2^32 in any
+// order, so the result is exact.
+constexpr int kSliceL = 16;
+
+template <typename T, bool kIsY>
+__global__ void __launch_bounds__(kThreads) slice_sums_kernel(
+    const T* __restrict__ f1y, const T* __restrict__ f1u,
+    const T* __restrict__ f1v, const T* __restrict__ y2,
+    const T* __restrict__ u2, const T* __restrict__ v2,
+    const int* __restrict__ fx, const int* __restrict__ fy,
+    unsigned* __restrict__ sums, int z0, int n, int radius, int lg, int nb,
+    int ds, int nbs, int rs, int H, int W, int lh, int lw, int ypitch,
+    int cpitch, int luma_shift) {
+  const int tid = threadIdx.x;
+  const int tx = tid & (kTX - 1), ty = tid >> kLogTX;
+  const int ntx = (lw + kTX - 1) >> kLogTX;
+  const int x = ((blockIdx.x % ntx) << kLogTX) + tx;
+  const int y = ((blockIdx.x / ntx) << kLogTY) + ty;
+  const bool in = x < lw && y < lh;
+  const int nwx = ((lw - 1) >> lg) + 1;
+  const size_t wplane = (size_t)(((lh - 1) >> lg) + 1) * nwx;
+  const int half = radius / 2;
+  int own = 0, bx = 0, by = 0, py = 0, pu = 0, pv = 0;
+  int nv[4] = {0, 0, 0, 0};
+  const T* ry = f1y;
+  const T* ru = f1u;
+  const T* rv = f1v;
+  if (in) {
+    const int i = y * lw + x;
+    const int* axis = kIsY ? fy : fx;
+    own = axis[i];
+    if (nb) {  // the neighbour bias at +-2*window, clamped
+      const int w2 = 2 * min(1 << lg, 1 << 29);
+      nv[0] = axis[y * lw + min(x + w2, lw - 1)];
+      nv[1] = axis[y * lw + max(x - w2, 0)];
+      nv[2] = axis[min(y + w2, lh - 1) * lw + x];
+      nv[3] = axis[max(y - w2, 0) * lw + x];
+    }
+    bx = (x << rs) + fx[i];
+    by = (y << rs) + fy[i];
+    py = y2[i];
+    pu = u2[i];
+    pv = v2[i];
+    // the axis not stepped gives a fixed row (x step) or column (y step)
+    const int fixed = kIsY ? mirror_inside(bx, W) : mirror_inside(by, H);
+    ry += kIsY ? fixed : (size_t)fixed * ypitch;
+    ru += kIsY ? (fixed >> 1) : (size_t)(fixed >> 1) * cpitch;
+    rv += kIsY ? (fixed >> 1) : (size_t)(fixed >> 1) * cpitch;
+  }
+  const int seg = 1 << min(lg, kLogTX);
+  const int l0 = blockIdx.y * kSliceL;
+  const int l1 = min(l0 + kSliceL, n);
+  for (int l = l0; l < l1; ++l) {
+    unsigned p = 0u;
+    if (in) {
+      const int adj = signed_square(z0 + l - half);
+      const int probe = own + adj;
+      const int c = kIsY ? mirror_inside(by + adj, H)
+                         : mirror_inside(bx + adj, W);
+      const size_t oy = kIsY ? (size_t)c * ypitch : c;
+      const size_t oc = kIsY ? (size_t)(c >> 1) * cpitch : (c >> 1);
+      const unsigned sad =
+          __sad((int)ry[oy], py, __sad((int)ru[oc], pu,
+                                       __sad((int)rv[oc], pv, 0u)));
+      p = ((sad >> luma_shift) << ds) + (unsigned)abs(probe);
+      if (nb)
+        p += __sad(nv[0], probe, __sad(nv[1], probe, __sad(nv[2], probe,
+                   __sad(nv[3], probe, 0u)))) << nbs;
+    }
+    unsigned* plane = sums + (size_t)l * wplane;
+    if (lg == 0) {  // window 1: the pixel's own sum
+      if (in) plane[(size_t)y * lw + x] = p;
+      continue;
+    }
+    for (int off = seg >> 1; off > 0; off >>= 1)
+      p += __shfl_down_sync(0xffffffffu, p, off);
+    if (in && (tx & (seg - 1)) == 0)
+      atomicAdd(plane + (size_t)(y >> lg) * nwx + (x >> lg), p);
+  }
+}
+
+// per window: the first unsigned minimum over the slice's n layers and the
+// global layer z0 + l that reaches it
+__global__ void slice_min_kernel(const unsigned* __restrict__ sums,
+                                 unsigned* __restrict__ out_min,
+                                 int* __restrict__ out_arg, int n, int z0,
+                                 int wplane) {
+  const int wi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (wi >= wplane) return;
+  unsigned best = sums[wi];
+  int best_l = 0;
+  for (int l = 1; l < n; ++l) {
+    const unsigned v = sums[(size_t)l * wplane + wi];
+    if (v < best) {
+      best = v;
+      best_l = l;
+    }
+  }
+  out_min[wi] = best;
+  out_arg[wi] = z0 + best_l;
+}
+
+template <typename T>
+int launch_slice(const void* f1y, const void* f1u, const void* f1v,
+                 const void* y2, const void* u2, const void* v2,
+                 const void* fx, const void* fy, void* sums, void* out_min,
+                 void* out_arg, int z0, int n, int radius, int lg, int is_y,
+                 int nb, int ds, int nbs, int rs, int H, int W, int lh,
+                 int lw, int ypitch, int cpitch, int luma_shift,
+                 cudaStream_t s) {
+  const size_t wplane = (size_t)(((lh - 1) >> lg) + 1) * (((lw - 1) >> lg) + 1);
+  cudaError_t e = cudaSuccess;
+  if (lg > 0)  // window sums take atomics from zero
+    e = cudaMemsetAsync(sums, 0, (size_t)n * wplane * sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = ((lw + kTX - 1) / kTX) * ((lh + kTY - 1) / kTY);
+  const dim3 grid(ntiles, (n + kSliceL - 1) / kSliceL);
+  const T* a1y = static_cast<const T*>(f1y);
+  const T* a1u = static_cast<const T*>(f1u);
+  const T* a1v = static_cast<const T*>(f1v);
+  const T* a2y = static_cast<const T*>(y2);
+  const T* a2u = static_cast<const T*>(u2);
+  const T* a2v = static_cast<const T*>(v2);
+  const int* ix = static_cast<const int*>(fx);
+  const int* iy = static_cast<const int*>(fy);
+  unsigned* sm = static_cast<unsigned*>(sums);
+  if (is_y)
+    slice_sums_kernel<T, true><<<grid, kThreads, 0, s>>>(
+        a1y, a1u, a1v, a2y, a2u, a2v, ix, iy, sm, z0, n, radius, lg, nb, ds,
+        nbs, rs, H, W, lh, lw, ypitch, cpitch, luma_shift);
+  else
+    slice_sums_kernel<T, false><<<grid, kThreads, 0, s>>>(
+        a1y, a1u, a1v, a2y, a2u, a2v, ix, iy, sm, z0, n, radius, lg, nb, ds,
+        nbs, rs, H, W, lh, lw, ypitch, cpitch, luma_shift);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  slice_min_kernel<<<(unsigned)((wplane + 255) / 256), 256, 0, s>>>(
+      sm, static_cast<unsigned*>(out_min), static_cast<int*>(out_arg), n, z0,
+      (int)wplane);
+  return (int)cudaGetLastError();
+}
+
 // layers 5, 8 or 16 (the instantiation) and radius in [1, layers], or
 // layers 16 and radius in [17, 256] (chunks of 16 layers)
 bool valid_layers(int layers, int radius) {
@@ -640,4 +800,32 @@ extern "C" int mfi_flow_pyramid_occupancy(int sample_bytes, int layers,
                            : pyramid_for<uint8_t>(layers, radius);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                             kThreads, 0);
+}
+
+// The layer slice of one step on axis is_y: layers [z0, z0 + n) of radius
+// (1 <= n, z0 + n <= radius <= 256), window 2^lg, the neighbour bias when
+// nb; fx, fy: the committed (lh, lw) int32 field, read only; sums: n x
+// windows uint32 scratch; out_min (uint32) and out_arg (int32): one word a
+// window, (ceil(lh / 2^lg), ceil(lw / 2^lg)).  Planes and pitches as for
+// mfi_flow_pyramid.
+extern "C" int mfi_flow_layer_slice(
+    const void* f1y, const void* f1u, const void* f1v, const void* y2,
+    const void* u2, const void* v2, const void* fx, const void* fy,
+    void* sums, void* out_min, void* out_arg, int z0, int n, int radius,
+    int lg, int is_y, int nb, int ds, int nbs, int rs, int H, int W, int lh,
+    int lw, int ypitch, int cpitch, int sample_bytes, int luma_shift,
+    void* stream) {
+  if (n < 1 || z0 < 0 || z0 + n > radius || radius > kMaxRadius || lg < 0 ||
+      lg > 30)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sample_bytes == 2)
+    return launch_slice<uint16_t>(f1y, f1u, f1v, y2, u2, v2, fx, fy, sums,
+                                  out_min, out_arg, z0, n, radius, lg, is_y,
+                                  nb, ds, nbs, rs, H, W, lh, lw, ypitch,
+                                  cpitch, luma_shift, s);
+  return launch_slice<uint8_t>(f1y, f1u, f1v, y2, u2, v2, fx, fy, sums,
+                               out_min, out_arg, z0, n, radius, lg, is_y, nb,
+                               ds, nbs, rs, H, W, lh, lw, ypitch, cpitch,
+                               luma_shift, s);
 }

@@ -115,6 +115,78 @@ int launch(const void* f1y, const void* f1uv, const void* f2y,
                                            lh, lw, rs, ss, k, w, vec, s);
 }
 
+// The row band: pair_blend_kernel's output for rows [row0, row1) of a
+// plane of `rows` rows, into a band buffer of row1 - row0 rows a position.
+// The sources are read whole, at mirrored coordinates, as above: a band's
+// edge rows are interior rows of the frame.  It replaces the GSPMD row
+// sharding of mpv_frame_interpolator_tpu/parallel/sharding.py:165-176
+// (row_sharded_warp_fn): each rank of the row-sharded warp runs its band
+// (parallel/sharding.py).  A kernel of its own, so that the shipped
+// pair_blend_kernel's code and launches stay as they are.
+template <typename T, bool kChroma, int kLogSeg>
+__global__ void __launch_bounds__(kBX * kBY) pair_blend_rows_kernel(
+    const T* __restrict__ f1, const T* __restrict__ f2,
+    const int* __restrict__ blurred, const float* __restrict__ ts,
+    T* __restrict__ out, int n_out, int rows, int row0, int row1, int Wa,
+    int pitch, int lh, int lw, int rs, int ss, int k, int w, int vec) {
+  constexpr int kE = 16 / sizeof(T);
+  constexpr int kSeg = 1 << kLogSeg;
+  constexpr int kNSeg = kE / kSeg;
+  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * kE;
+  const int cy = row0 + blockIdx.y * blockDim.y + threadIdx.y;
+  if (x0 >= Wa || cy >= row1) return;
+  float fx12[kNSeg], fy12[kNSeg], fx21[kNSeg], fy21[kNSeg];
+  mfi::run_flows<kChroma, kSeg, kNSeg>(blurred, x0, cy, lh, lw, rs, fx12,
+                                       fy12, fx21, fy21);
+  const size_t plane = (size_t)(row1 - row0) * Wa;
+  for (int n = blockIdx.z; n < n_out; n += gridDim.z)
+    mfi::blend_run<T, kChroma, kLogSeg>(
+        f1, f2, fx12, fy12, fx21, fy21, ts[n],
+        out + n * plane + (size_t)(cy - row0) * Wa + x0, x0, cy, rows, Wa,
+        pitch, ss, k, w, vec);
+}
+
+template <typename T, int kLogSegY, int kLogSegC>
+struct LaunchRows {
+  static int run(const void* f1y, const void* f1uv, const void* f2y,
+                 const void* f2uv, const void* blurred, const void* ts,
+                 void* out_y, void* out_uv, int n, int H, int Wa, int pitch,
+                 int lh, int lw, int rs, int ss, int k, int w, int vec,
+                 int r0, int r1, cudaStream_t s) {
+    const int depth = sizeof(T) == 1 && n > 1 ? n : 1;
+    const dim3 gy = mfi::run_grid<T>(r1 - r0, Wa, depth);
+    pair_blend_rows_kernel<T, false, kLogSegY><<<gy, dim3(kBX, kBY), 0, s>>>(
+        static_cast<const T*>(f1y), static_cast<const T*>(f2y),
+        static_cast<const int*>(blurred), static_cast<const float*>(ts),
+        static_cast<T*>(out_y), n, H, r0, r1, Wa, pitch, lh, lw, rs, ss, k, w,
+        vec);
+    const int e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    const dim3 gc = mfi::run_grid<T>((r1 - r0) / 2, Wa, depth);
+    pair_blend_rows_kernel<T, true, kLogSegC><<<gc, dim3(kBX, kBY), 0, s>>>(
+        static_cast<const T*>(f1uv), static_cast<const T*>(f2uv),
+        static_cast<const int*>(blurred), static_cast<const float*>(ts),
+        static_cast<T*>(out_uv), n, H / 2, r0 / 2, r1 / 2, Wa, pitch, lh, lw,
+        rs, ss, k, w, vec);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T>
+int launch_rows(const void* f1y, const void* f1uv, const void* f2y,
+                const void* f2uv, const void* blurred, const void* ts,
+                void* out_y, void* out_uv, int n, int H, int Wa, int pitch,
+                int lh, int lw, int rs, int ss, int k, int w, int vec, int r0,
+                int r1, cudaStream_t s) {
+  const int item = (int)sizeof(T);
+  const void* planes[] = {f1y, f1uv, f2y, f2uv, out_y, out_uv};
+  if (vec && !mfi::vector_ok(planes, 6, pitch * item, Wa * item))
+    return (int)cudaErrorMisalignedAddress;
+  return mfi::dispatch_segments<T, LaunchRows>(
+      rs, f1y, f1uv, f2y, f2uv, blurred, ts, out_y, out_uv, n, H, Wa, pitch,
+      lh, lw, rs, ss, k, w, vec, r0, r1, s);
+}
+
 }  // namespace
 
 // out_y (n, H, Wa), out_uv (n, H/2, Wa); sources (H, pitch) and
@@ -134,4 +206,27 @@ extern "C" int mfi_pair_blend(const void* f1y, const void* f1uv,
                             n, H, Wa, pitch, lh, lw, rs, ss, k, w, vec, s);
   return launch<uint8_t>(f1y, f1uv, f2y, f2uv, blurred, ts, out_y, out_uv, n,
                          H, Wa, pitch, lh, lw, rs, ss, k, w, vec, s);
+}
+
+// The row band [r0, r1) of mfi_pair_blend's outputs: out_y (n, r1 - r0,
+// Wa) holds luma rows [r0, r1), out_uv (n, (r1 - r0) / 2, Wa) chroma rows
+// [r0 / 2, r1 / 2); r0 and r1 even, 0 <= r0 < r1 <= H.  Other arguments
+// as for mfi_pair_blend.
+extern "C" int mfi_pair_blend_rows(const void* f1y, const void* f1uv,
+                                   const void* f2y, const void* f2uv,
+                                   const void* blurred, const void* ts,
+                                   void* out_y, void* out_uv, int n, int H,
+                                   int Wa, int pitch, int lh, int lw, int rs,
+                                   int ss, int k, int w, int vec, int r0,
+                                   int r1, void* stream) {
+  if (r0 < 0 || r1 > H || r0 >= r1 || (r0 & 1) || (r1 & 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ss)
+    return launch_rows<uint16_t>(f1y, f1uv, f2y, f2uv, blurred, ts, out_y,
+                                 out_uv, n, H, Wa, pitch, lh, lw, rs, ss, k,
+                                 w, vec, r0, r1, s);
+  return launch_rows<uint8_t>(f1y, f1uv, f2y, f2uv, blurred, ts, out_y,
+                              out_uv, n, H, Wa, pitch, lh, lw, rs, ss, k, w,
+                              vec, r0, r1, s);
 }

@@ -50,6 +50,10 @@ _SIGNATURES = {
     # f1y_pitch f1c_pitch sample_bytes luma_shift | timeline stream
     "mfi_flow_pyramid": (P,) * 11 + (ctypes.POINTER(I),) + (I,) * 15
     + (P, P),
+    # f1y f1u f1v y2 u2 v2 fx fy sums out_min out_arg | z0 n radius lg
+    # is_y nb ds nbs rs H W lh lw f1y_pitch f1c_pitch sample_bytes
+    # luma_shift | stream
+    "mfi_flow_layer_slice": (P,) * 11 + (I,) * 17 + (P,),
     # sample_bytes layers radius | per_sm (one host int, out)
     "mfi_flow_pyramid_occupancy": (I, I, I, ctypes.POINTER(I)),
     # in out | lh lw | stream
@@ -60,6 +64,9 @@ _SIGNATURES = {
     # f1y f1uv f2y f2uv blurred ts out_y out_uv | n H Wa pitch lh lw rs
     # scale_shift black white vec | stream
     "mfi_pair_blend": (P,) * 8 + (I,) * 11 + (P,),
+    # f1y f1uv f2y f2uv blurred ts out_y out_uv | n H Wa pitch lh lw rs
+    # scale_shift black white vec r0 r1 | stream
+    "mfi_pair_blend_rows": (P,) * 8 + (I,) * 13 + (P,),
     # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
     # scale_shift black white vec | stream
     "mfi_fused_blend": (P,) * 8 + (I,) * 10 + (P,),

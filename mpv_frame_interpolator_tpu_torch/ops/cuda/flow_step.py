@@ -44,6 +44,7 @@ from mpv_frame_interpolator_tpu_torch.ops.flow import (
     MAX_RADIUS, mirror_inside, signed_square)
 
 counts = _build.LaunchCounts()
+slice_counts = _build.LaunchCounts()     # the layer slice's
 
 _MASK = 0xFFFFFFFF
 MAX_STEPS = 64          # csrc/flow_step.cu kMaxSteps
@@ -65,19 +66,21 @@ def kernel_layers(radius: int, layers=None) -> int:
                                                      KERNEL_LAYERS[-1]))
 
 
-def flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
-                    radius: int, ds: int, nbs: int, window: int,
-                    nb_enabled: bool, rs: int, H: int, W: int,
-                    luma_shift: int = 0):
-    """The step in plain PyTorch; uint32 arithmetic is int64 masked to
-    32 bits, which gives exact mod-2^32 sums and unsigned order.  The
-    planes are widened before they are indexed (CUDA does not index
-    uint16)."""
+def _window_sums_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
+                       layers, radius: int, ds: int, nbs: int, window: int,
+                       nb_enabled: bool, rs: int, H: int, W: int,
+                       luma_shift: int):
+    """One step's window sums of the candidate `layers` (a range of layer
+    indices of `radius`), (len(layers), nwy, nwx) int64 in [0, 2^32):
+    uint32 arithmetic is int64 masked to 32 bits, which gives exact
+    mod-2^32 sums and unsigned order.  The planes are widened before they
+    are indexed (CUDA does not index uint16)."""
     dev = off_x.device
     i64 = torch.int64
     f1y, f1u, f1v = (p.to(i64) for p in (f1y, f1u, f1v))
     lh, lw = off_x.shape
-    adj = signed_square(torch.arange(radius, dtype=i64, device=dev)
+    n = len(layers)
+    adj = signed_square(torch.tensor(list(layers), dtype=i64, device=dev)
                         - radius // 2)[:, None, None]
     cand_x = off_x.to(i64)[None] + adj * (1 - is_y)
     cand_y = off_y.to(i64)[None] + adj * is_y
@@ -104,17 +107,59 @@ def flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
         partial = partial + ((nb << nbs) & _MASK)
     partial = partial & _MASK
     nwy, nwx = -(-lh // window), -(-lw // window)
-    padded = torch.zeros((radius, nwy * window, nwx * window), dtype=i64,
+    padded = torch.zeros((n, nwy * window, nwx * window), dtype=i64,
                          device=dev)
     padded[:, :lh, :lw] = partial
-    sums = padded.reshape(radius, nwy, window, nwx, window).sum(dim=(2, 4))
-    lowest = torch.argmin(sums & _MASK, dim=0)     # first minimum
-    adj2 = signed_square(lowest - radius // 2).to(torch.int32)
-    adj2 = adj2.repeat_interleave(window, 0).repeat_interleave(window, 1)
-    adj2 = adj2[:lh, :lw]
+    sums = padded.reshape(n, nwy, window, nwx, window).sum(dim=(2, 4))
+    return sums & _MASK
+
+
+def commit_plain(off_x, off_y, is_y: int, lowest, radius: int, window: int):
+    """Commit the winning layer of each window (`lowest`, (nwy, nwx)) to
+    the stepped axis of every pixel of the window: its signed square
+    added to the field."""
+    lh, lw = off_x.shape
+    nwy, nwx = lowest.shape
+    adj = signed_square(lowest.to(torch.int64) - radius // 2).to(torch.int32)
+    # each window's value over its window x window pixels (an expand, not
+    # repeat_interleave, which synchronises a card to size its output)
+    adj = adj[:, None, :, None].expand(nwy, window, nwx, window).reshape(
+        nwy * window, nwx * window)[:lh, :lw]
     if is_y:
-        return off_x, off_y + adj2
-    return off_x + adj2, off_y
+        return off_x, off_y + adj
+    return off_x + adj, off_y
+
+
+def flow_step_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
+                    radius: int, ds: int, nbs: int, window: int,
+                    nb_enabled: bool, rs: int, H: int, W: int,
+                    luma_shift: int = 0):
+    """The step in plain PyTorch: every layer's window sums, the first
+    unsigned minimum of each window, the commit."""
+    sums = _window_sums_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y,
+                              range(radius), radius, ds, nbs, window,
+                              nb_enabled, rs, H, W, luma_shift)
+    lowest = torch.argmin(sums, dim=0)     # first minimum
+    return commit_plain(off_x, off_y, is_y, lowest, radius, window)
+
+
+def _as_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 of the same 32 bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def flow_layer_slice_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y,
+                           is_y: int, z0: int, n: int, radius: int, ds: int,
+                           nbs: int, window: int, nb_enabled: bool, rs: int,
+                           H: int, W: int, luma_shift: int = 0):
+    """The layer slice in plain PyTorch: (min, layer), each (nwy, nwx)
+    int32, the first unsigned minimum of the window sums of layers
+    [z0, z0 + n) (its 32 bits) and the global layer that reaches it."""
+    sums = _window_sums_plain(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y,
+                              range(z0, z0 + n), radius, ds, nbs, window,
+                              nb_enabled, rs, H, W, luma_shift)
+    best, arg = torch.min(sums, dim=0)      # first minimum
+    return _as_int32_bits(best), (arg + z0).to(torch.int32)
 
 
 def pyramid_steps(windows, first_nb_iteration: int):
@@ -160,16 +205,11 @@ def _check_scalars(radius: int, ds: int, nbs: int, luma_shift: int, steps):
                              f"[1, 2^30]")
 
 
-def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
-            ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
-            timeline=None, blur: bool = False, layers=None):
-    """One cooperative launch of the pyramid kernel over `steps`, from
-    (off_x, off_y), or from zero when both are None, on the instantiation
-    ``kernel_layers(radius, layers)``.  Returns the (2, lh, lw) int32
-    field it wrote, or (field, its blur) with `blur`."""
-    if timeline is not None:
-        _build.require(timeline, "timeline", torch.int64,
-                       (2 + 2 * len(steps) + int(blur),), y2.device)
+def _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs: int,
+                    H: int, W: int):
+    """The checks of a launch on the card: CUDA planes of one sample type
+    (uint8 or uint16), the probe and the field (when given) at the low-res
+    shape, f1 at least H x W, the field inside the frame."""
     lh, lw = y2.shape
     dev = y2.device
     sample = f1y.dtype
@@ -189,6 +229,21 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
                          f"{tuple(f1u.shape)} smaller than {H}x{W}")
     if (lh - 1) << rs >= H or (lw - 1) << rs >= W:
         raise ValueError("low-res field does not fit the frame")
+
+
+def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
+            ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
+            timeline=None, blur: bool = False, layers=None):
+    """One cooperative launch of the pyramid kernel over `steps`, from
+    (off_x, off_y), or from zero when both are None, on the instantiation
+    ``kernel_layers(radius, layers)``.  Returns the (2, lh, lw) int32
+    field it wrote, or (field, its blur) with `blur`."""
+    if timeline is not None:
+        _build.require(timeline, "timeline", torch.int64,
+                       (2 + 2 * len(steps) + int(blur),), y2.device)
+    _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs, H, W)
+    lh, lw = y2.shape
+    dev = y2.device
     # one sums buffer holds the largest step's window sums, or a window-1
     # step's per-pixel winners; the kernel ping-pongs between two
     words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
@@ -291,3 +346,51 @@ def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
                     ((window, is_y, nb_enabled),), radius, ds, nbs, rs, H, W,
                     luma_shift, layers=layers)
     return (off_x, field[1]) if is_y else (field[0], off_y)
+
+
+
+def flow_layer_slice(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
+                     z0: int, n: int, radius: int, ds: int, nbs: int,
+                     window: int, nb_enabled: bool, rs: int, H: int, W: int,
+                     luma_shift: int = 0):
+    """K1's layer slice: one pyramid step's window sums over the layers
+    [z0, z0 + n) of `radius` (candidates at signed_square(z - radius//2),
+    phase A's sums mod 2^32 with the probe and neighbour biases) and, per
+    window (nwy, nwx), their first minimum in unsigned order and the
+    global layer that reaches it; no commit.  Returns (min, layer), each
+    (nwy, nwx) int32 (min holds the 32 bits of the unsigned sum).  Planes
+    and the field as for ``flow_step``; the field is read, not written.
+
+    The layer-sharded flow (parallel/sharding.py) runs one slice a rank
+    and step.  CPU tensors take ``flow_layer_slice_plain``; CUDA tensors
+    launch the slice kernel (csrc/flow_step.cu ``mfi_flow_layer_slice``,
+    its own entry: the pyramid kernel's instantiations are untouched) or
+    raise.  ``slice_counts`` counts its launches."""
+    _check_scalars(radius, ds, nbs, luma_shift,
+                   ((window, is_y, nb_enabled),))
+    if not (n >= 1 and z0 >= 0 and z0 + n <= radius):
+        raise ValueError(f"layers [{z0}, {z0 + n}) are not a slice of "
+                         f"radius {radius}")
+    if off_x.device.type == "cpu":
+        slice_counts.plain += 1
+        return flow_layer_slice_plain(f1y, f1u, f1v, y2, u2, v2, off_x,
+                                      off_y, is_y, z0, n, radius, ds, nbs,
+                                      window, nb_enabled, rs, H, W,
+                                      luma_shift)
+    _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs, H, W)
+    lh, lw = y2.shape
+    dev = y2.device
+    nwy, nwx = -(-lh // window), -(-lw // window)
+    sums = torch.empty((n, nwy, nwx), dtype=torch.int32, device=dev)
+    best = torch.empty((nwy, nwx), dtype=torch.int32, device=dev)
+    arg = torch.empty_like(best)
+    rc = _build.load().mfi_flow_layer_slice(
+        f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
+        u2.data_ptr(), v2.data_ptr(), off_x.data_ptr(), off_y.data_ptr(),
+        sums.data_ptr(), best.data_ptr(), arg.data_ptr(), z0, n, radius,
+        window.bit_length() - 1, is_y, int(bool(nb_enabled)), ds, nbs, rs,
+        H, W, lh, lw, f1y.shape[1], f1u.shape[1], f1y.element_size(),
+        luma_shift, _build.stream_of(y2))
+    _build.check("flow_layer_slice", rc)
+    slice_counts.kernel += 1
+    return best, arg

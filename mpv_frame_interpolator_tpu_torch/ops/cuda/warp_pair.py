@@ -32,6 +32,7 @@ from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 
 counts = _build.LaunchCounts()
+rows_counts = _build.LaunchCounts()      # the row band's
 
 
 def _plane_plain(f1, f2, fields, ts, rs: int, rows: int, wa: int,
@@ -105,6 +106,20 @@ def vector_path(planes, actual_width: int) -> bool:
             and all(p.data_ptr() % RUN_BYTES == 0 for p in planes))
 
 
+def _require_planes(f1y, f1uv, f2y, f2uv, blurred, ts, sample, H: int,
+                    pitch: int):
+    """The checks of a launch on the card: contiguous CUDA planes on one
+    device, the sources of the sample type and shape, the flow int32, the
+    positions float32."""
+    dev = f1y.device
+    _build.require(f1y, "f1y", sample, (H, pitch), dev)
+    _build.require(f2y, "f2y", sample, (H, pitch), dev)
+    _build.require(f1uv, "f1uv", sample, (H // 2, pitch), dev)
+    _build.require(f2uv, "f2uv", sample, (H // 2, pitch), dev)
+    _build.require(blurred, "blurred", torch.int32, None, dev)
+    _build.require(ts, "ts", torch.float32, None, dev)
+
+
 def pair_blend(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
                actual_width: int, scale_shift: int = 0, levels=(0, 255)):
     """All blend positions `ts` of one pair.
@@ -127,12 +142,7 @@ def pair_blend(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
                                 actual_width, scale_shift, levels)
     dev = f1y.device
     hc = H // 2
-    _build.require(f1y, "f1y", sample, (H, pitch), dev)
-    _build.require(f2y, "f2y", sample, (H, pitch), dev)
-    _build.require(f1uv, "f1uv", sample, (hc, pitch), dev)
-    _build.require(f2uv, "f2uv", sample, (hc, pitch), dev)
-    _build.require(blurred, "blurred", torch.int32, None, dev)
-    _build.require(ts, "ts", torch.float32, None, dev)
+    _require_planes(f1y, f1uv, f2y, f2uv, blurred, ts, sample, H, pitch)
     n = ts.shape[0]
     _, lh, lw = blurred.shape
     y = torch.empty((n, H, actual_width), dtype=sample, device=dev)
@@ -145,4 +155,70 @@ def pair_blend(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
         _build.stream_of(f1y))
     _build.check("pair_blend", rc)
     counts.kernel += 1
+    return y, uv
+
+
+def band_rows(H: int, parts: int):
+    """[(r0, r1), ...]: `parts` row bands of a plane of H rows (H even),
+    each edge even so that chroma's half rows split with luma's; the last
+    band takes the remainder."""
+    if parts < 1 or H < 2 * parts:
+        raise ValueError(f"{H} rows do not split into {parts} bands")
+    base = (H // parts) & ~1
+    edges = [i * base for i in range(parts)] + [H]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def pair_blend_rows_plain(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
+                          actual_width: int, r0: int, r1: int,
+                          scale_shift: int = 0, levels=(0, 255)):
+    """The row band in plain PyTorch: ``pair_blend_plain``'s outputs, luma
+    rows [r0, r1) and chroma rows [r0/2, r1/2)."""
+    y, uv = pair_blend_plain(f1y, f1uv, f2y, f2uv, blurred, ts, rs,
+                             actual_width, scale_shift, levels)
+    return y[:, r0:r1].contiguous(), uv[:, r0 // 2:r1 // 2].contiguous()
+
+
+def pair_blend_rows(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
+                    actual_width: int, r0: int, r1: int,
+                    scale_shift: int = 0, levels=(0, 255)):
+    """K2's row band: ``pair_blend``'s outputs for luma rows [r0, r1) and
+    chroma rows [r0/2, r1/2) of every position, as (y (N, r1 - r0, Wa),
+    uv (N, (r1 - r0)/2, Wa)); r0 and r1 even.  The sources are read whole,
+    at mirrored coordinates, so the bands of a split stacked give
+    ``pair_blend``'s planes.  The row-sharded warp (parallel/sharding.py)
+    runs one band a rank.
+
+    CPU tensors take ``pair_blend_rows_plain``; CUDA tensors launch the
+    row-band kernel (csrc/warp_pair.cu ``mfi_pair_blend_rows``, its own
+    entry: the pair-blend kernel is untouched) or raise.
+    ``rows_counts`` counts its launches."""
+    H, pitch, sample = check_args(f1y, f1uv, f2y, f2uv, blurred,
+                                  actual_width, scale_shift)
+    if ts.dim() != 1:
+        raise ValueError("ts must be (N,)")
+    if not (0 <= r0 < r1 <= H and r0 % 2 == 0 and r1 % 2 == 0):
+        raise ValueError(f"rows [{r0}, {r1}) are not an even band of "
+                         f"{H} rows")
+    k, w = levels
+    if f1y.device.type == "cpu":
+        rows_counts.plain += 1
+        return pair_blend_rows_plain(f1y, f1uv, f2y, f2uv, blurred, ts, rs,
+                                     actual_width, r0, r1, scale_shift,
+                                     levels)
+    dev = f1y.device
+    _require_planes(f1y, f1uv, f2y, f2uv, blurred, ts, sample, H, pitch)
+    n = ts.shape[0]
+    _, lh, lw = blurred.shape
+    y = torch.empty((n, r1 - r0, actual_width), dtype=sample, device=dev)
+    uv = torch.empty((n, (r1 - r0) // 2, actual_width), dtype=sample,
+                     device=dev)
+    vec = vector_path((f1y, f1uv, f2y, f2uv, y, uv), actual_width)
+    rc = _build.load().mfi_pair_blend_rows(
+        f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
+        blurred.data_ptr(), ts.data_ptr(), y.data_ptr(), uv.data_ptr(),
+        n, H, actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(vec),
+        r0, r1, _build.stream_of(f1y))
+    _build.check("pair_blend_rows", rc)
+    rows_counts.kernel += 1
     return y, uv

@@ -113,7 +113,7 @@ import torch
 
 from mpv_frame_interpolator_tpu_torch import models
 from mpv_frame_interpolator_tpu_torch.convert import (
-    DeviceFrame, frame_to_device)
+    DeviceFrame, frame_to_device, require_device)
 from mpv_frame_interpolator_tpu_torch.frame import (
     NV12, FrameFormat, VideoFrame)
 from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
@@ -239,20 +239,30 @@ class OutputFrame:
 
     Warped outputs of one source pair share one batched tensor (from the
     pair-blend kernel) or one list of per-position planes; `index` selects
-    this frame's planes lazily."""
+    this frame's planes lazily.  `ready`, on a card: the CUDA event
+    recorded on the stream that computed the planes, after their work
+    (``ready_event``); ``block`` and ``to_video_frame`` wait for it, so a
+    consumer on another thread or stream (the stream farm's workers run
+    their engines on streams of their own) reads finished planes."""
 
-    __slots__ = ("pts", "fmt", "_y", "_uv", "_index")
+    __slots__ = ("pts", "fmt", "_y", "_uv", "_index", "_ready")
 
     def __init__(self, pts: float, fmt: FrameFormat, y, uv,
-                 index: Optional[int] = None):
+                 index: Optional[int] = None, ready=None):
         self.pts = pts
         self.fmt = fmt
         self._y = y
         self._uv = uv
         self._index = index
+        self._ready = ready
 
     def block(self):
-        """Wait until the frame's planes are computed."""
+        """Wait until the frame's planes are computed: for the event of
+        the stream that made them; a frame without one (a passthrough of
+        device planes) waits for the caller's current stream."""
+        if self._ready is not None:
+            self._ready.synchronize()
+            return self
         uv = self.device_planes()[1]
         if isinstance(uv, torch.Tensor) and uv.is_cuda:
             torch.cuda.current_stream(uv.device).synchronize()
@@ -265,9 +275,21 @@ class OutputFrame:
         return self._y[self._index], self._uv[self._index]
 
     def to_video_frame(self) -> VideoFrame:
+        self.block()
         y, uv = self.device_planes()
         return VideoFrame(_to_numpy(y), _to_numpy(uv), self.fmt,
                           pts=self.pts)
+
+
+def ready_event(device):
+    """On a card, an event recorded now on the current stream of `device`
+    (what ``OutputFrame.ready`` holds); None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 FLOW_MODELS = ("hopper", "hopperx", "hopperq", "hopperxq")
@@ -514,11 +536,7 @@ class _GroupGraph:
 class InterpolationEngine:
     def __init__(self, config: Optional[EngineConfig] = None):
         self.config = config or EngineConfig()
-        self.device = torch.device(self.config.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {self.config.device!r}: CUDA is not available "
-                "(torch.cuda.is_available() is False)")
+        self.device = require_device(self.config.device)
         self.cadence = CadenceEngine(self.config.display_fps,
                                      self.config.playback_speed)
         self.quality = QualityController(
@@ -819,7 +837,8 @@ class InterpolationEngine:
         self._warm = True
         self._last_cut_score = score
         out_fmt = self._out_fmt()
-        return [OutputFrame(slot.pts, out_fmt, y, uv, index=i)
+        ready = ready_event(self.device)
+        return [OutputFrame(slot.pts, out_fmt, y, uv, index=i, ready=ready)
                 for i, slot in enumerate(plan.outputs)]
 
     def _plan(self, frame, mode: int):
@@ -1022,7 +1041,8 @@ class InterpolationEngine:
         self._warm = True
         self._last_cut_score = results[-1][2]
         out_fmt = self._out_fmt()
-        return [OutputFrame(slot.pts, out_fmt, y, uv, index=i)
+        ready = ready_event(self.device)
+        return [OutputFrame(slot.pts, out_fmt, y, uv, index=i, ready=ready)
                 for (y, uv, _), (_, _, _, out_slots, _) in zip(results,
                                                                chunk)
                 for i, slot in enumerate(out_slots)]

@@ -45,3 +45,9 @@ class SceneChangeDetector:
     enabled: bool = True
     threshold: float = 28.0     # mean |Y1-Y2| per low-res pixel, 8-bit scale
     last_score: float = 0.0
+
+    def is_cut(self, score_value: float) -> bool:
+        """Record a score read back to the host; whether it is a cut (the
+        batched multi-stream path feeds each stream's score here)."""
+        self.last_score = float(score_value)
+        return self.enabled and self.last_score > self.threshold

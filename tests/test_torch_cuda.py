@@ -1335,3 +1335,173 @@ def test_native_ring_fills_page_locked_buffers(cuda, tmp_path, container):
         ref = frame_to_device(f, cuda)
         torch.cuda.synchronize()
         _equal((s.y, s.uv), (ref.y, ref.uv))
+
+
+# --- outputs across streams, the two launch modes, the parallel paths ---
+
+def test_an_output_read_at_once_from_another_thread_is_finished(cuda):
+    """A worker thread pushes under a side stream, behind a long kernel
+    on that stream, and hands the outputs over at once; the main thread
+    reads them straight away.  ``to_video_frame`` waits for the event of
+    the stream that made them (not the reader's current stream), so they
+    equal the outputs of an engine on the default stream, synchronised."""
+    import threading
+    from mpv_frame_interpolator_tpu_torch.io import synthetic as PS
+    cfg = PS.SyntheticConfig(width=1920, height=1088)
+    frames = list(PS.moving_box(cfg, 3))
+    config = E.EngineConfig(device=str(cuda), auto_quality=False,
+                            initial_search_radius=16)
+    ref = E.InterpolationEngine(config)
+    want = [o for f in frames for o in ref.push(f)]
+    torch.cuda.synchronize()
+    want = [o.to_video_frame() for o in want]
+    got = []
+    eng = E.InterpolationEngine(config)
+    side = torch.cuda.Stream(cuda)
+
+    def work():
+        with torch.cuda.stream(side):
+            for f in frames:
+                torch.cuda._sleep(20_000_000)
+                got.extend(eng.push(f))
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    read = [o.to_video_frame() for o in got]
+    assert len(read) == len(want)
+    for a, b in zip(read, want):
+        assert a.pts == b.pts
+        np.testing.assert_array_equal(a.y, b.y)
+        np.testing.assert_array_equal(a.uv, b.uv)
+
+
+@pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
+@pytest.mark.parametrize("h,w,stride,mcr", [(118, 202, 202, 270),
+                                            (48, 64, 80, 270),
+                                            (48, 64, 64, 24)])
+def test_flow_layer_slice(cuda, dt, luma_shift, h, w, stride, mcr):
+    """K1's layer slice against its plain version: every window of the
+    pyramid, both axes, with and without the neighbour bias, slices of a
+    radius-16 step, and a delta scalar whose sums wrap past 2^31."""
+    rng = np.random.default_rng(h + w)
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    lh, lw = geom.low_h, geom.low_w
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    off = [torch.from_numpy(rng.integers(-9, 10, (lh, lw)).astype(np.int32))
+           .to(cuda) for _ in range(2)]
+    for window in geom.window_schedule() + (1,):
+        for is_y, nb, ds, (z0, n) in ((0, False, 8, (0, 16)),
+                                      (1, True, 8, (4, 4)),
+                                      (0, True, 23, (8, 8)),
+                                      (1, False, 23, (15, 1))):
+            args = (y1, u1, v1, *probe, *off, is_y, z0, n, 16, ds, 6, window,
+                    nb, geom.res_scalar, geom.height, geom.stride,
+                    luma_shift)
+            got = KS.flow_layer_slice(*args)
+            want = KS.flow_layer_slice_plain(*args)
+            _equal(got, want)
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0))])
+@pytest.mark.parametrize("h,w,stride,parts", [(48, 64, 80, 2),
+                                              (544, 96, 96, 4),
+                                              (118, 202, 202, 3)])
+def test_pair_blend_rows(cuda, scale_shift, levels, h, w, stride, parts):
+    """K2's row band against its plain version, and the bands stacked
+    against K2's whole planes."""
+    rng = np.random.default_rng(h * parts)
+    dt = np.uint16 if scale_shift else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w)
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    blurred = torch.from_numpy(rng.integers(-30, 31, (2, geom.low_h,
+                                                      geom.low_w))
+                               .astype(np.int32)).to(cuda)
+    ts = torch.tensor([0.0, 0.4, 1.0], dtype=torch.float32, device=cuda)
+    lv = W.level_ints(*levels)
+    args = (y1, uv1, y2, uv2, blurred, ts, geom.res_scalar, w)
+    bands = [KW.pair_blend_rows(*args, r0, r1, scale_shift, lv)
+             for r0, r1 in KW.band_rows(h, parts)]
+    for (r0, r1), band in zip(KW.band_rows(h, parts), bands):
+        _equal(band, KW.pair_blend_rows_plain(*args, r0, r1, scale_shift,
+                                              lv))
+    whole = KW.pair_blend(*args, scale_shift, lv)
+    _equal((torch.cat([b[0] for b in bands], 1),
+            torch.cat([b[1] for b in bands], 1)), whole)
+
+
+def test_parity_report_on_the_card(cuda):
+    from mpv_frame_interpolator_tpu_torch.utils import parity
+    rows = parity.run_parity(parity.FULL_CASES, tuple(parity.MODE_NAMES),
+                             device=str(cuda))
+    assert len(rows) == 28
+    assert [name for name, ok in rows if not ok] == []
+
+
+def test_parallel_paths_on_the_card_equal_one_engine(cuda):
+    """The pair pool on two slots of one card, the multi-stream engine
+    (batched dispatch) and the farm, each equal to single engines."""
+    from mpv_frame_interpolator_tpu_torch.io import synthetic as PS
+    from mpv_frame_interpolator_tpu_torch.parallel.batch import (
+        PairParallelPool)
+    from mpv_frame_interpolator_tpu_torch.parallel.farm import StreamFarm
+    from mpv_frame_interpolator_tpu_torch.parallel.streams import (
+        MultiStreamEngine)
+    srcs = [list(PS.gradient_pan(PS.SyntheticConfig(width=320, height=180,
+                                                    seed=k), 5))
+            for k in range(3)]
+    config = E.EngineConfig(device=str(cuda), auto_quality=False,
+                            measure_timing=False, initial_search_radius=8)
+
+    def single(frames):
+        e = E.InterpolationEngine(config)
+        return [o.to_video_frame() for f in frames for o in e.push(f)]
+
+    def same(got, want):
+        got = [o.to_video_frame() for o in got]
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.pts == b.pts
+            np.testing.assert_array_equal(a.y, b.y)
+            np.testing.assert_array_equal(a.uv, b.uv)
+
+    want = [single(s) for s in srcs]
+    pool = PairParallelPool(config, devices=(cuda, cuda))
+    same(list(pool.run(srcs[0])), want[0])
+    ms = MultiStreamEngine(config, n_streams=3, batch_dispatch=True)
+    got = [[] for _ in srcs]
+    for step in range(5):
+        for k, outs in ms.push_batch([s[step] for s in srcs]).items():
+            got[k].extend(outs)
+    for g, w in zip(got, want):
+        same(g, w)
+    with StreamFarm(config, n_streams=3) as farm:
+        for step in range(5):
+            for k, s in enumerate(srcs):
+                farm.submit(k, s[step])
+        res = farm.drain_all(timeout=120)
+    for k, w in enumerate(want):
+        same([o for batch in res[k] for o in batch], w)
+
+
+def test_sharded_step_on_nccl_world_one(cuda):
+    from mpv_frame_interpolator_tpu_torch.parallel import dryrun
+    res = dryrun.dryrun_multichip(1, device=str(cuda), backend="nccl")
+    assert res["equal"]
+
+
+def test_entry_runs_on_the_card(cuda):
+    from mpv_frame_interpolator_tpu_torch.parallel import dryrun
+    fn, args = dryrun.entry(device=str(cuda))
+    y, u, v = fn(*args)
+    torch.cuda.synchronize()
+    assert [tuple(p.shape) for p in (y, u, v)] == [(1080, 1920),
+                                                   (540, 960), (540, 960)]
+    assert all(p.dtype == torch.uint8 and p.is_cuda for p in (y, u, v))

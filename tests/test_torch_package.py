@@ -367,6 +367,14 @@ CONTROL_MODULES = ("api.py", "options.py", "pipeline/resume.py",
                    "control/__init__.py", "control/applet.py",
                    "control/applet_client.py", "control/input.py",
                    "control/ipc.py", "utils/trace.py")
+# the last modules ported: the oracle copy, the metrics, the parity and
+# chip-time harnesses with their entry points, and parallel/
+LAST_MODULES = ("ops/oracle.py", "ops/metrics.py", "utils/parity.py",
+                   "utils/chiptime.py", "parallel/__init__.py",
+                   "parallel/batch.py", "parallel/streams.py",
+                   "parallel/farm.py", "parallel/sharding.py",
+                   "parallel/dryrun.py", "tools/parity_report.py",
+                   "tools/chip_time.py", "tools/multi_card.py")
 
 
 def test_the_port_imports_nothing_of_the_jax_package():
@@ -376,6 +384,7 @@ def test_the_port_imports_nothing_of_the_jax_package():
     walked = {str(f.relative_to(REPO / "mpv_frame_interpolator_tpu_torch"))
               for f in files[:-1]}
     assert set(CONTROL_MODULES) <= walked
+    assert set(LAST_MODULES) <= walked
     bad = {str(f.relative_to(REPO)): _old_package_imports(f) for f in files}
     assert not {k: v for k, v in bad.items() if v}
 
@@ -405,6 +414,12 @@ import mpv_frame_interpolator_tpu_torch.control.applet_client
 import mpv_frame_interpolator_tpu_torch.control.input
 import mpv_frame_interpolator_tpu_torch.control.ipc
 import mpv_frame_interpolator_tpu_torch.utils.trace
+import mpv_frame_interpolator_tpu_torch.parallel.sharding
+import mpv_frame_interpolator_tpu_torch.parallel.dryrun
+import mpv_frame_interpolator_tpu_torch.utils.parity
+import mpv_frame_interpolator_tpu_torch.utils.chiptime
+from mpv_frame_interpolator_tpu_torch.utils.parity import run_parity
+assert all(ok for _, ok in run_parity(device="cpu"))
 print("STANDS")
 """
 
