@@ -29,15 +29,18 @@ Phases (any failure raises and exits non-zero):
    blend of hopperq, with occlusion hopperxq) at NV12 default levels and
    P010 (16, 235), both occlusion settings, t in {0.2, 0.5, 0.8}, on the
    block and edge flows, and the same with a random sub-pel field (Q1's
-   kFrac instantiation); K1 with its blur phase at search radius 5, 8,
+   kFrac instantiation), each launch on its 16-byte runs held against the
+   plain version and against its per-sample launch (``vector=False``),
+   and on planes whose pitch is off the 16-byte grid (the per-sample
+   step alone); K1 with its blur phase at search radius 5, 8,
    16, 24 and 64 (the instantiations of 5, 8 and 16 layers and the
    16-layer chunks), 8-bit and P010, each with its device ms, its window
    sums' and commits' us and its bound; S1 (the sub-pel refinement) at
    8 bits and P010 on a pyramid field and on wild offsets;
 3b. the toolchain probes through their entry points: P1 (packed bytes)
    every probe OK, P2 (asynchronous copies) its matrix printed, the
-   aligned control OK under cp.async and TMA and every case that is not
-   REJECTED OK;
+   aligned control OK under cp.async and TMA, every case that is not
+   REJECTED OK, and every verdict the H100's (``--expect-h100``);
 4. the engine on the card against the engine on the CPU (the plain
    versions) on small clips at radius 5 and 16, scene cuts among them:
    8-bit NV12 under the "pair" sampler, and P010 with levels (16.5, 235)
@@ -513,6 +516,25 @@ def warp_bound(n: int, item: int, rs: int):
     return bound(nbytes, 6 * out + 30 * cells)
 
 
+def q1_bound(item: int, occlusion: bool, frac: bool, rs: int,
+             flow_ints: int):
+    """Bytes and operations of one bilinear blended 4K position (Q1): the
+    two source frames and the flow (and the sub-pel field) read once, the
+    output written once; per output sample ~28 scalar operations (for each
+    direction the three products and two sums of a row of taps twice and
+    once more across the rows, the float blend's two conversions, three
+    products, two sums, floor and conversion, the level map) and ~21 more
+    with the occlusion correction (both samples rounded, the ramp, the
+    mix); per flow cell ~40 (four flow loads, the back-projection, four
+    products and roundings, the tap offsets and weights) and ~8 more with
+    the sub-pel field -- the cell's work is shared by its samples."""
+    out = (H4K + H4K // 2) * W4K
+    cells = ((H4K >> rs) * (W4K >> rs)
+             + ((H4K // 2) >> rs) * (W4K >> (rs + 1)))
+    ops = (28 + 21 * occlusion) * out + (40 + 8 * frac) * cells
+    return bound(3 * out * item + 4 * flow_ints, ops)
+
+
 def phase_kernels(dev):
     """Phase 3: every kernel vs its plain version at the 4K shapes."""
     from mpv_frame_interpolator_tpu_torch.ops import flow as F
@@ -783,87 +805,79 @@ def phase_kernels(dev):
     # occlusion correction), NV12 at the default levels and P010 at
     # (16, 235), t in {0.2, 0.5, 0.8}, on the random planes (rows of the
     # top value) and the block field within +-96 and the one within +-400
-    # (negative displacements, cells pushed past every edge)
-    q1 = {}
-    err = 0
-    for dt, ss, levels in ((np.uint8, 0, (0, 255)),
-                           (np.uint16, 8, W.level_ints(16, 235))):
-        for occlusion in (False, True):
-            e = 0
-            for name, flow in (("block", blurred), ("edge", far)):
-                for t in (0.2, 0.8, 0.5):
-                    tt = torch.tensor(t, dtype=torch.float32, device=dev)
-                    args = (*warp_args(dt)[:4], flow, tt, rs, W4K, ss,
-                            levels, occlusion)
-                    e = max(e, max_err(KQ.bilinear_blend(*args),
-                                       KQ.bilinear_blend_plain(*args)))
-            log(f"  Q1 {W4K}x{H4K} scale_shift={ss} levels={levels} "
-                f"occlusion={occlusion}, block and edge flows, t in (0.2, "
-                f"0.8, 0.5): max_abs_err={e}")
-            err = max(err, e)
-            args = (*warp_args(dt), tt, rs, W4K, ss, levels, occlusion)
-            item = np.dtype(dt).itemsize
-            out = (H4K + H4K // 2) * W4K
-            q1[(ss, occlusion)] = dict(
-                device_ms=device_ms(lambda: KQ.bilinear_blend(*args)),
-                ms=cuda_ms(lambda: KQ.bilinear_blend(*args), 20),
-                plain_ms=cuda_ms(lambda: KQ.bilinear_blend_plain(*args), 3),
-                # the two source frames read once, the output written
-                # once, the flow read once; per output sample ~80 scalar
-                # operations (two 1/64-pel positions of two products and
-                # roundings each, eight mirrored taps and their addresses,
-                # twelve tap products, the float blend, the level map)
-                bound=bound(3 * out * item + blurred.numel() * 4, 80 * out))
-    for key, r in sorted(q1.items()):
-        log(f"  Q1 scale_shift={key[0]} occlusion={key[1]} t=0.5: kernel "
-            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})")
-    results["bilinear_blend"] = dict(q1[(0, True)], max_abs_err=err,
-                                     p010=q1[(8, True)], nv12=q1[(0, False)])
-
-    # Q1 with a sub-pel field (subpel_flow: its kFrac instantiation), a
-    # random field of 1/64 pels over the block and edge flows, NV12 at the
-    # default levels and P010 at (16, 235), both occlusion settings
+    # (negative displacements, cells pushed past every edge), then the
+    # same with a random sub-pel field (subpel_flow: the kFrac
+    # instantiation); each launch on the 16-byte runs held against the
+    # plain version and against the per-sample launch (vector=False), and
+    # the per-sample step alone on planes whose pitch is off the 16-byte
+    # grid
     frac = torch.from_numpy(rng.integers(0, 64, (2, lh, lw)).astype(
         np.int32)).to(dev)
-    q1f = {}
-    err = 0
-    for dt, ss, levels in ((np.uint8, 0, (0, 255)),
-                           (np.uint16, 8, W.level_ints(16, 235))):
+    for fr, key in ((None, "bilinear_blend"), (frac, "bilinear_blend_frac")):
+        q1 = {}
+        err = 0
+        what = "Q1" if fr is None else "Q1 with frac"
+        for dt, ss, levels in ((np.uint8, 0, (0, 255)),
+                               (np.uint16, 8, W.level_ints(16, 235))):
+            for occlusion in (False, True):
+                e = e_ps = 0
+                for name, flow in (("block", blurred), ("edge", far)):
+                    for t in (0.2, 0.8, 0.5):
+                        tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                        args = (*warp_args(dt)[:4], flow, tt, rs, W4K, ss,
+                                levels, occlusion, fr)
+                        got = KQ.bilinear_blend(*args)
+                        check(KW.vector_path((*args[:4], *got), W4K),
+                              "the 4K planes do not take Q1's 16-byte path")
+                        e = max(e, max_err(got,
+                                           KQ.bilinear_blend_plain(*args)))
+                        e_ps = max(e_ps, max_err(got, KQ.bilinear_blend(
+                            *args, vector=False)))
+                log(f"  {what} {W4K}x{H4K} scale_shift={ss} levels={levels} "
+                    f"occlusion={occlusion}, block and edge flows, t in "
+                    f"(0.2, 0.8, 0.5): max_abs_err={e} against the plain "
+                    f"version, {e_ps} against the per-sample launch")
+                err = max(err, e, e_ps)
+                args = (*warp_args(dt), tt, rs, W4K, ss, levels, occlusion,
+                        fr)
+                item = np.dtype(dt).itemsize
+                q1[(ss, occlusion)] = dict(
+                    device_ms=device_ms(lambda: KQ.bilinear_blend(*args)),
+                    per_sample_device_ms=device_ms(
+                        lambda: KQ.bilinear_blend(*args, vector=False)),
+                    ms=cuda_ms(lambda: KQ.bilinear_blend(*args), 20),
+                    plain_ms=cuda_ms(lambda: KQ.bilinear_blend_plain(*args),
+                                     3),
+                    bound=q1_bound(item, occlusion, fr is not None, rs,
+                                   blurred.numel() * (1 if fr is None
+                                                      else 2)))
+        # sources whose pitch (3848 samples, 8-bit) is off the 16-byte
+        # grid: every run of the launch takes the per-sample step
+        pitch = W4K + 8
+        odd = [torch.from_numpy(rng.integers(0, 256, (rows, pitch)).astype(
+            np.uint8)).to(dev) for rows in (H4K, H4K // 2) * 2]
+        check(not KW.vector_path(odd, W4K), "a pitch of 3848 bytes took "
+              "the 16-byte path")
         for occlusion in (False, True):
-            e = 0
-            for name, flow in (("block", blurred), ("edge", far)):
-                for t in (0.2, 0.8, 0.5):
-                    tt = torch.tensor(t, dtype=torch.float32, device=dev)
-                    args = (*warp_args(dt)[:4], flow, tt, rs, W4K, ss,
-                            levels, occlusion, frac)
-                    e = max(e, max_err(KQ.bilinear_blend(*args),
-                                       KQ.bilinear_blend_plain(*args)))
-            log(f"  Q1 with frac {W4K}x{H4K} scale_shift={ss} levels="
-                f"{levels} occlusion={occlusion}, block and edge flows, t in "
-                f"(0.2, 0.8, 0.5): max_abs_err={e}")
+            tt = torch.tensor(0.3, dtype=torch.float32, device=dev)
+            args = (*odd, blurred, tt, rs, W4K, 0, (0, 255), occlusion, fr)
+            e = max_err(KQ.bilinear_blend(*args),
+                        KQ.bilinear_blend_plain(*args))
+            log(f"  {what} pitch {pitch} occlusion={occlusion} (per-sample "
+                f"step only): max_abs_err={e}")
             err = max(err, e)
-            args = (*warp_args(dt), tt, rs, W4K, ss, levels, occlusion, frac)
-            item = np.dtype(dt).itemsize
-            out = (H4K + H4K // 2) * W4K
-            q1f[(ss, occlusion)] = dict(
-                device_ms=device_ms(lambda: KQ.bilinear_blend(*args)),
-                ms=cuda_ms(lambda: KQ.bilinear_blend(*args), 20),
-                plain_ms=cuda_ms(lambda: KQ.bilinear_blend_plain(*args), 3),
-                # Q1's bytes and the sub-pel field read once; Q1's ~80
-                # operations a sample and ~6 more (two frac reads' shifts
-                # and adds, the int-to-float conversions)
-                bound=bound(3 * out * item + 2 * blurred.numel() * 4,
-                            86 * out))
-    for key, r in sorted(q1f.items()):
-        log(f"  Q1 with frac scale_shift={key[0]} occlusion={key[1]} t=0.5: "
-            f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})")
-    results["bilinear_blend_frac"] = dict(q1f[(0, False)], max_abs_err=err,
-                                          p010=q1f[(8, True)],
-                                          nv12=q1f[(0, True)])
+        for k_, r in sorted(q1.items()):
+            log(f"  {what} scale_shift={k_[0]} occlusion={k_[1]} t=0.5: "
+                f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms; "
+                f"per-sample launch {r['per_sample_device_ms']:.4f} ms), "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
+                f"ms ({r['bound'][1]})")
+        if fr is None:
+            results[key] = dict(q1[(0, True)], max_abs_err=err,
+                                p010=q1[(8, True)], nv12=q1[(0, False)])
+        else:
+            results[key] = dict(q1[(0, False)], max_abs_err=err,
+                                p010=q1[(8, True)], nv12=q1[(0, True)])
 
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
@@ -890,7 +904,8 @@ def phase_probes(dev):
     for name, mod in (("pack_probe", PP), ("dma_probe", DP)):
         log(f"  python -m mpv_frame_interpolator_tpu_torch.tools.{name}:")
         mod.counts.reset()
-        rc = mod.main([])
+        # P2's verdicts must stay the H100's (dma_probe.H100_VERDICTS)
+        rc = mod.main(["--expect-h100"] if mod is DP else [])
         launches, plain = mod.counts.kernel, mod.counts.plain
         check(rc == 0, f"{name} failed (exit code {rc})")
         check(launches > 0 and plain == 0,

@@ -26,8 +26,10 @@
 // of 16 bytes (the source pitch and the output width); each C entry refuses
 // a vector launch on planes that do not qualify.
 //
-// The CPU models of these runs are tests/test_torch_warp_runs.py (K2) and
-// tests/test_torch_sample_runs.py (K4 and K5).
+// Q1 (warp_bilinear.cu) reads its windows -- both tap rows of both sources
+// -- with the same window_words.  The CPU models of these runs are
+// tests/test_torch_warp_runs.py (K2), tests/test_torch_sample_runs.py (K4
+// and K5) and tests/test_torch_bilinear_runs.py (Q1).
 
 #pragma once
 
@@ -97,24 +99,38 @@ int dispatch_segments(int rs, A... args) {
   return (int)cudaErrorInvalidValue;
 }
 
-// 16 bytes of `row` from byte `sb` on; `need` bytes of them are used, and
-// only the aligned chunks that hold those are read (rows start 16-byte
-// aligned)
-__device__ __forceinline__ void window16(const unsigned char* row, int sb,
-                                         int need, unsigned w[4]) {
+// kW words of `row` from byte sb on, of which the first kNeed bytes are
+// used: only the aligned 16-byte chunks that hold those are read (rows
+// start 16-byte aligned; a window of up to 20 bytes spans up to 3), then a
+// word select and __funnelshift_r.
+template <int kW, int kNeed>
+__device__ __forceinline__ void window_words(const unsigned char* row, int sb,
+                                             unsigned w[kW]) {
+  constexpr int kChunks = (kNeed + 30) / 16;  // the most a window spans
+  constexpr int kV = 4 * kChunks > kW + 4 ? 4 * kChunks : kW + 4;
   const int a = sb & ~15, o = sb & 15;
-  const uint4 c0 = __ldg(reinterpret_cast<const uint4*>(row + a));
-  uint4 c1 = make_uint4(0u, 0u, 0u, 0u);
-  if (o + need > 16) c1 = __ldg(reinterpret_cast<const uint4*>(row + a + 16));
-  const unsigned v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-  const int q = o >> 2;
-  unsigned u[5];
+  unsigned v[kV];
 #pragma unroll
-  for (int k = 0; k < 5; ++k)
-    u[k] = q == 0 ? v[k] : (q == 1 ? v[k + 1] : (q == 2 ? v[k + 2] : v[k + 3]));
+  for (int i = 0; i < kV; ++i) v[i] = 0u;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (c == 0 || o + kNeed > 16 * c) {
+      const uint4 chunk =
+          __ldg(reinterpret_cast<const uint4*>(row + a + 16 * c));
+      v[4 * c] = chunk.x;
+      v[4 * c + 1] = chunk.y;
+      v[4 * c + 2] = chunk.z;
+      v[4 * c + 3] = chunk.w;
+    }
+  }
+  const int q = o >> 2;
+  unsigned u[kW + 1];
+#pragma unroll
+  for (int i = 0; i <= kW; ++i)
+    u[i] = q == 0 ? v[i] : (q == 1 ? v[i + 1] : (q == 2 ? v[i + 2] : v[i + 3]));
   const unsigned sh = (unsigned)(o & 3) * 8u;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) w[k] = __funnelshift_r(u[k], u[k + 1], sh);
+  for (int i = 0; i < kW; ++i) w[i] = __funnelshift_r(u[i], u[i + 1], sh);
 }
 
 // sample j of a 16-byte window of T samples
@@ -143,10 +159,10 @@ __device__ __forceinline__ void segment_windows(const T* row, int xs, int dx,
   constexpr int item = sizeof(T);
   const unsigned char* r = reinterpret_cast<const unsigned char*>(row);
   const int odd = kChroma ? (dx & 1) : 0;
-  window16(r, (xs + dx - odd) * item, kSeg * item, a);
+  window_words<4, kSeg * item>(r, (xs + dx - odd) * item, a);
 #pragma unroll
   for (int q = 0; q < 4; ++q) b[q] = a[q];
-  if (odd) window16(r, (xs + dx + 1) * item, kSeg * item, b);
+  if (odd) window_words<4, kSeg * item>(r, (xs + dx + 1) * item, b);
 }
 
 // Whether every warped coordinate of the segment [xs, xs + seg) of row cy,

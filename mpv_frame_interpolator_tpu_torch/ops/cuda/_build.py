@@ -77,8 +77,8 @@ _SIGNATURES = {
     # vec occlusion | stream
     "mfi_blend_levels": (P,) * 7 + (I,) * 7 + (P,),
     # f1y f1uv f2y f2uv blurred frac t out_y out_uv | H Wa pitch lh lw rs
-    # scale_shift black white occlusion | stream
-    "mfi_bilinear_blend": (P,) * 9 + (I,) * 10 + (P,),
+    # scale_shift black white occlusion vec | stream
+    "mfi_bilinear_blend": (P,) * 9 + (I,) * 11 + (P,),
     # in out | n_words | stream
     "mfi_probe_b32": (P, P, I, P),
     # in out | R C shift method | stream
@@ -87,8 +87,9 @@ _SIGNATURES = {
     "mfi_probe_bytesel": (P,) * 4 + (I, I, P),
     # lo out | stream
     "mfi_probe_rep8": (P, P, P),
-    # src | src_row_bytes dy dx_bytes rows row_bytes width | out stream
-    "mfi_dma_cp_async": (P,) + (I,) * 6 + (P, P),
+    # src | src_row_bytes dy dx_bytes rows row_bytes width band_rows |
+    # out stream
+    "mfi_dma_cp_async": (P,) + (I,) * 7 + (P, P),
     # src | item H W dy dx rows cols | max_polls | load | out stream
     "mfi_dma_tma": (P,) + (I,) * 7 + (ctypes.c_longlong, I, P, P),
 }

@@ -8,12 +8,18 @@ warp.py:521-595``, bit-identical to its gather path ``_bilinear_sample``,
 ``_warp_sample``'s bilinear branch (:1007-1018, :1087-1105).  In plain
 PyTorch a position is eight gathers, some thirty integer ops and a float
 blend over every luma and chroma sample; Q1 is one launch that covers the
-luma plane and the interleaved chroma plane, one thread a sample, t read
-on the device.
+luma plane and the interleaved chroma plane on K5's 16-byte runs: a
+thread a 16-byte output run of a row, the flow and both 1/64-pel
+displacements once a flow-cell segment, interior segments read as
+aligned windows of their two rows in both sources (every tap from
+registers) and written with one 16-byte store, edge runs per sample; t
+read on the device.  ``tests/test_torch_bilinear_runs.py`` models the
+runs on the CPU.
 
-Bound on the card: operations -- a 4K position reads the two source
-frames and writes one (3 x 12.4 MB at 8 bits, ~11 us at 3.35 TB/s), and
-its ~80 scalar operations a sample take ~15 us at 67 TOP/s.
+Bound on the card: bytes -- a 4K position reads the two source frames
+and the flow once and writes one (3 x 12.4 MB at 8 bits, ~11.5 us at
+3.35 TB/s); with the cell's work shared a sample needs ~28 operations
+(~49 with the occlusion correction), ~5-9 us at 67 TOP/s.
 
 With the measured sub-pel flow (the ``subpel_flow`` option) a (2, lh,
 lw) int32 field ``frac`` in 1/64 pel comes with the flow, and the
@@ -41,7 +47,7 @@ bilinear_blend_plain = W.bilinear_blend
 
 def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
                    actual_width: int, scale_shift: int = 0, levels=(0, 255),
-                   occlusion: bool = False, frac=None):
+                   occlusion: bool = False, frac=None, vector: bool = True):
     """One blended position at 1/64-pel bilinear samples.
 
     f1y/f2y (H, stride) and f1uv/f2uv (H/2, stride) interleaved planes of
@@ -49,8 +55,11 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
     blurred (2, lh, lw) int32 flow; t a one-element float32 tensor on the
     planes' device; levels (k, w) as ints on the 8-bit scale
     (``ops/warp.level_ints``); occlusion True for hopperxq; frac None or
-    the (2, lh, lw) int32 sub-pel field.  Returns (y (H, Wa), uv (H/2,
-    Wa) interleaved) of the planes' dtype."""
+    the (2, lh, lw) int32 sub-pel field; vector False sends every run of
+    a launch on the card through the per-sample step (otherwise the
+    16-byte runs where the planes allow them, ``warp_pair.vector_path``).
+    Returns (y (H, Wa), uv (H/2, Wa) interleaved) of the planes'
+    dtype."""
     H, pitch, sample = warp_pair.check_args(f1y, f1uv, f2y, f2uv, blurred,
                                             actual_width, scale_shift)
     if actual_width % 2 or actual_width < 6:
@@ -78,12 +87,14 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
     k, w = levels
     y = torch.empty((H, actual_width), dtype=sample, device=dev)
     uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
+    vec = vector and warp_pair.vector_path((f1y, f1uv, f2y, f2uv, y, uv),
+                                           actual_width)
     rc = _build.load().mfi_bilinear_blend(
         f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
         blurred.data_ptr(), None if frac is None else frac.data_ptr(),
         t.data_ptr(), y.data_ptr(), uv.data_ptr(), H,
         actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(occlusion),
-        _build.stream_of(f1y))
+        int(vec), _build.stream_of(f1y))
     _build.check("bilinear_blend", rc)
     counts.kernel += 1
     return y, uv

@@ -44,7 +44,8 @@ as absent.  Prints, with the card's name and power limit:
 * Q1: device ms of one 4K bilinear position, 8-bit at the default
   levels with and without the occlusion correction (hopperxq, hopperq),
   and P010 with levels (16, 235) and the correction; and the same three
-  with a sub-pel field (where the tree takes one);
+  with a sub-pel field (where the tree takes one); the 8-bit position on
+  the per-sample step alone (``vector=False``, where the tree has it);
 * the engine alone (frames staged on the card): at 8 bits, wall ms per
   pair with a synchronise after each pair, and device ms per pair and
   busy share under torch.profiler; device ms per pair and busy share on
@@ -363,6 +364,12 @@ def main(argv=None) -> int:
     else:
         out["q1_frac_device_ms"] = out["q1_frac_occlusion_device_ms"] = \
             out["q1_frac_occlusion_p010_device_ms"] = "absent"
+    if KQ is not None and \
+            "vector" in inspect.signature(KQ.bilinear_blend).parameters:
+        out["q1_per_sample_device_ms"] = device_ms(lambda: KQ.bilinear_blend(
+            f1y, f1uv, f2y, f2uv, blurred, t, rs, W4K, vector=False))
+    else:
+        out["q1_per_sample_device_ms"] = "absent"
     for radius in (5, 8, 16, 24, 64):
         def pyr(radius=radius, **kw):
             return KS.flow_pyramid(f1y, f1u, f1v, *probe, radius, 8, 6,

@@ -559,6 +559,7 @@ def test_pack_probe(cuda):
 def test_dma_probe(cuda):
     rows = DP.matrix(cuda)
     assert DP.passed(rows)
+    assert DP.verdicts(rows) == DP.H100_VERDICTS
     # what the host's rule lets through runs on the card, and is right
     for (dtype, _, dx, _, cols), res in rows:
         item = torch.empty((), dtype=dtype).element_size()
@@ -644,12 +645,15 @@ def _iround(x):
 
 def q1_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, scale_shift=0,
              levels=(0, 255), occlusion=False, frac=None):
-    """csrc/warp_bilinear.cu's arithmetic in NumPy, addressed as the kernel
-    addresses each output sample: the flow and back-projected reverse flow
-    at the sample's cell, 1/64-pel positions from one float32 product
-    each, chroma read from the interleaved plane at column 2x + parity of
-    the half-width position x, the taps mirrored, the float32 blend in the
-    JAX order, the occlusion correction and the level maps.  With `frac`
+    """csrc/warp_bilinear.cu's arithmetic in NumPy, addressed as the kernel's
+    per-sample step addresses each output sample: the flow and
+    back-projected reverse flow at the sample's cell (the kernel reads them
+    once a flow-cell segment of its 16-byte run, the same cell; the runs
+    themselves are modelled in tests/test_torch_bilinear_runs.py),
+    1/64-pel positions from one float32 product each, chroma read from the
+    interleaved plane at column 2x + parity of the half-width position x,
+    the taps mirrored, the float32 blend in the JAX order, the occlusion
+    correction and the level maps.  With `frac`
     (the sub-pel field) each flow is (flow << 6) + frac, the reverse frac
     read at the back-projected cell, scaled by t (chroma t * 0.5).
     Returns (y, uv) of the planes' dtype."""
@@ -763,10 +767,44 @@ def test_bilinear_blend(cuda, scale_shift, levels, occlusion, h, w, stride):
             got = KQ.bilinear_blend(*args)
             assert KQ.counts.kernel == before + 1
             _equal(got, KQ.bilinear_blend_plain(*args))
+            _equal(got, KQ.bilinear_blend(*args, vector=False))
             model = q1_model(*host, flow, t, geom.res_scalar, w,
                              scale_shift, levels, occlusion)
             for g, m in zip(got, model):
                 np.testing.assert_array_equal(g.cpu().numpy(), m)
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0))])
+@pytest.mark.parametrize("h,w,stride,vec8,vec16", _RUN_SHAPES)
+def test_bilinear_blend_runs(cuda, scale_shift, levels, h, w, stride, vec8,
+                             vec16):
+    """Q1's 16-byte runs and its per-sample launch (vector=False), each
+    bit-exact with the plain version, hopperq and hopperxq with the sub-pel
+    field: flows within +-3 (most runs interior) and +-40 with wild cells,
+    t in {0, 0.4, 0.9999, 1}, res scalars 0-3."""
+    rng = np.random.default_rng(h + w + stride + scale_shift + 5)
+    dt = np.uint16 if scale_shift else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w)
+    f1 = _frames(rng, h, stride, cuda, dt)
+    f2 = _frames(rng, h, stride, cuda, dt)
+    levels = W.level_ints(*levels)
+    for lim in (3, 40):
+        blurred = torch.from_numpy(_q1_flow(rng, geom, lim)).to(cuda)
+        frac = torch.from_numpy(rng.integers(-32, 33, tuple(blurred.shape))
+                                .astype(np.int32)).to(cuda)
+        for fr, occlusion in ((None, False), (frac, True)):
+            for t in (0.0, 0.4, 0.9999, 1.0):
+                args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                        torch.tensor(t, device=cuda), geom.res_scalar, w,
+                        scale_shift, levels, occlusion, fr)
+                before = KQ.counts.kernel
+                got = KQ.bilinear_blend(*args)
+                assert KQ.counts.kernel == before + 1
+                assert KW.vector_path((*f1, *f2, *got), w) == (
+                    vec16 if scale_shift else vec8)
+                _equal(got, KQ.bilinear_blend_plain(*args))
+                _equal(got, KQ.bilinear_blend(*args, vector=False))
 
 
 @pytest.mark.parametrize("scale_shift", [0, 8])

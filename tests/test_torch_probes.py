@@ -72,6 +72,41 @@ def test_cp_async_alignment_rule(case, width):
     assert DP.cp_async_width(dx * item, cols * item, DP.W * item) == width
 
 
+@pytest.mark.parametrize("case", DP.CASES)
+def test_cp_async_bands_cover_every_row_once(case):
+    """The cp.async mechanism spreads a window over blocks, a band of rows
+    each: the bands cover every row of the window once, in order, each
+    (but the last) a multiple of 4 rows, so that every band starts
+    16-byte aligned in the output."""
+    dtype, _, _, rows, cols = case
+    row_bytes = cols * torch.empty((), dtype=dtype).element_size()
+    bands = DP.bands(rows, row_bytes)
+    covered = [r for r0, n in bands for r in range(r0, r0 + n)]
+    assert covered == list(range(rows))
+    n = DP.band_rows(row_bytes)
+    assert n % 4 == 0
+    assert all(r0 * row_bytes % 16 == 0 for r0, _ in bands)
+    assert all(k == n for _, k in bands[:-1]) and 0 < bands[-1][1] <= n
+    assert n * row_bytes <= max(DP.BAND_BYTES, 4 * row_bytes)
+    assert len(bands) > 1
+
+
+@pytest.mark.parametrize("case", DP.CASES)
+def test_the_host_refuses_every_illegal_cp_async_width(case):
+    """Every copy width that the window's start, its rows or the source's
+    rows do not allow is refused on the host; the width taken is the
+    widest one allowed."""
+    dtype, _, dx, _, cols = case
+    item = torch.empty((), dtype=dtype).element_size()
+    starts = (dx * item, cols * item, DP.W * item)
+    legal = [w for w in (16, 8, 4) if all(b % w == 0 for b in starts)]
+    assert DP.cp_async_width(*starts) == (legal[0] if legal else None)
+    src = DP.source(dtype)
+    if not legal:
+        with pytest.raises(DP.Rejected, match="no 4-, 8- or 16-byte"):
+            DP.cp_async_window(src, *case[1:])
+
+
 def test_dma_matrix_on_the_cpu():
     """On the CPU the plain version stands in for both mechanisms; the
     cp.async rule still rejects the cases it rejects on the card."""
@@ -81,6 +116,9 @@ def test_dma_matrix_on_the_cpu():
                    ("REJECTED", "OK"), ("OK", "OK"), ("REJECTED", "OK"),
                    ("REJECTED", "OK"), ("OK", "OK")]
     assert DP.passed(rows)
+    # the host's cp.async column agrees with the card's verdicts
+    assert [v[0] for v in DP.verdicts(rows)] == [
+        v[0] for v in DP.H100_VERDICTS]
 
 
 def test_dma_window_is_the_probe_window():

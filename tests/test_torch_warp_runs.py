@@ -38,27 +38,30 @@ RUN = KW.RUN_BYTES
 
 def _row_samples(src, rows, starts, count, item):
     """count samples of `src` rows `rows` from column `starts` on, read as
-    the kernel does: bytes of the 16-byte window assembled from the
-    aligned chunks around it.  Also returns whether each window's chunk
-    reads stay in the row."""
+    the kernels' window_words reads them: the bytes of the window assembled
+    from the aligned 16-byte chunks around it, chunk c read only when the
+    window's count * item bytes reach into it (0 where a chunk was not
+    read).  Also returns whether every chunk read stays in the row."""
     row_bytes = src.shape[1] * item
     raw = src.contiguous().view(torch.uint8).to(torch.int64)
     sb = starts * item
     a, o = sb & ~(RUN - 1), sb & (RUN - 1)
     need = count * item
-    second = o + need > RUN              # the second chunk is read
-    legal = (a >= 0) & (a + RUN <= row_bytes) & (
-        ~second | (a + 2 * RUN <= row_bytes))
+    chunks = (need + 30) // RUN          # the most a window spans
+    legal = a >= 0
+    for c in range(chunks):
+        read = (o + need > RUN * c) if c else torch.ones_like(o, dtype=bool)
+        legal = legal & (~read | (a + RUN * (c + 1) <= row_bytes))
     out = []
     for j in range(count):
         v = torch.zeros_like(sb)
         for b in range(item):
             k = j * item + b             # byte k of the window
             idx = (sb + k).clamp(0, row_bytes - 1)
-            # from the first chunk, or from the second one if it was read
-            # (zero otherwise, as the kernel's registers hold)
-            byte = torch.where((o + k < RUN) | second, raw[rows, idx], 0)
-            v = v | (byte << (8 * b))
+            read = (o + k) // RUN == 0
+            for c in range(1, chunks):
+                read = read | (((o + k) // RUN == c) & (o + need > RUN * c))
+            v = v | (torch.where(read, raw[rows, idx], 0) << (8 * b))
         out.append(v)
     return torch.stack(out, dim=-1), legal
 
