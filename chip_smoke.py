@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build the port's CUDA kernels from ``mpv_frame_interpolator_tpu_torch/
    csrc`` with nvcc, one process per source, all started together (timed,
-   with ptxas' resource report);
+   with ptxas' resource report): K1's main-path instantiations at most 64
+   registers and no spills, 4 blocks an SM;
 3. each kernel against its plain PyTorch version on the card, at the 4K
    shapes of the paths below, inputs made from a numpy seed: bit-exact,
    with the median times of both (CUDA events) -- K1 (eight single steps,
@@ -36,7 +37,11 @@ Phases (any failure raises and exits non-zero):
    16, 24 and 64 (the instantiations of 5, 8 and 16 layers and the
    16-layer chunks), 8-bit and P010, each with its device ms, its window
    sums' and commits' us and its bound; S1 (the sub-pel refinement) at
-   8 bits and P010 on a pyramid field and on wild offsets;
+   8 bits and P010: as two phases of K1's launch at radius 5, 16 and 24
+   (the pyramid, S1's phases and the blur of the 1/64-pel field in one
+   launch, against the pyramid, ``subpel_refine_plain`` and the plain
+   blur, the phases' us from the kernel's timeline), and the standalone
+   entry on a pyramid field and on wild offsets;
 3b. the toolchain probes through their entry points: P1 (packed bytes)
    every probe OK, P2 (asynchronous copies) its matrix printed, the
    aligned control OK under cp.async and TMA, every case that is not
@@ -53,7 +58,8 @@ Phases (any failure raises and exits non-zero):
    rungs 1-3 pinned (res scalars 3 and 4 of a 544-row frame) -- with each
    case's launches: blend, repeat and the blend rung no K1, hopperx K5
    twice and G1 once an output, hopperq and hopperxq Q1 once an output,
-   the sub-pel flow S1 and the standalone K3 once a pair;
+   the sub-pel flow S1's phases inside K1's launch once a pair and no
+   standalone S1 or K3;
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
    the launch counters of K1 and K2 must move during that run (K1
@@ -77,8 +83,8 @@ Phases (any failure raises and exits non-zero):
 10. ``--model hopperx`` through the CLI at 4K: K5 twice and G1 once an
    output;
 11. ``--model hopperq --subpel-flow`` through the CLI at 4K: K1 once a
-   pair without its blur phase, S1 and the standalone K3 once a pair, Q1
-   (with the sub-pel field) once an output;
+   pair with S1's phases and the blur phase inside it, no standalone S1
+   or K3, Q1 (with the sub-pel field) once an output;
 12. the auto-quality ladder on the card: an engine at 4K 24 -> 120 fed
    over-budget durations walks radius 16 -> 5 and levels 1 -> 2 -> 3
    (the blend family), then recovers in reverse, every pair equal to a
@@ -124,9 +130,13 @@ Phases (any failure raises and exits non-zero):
    bytes of the flags written out;
 18. the last modules on the card: ``utils/parity.run_parity`` over
    FULL_CASES in every mode (28 rows, bit-exact against the oracle copy);
-   K1's layer slice (radius 16, slices of 4, 8 and 16 layers, every step,
-   8-bit and P010) and K2's row band (1, 2 and 4 bands, NV12 and P010 at
-   16/235) against their plain versions at 4K, timed; ``chip_pair_seconds``
+   K1's layer slice (radius 16, slices of 4, 8 and 16 layers, every step
+   and window 1, 8-bit and P010, each launch committing two ranks' pairs
+   first) and K2's row band (1, 2 and 4 bands, NV12 and P010 at 16/235)
+   against their plain versions at 4K, timed, one rank's pair one slice
+   launch a step and the closing commit with no other device row; the
+   sharded flow at world size 1 on nccl profiled (one slice launch a
+   step, no memset), with its ms a pair; ``chip_pair_seconds``
    at 4K beside the profiler's device ms a pushed pair; the pair pool on
    two slots of this card, the multi-stream engine (sequential and
    batched) and the stream farm (4 streams, one P010), every output equal
@@ -139,9 +149,10 @@ The 4K synthetic CLI runs of phases 5-11 pass ``--cache no``: under
 ``--cache auto`` a synthetic clip, which cannot seek, is spooled to a
 temporary file.
 
-On every path but the sub-pel one the blur runs inside K1's launch once
-a pair and K3's standalone kernel never, G1 runs only on the "pallas"
-and hopperx paths, and Q1 only on the hopperq / hopperxq paths.
+On every path the blur runs inside K1's launch once a pair and K3's
+standalone kernel never (under the sub-pel flow S1's phases run in the
+same launch, before it), G1 runs only on the "pallas" and hopperx
+paths, and Q1 only on the hopperq / hopperxq paths.
 
 Each path's counters are set to 0 just before it runs and read just
 after.  The port against the NumPy oracle on the card is a test:
@@ -179,6 +190,22 @@ SEED = 20261016
 # published figures for the part at its full 700 W
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+
+
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel name: (registers, spilled bytes)} from ptxas'
+    verbose report."""
+    out, name, spilled = {}, None, 0
+    for line in text.splitlines():
+        words = line.split()
+        if "Compiling entry function" in line:
+            name, spilled = line.split("'")[1], 0
+        elif "bytes spill stores" in line and name:
+            spilled = sum(int(w) for w, nxt in zip(words, words[1:])
+                          if nxt == "bytes" and w.isdigit()) - int(words[0])
+        elif "Used" in words and name:
+            out[name] = (int(words[words.index("Used") + 1]), spilled)
+    return out
 
 
 def log(msg: str):
@@ -462,42 +489,95 @@ def subpel_bound(geom, item: int):
 
 def phase_subpel(dev, rng, geom):
     """S1 (the sub-pel refinement) at 4K against its plain version, 8-bit
-    and P010, on a committed pyramid field and on a field of wild offsets
-    (probes past every edge); timed on the pyramid field."""
+    and P010: as two phases of K1's launch (``flow_pyramid(...,
+    subpel=True)``, radius 5, 16 and 24: the field equal to the pyramid's
+    without them, the blurred 1/64-pel field equal to the plain refinement
+    and blur of that field; the phases' us from the kernel's timeline),
+    and the standalone entry on a committed pyramid field and on a field
+    of wild offsets (probes past every edge); timed on the pyramid
+    field."""
     from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
     from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
     lh, lw = geom.low_h, geom.low_w
+    windows = geom.window_schedule()
+    steps = 2 * geom.iterations
     res = {}
     err = 0
     for dt, luma_shift in ((np.uint8, 0), (np.uint16, 8)):
+        tag = np.dtype(dt).name
         f1y, _, f1u, f1v = random_planes(rng, dev, dt)
         f2y, _, f2u, f2v = random_planes(rng, dev, dt)
         probe = F.subsampled_f2(geom, f2y, f2u, f2v)
-        field = KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6,
-                                geom.window_schedule(),
-                                F.FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
-                                geom.height, geom.stride, luma_shift)
+        sub = (f1y, f1u, f1v, *probe, geom.res_scalar, geom.height,
+               geom.stride, luma_shift)
+        for radius in (5, 16, 24):
+            args = (f1y, f1u, f1v, *probe, radius, 8, 6, windows,
+                    F.FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
+                    geom.height, geom.stride, luma_shift)
+            before = (KS.counts.kernel, KP.counts.kernel, KP.counts.fused,
+                      KB.counts.kernel, KB.counts.fused)
+            field, b64 = KS.flow_pyramid(*args, subpel=True)
+            after = (KS.counts.kernel, KP.counts.kernel, KP.counts.fused,
+                     KB.counts.kernel, KB.counts.fused)
+            check([a - b for a, b in zip(after, before)] == [1, 0, 1, 0, 1],
+                  f"the pyramid with S1's phases launched {after} after "
+                  f"{before}")
+            want = KS.flow_pyramid(*args)
+            e = max_err([field, b64], [want, KB.blur_flow_plain(
+                KP.subpel_refine_plain(want, *sub))])
+            log(f"  K1 + S1 + K3 {tag} radius {radius}, one launch: "
+                f"max_abs_err={e} against the pyramid, subpel_refine_plain "
+                f"and blur_flow_plain")
+            err = max(err, e)
+        # inside the radius-16 launch: S1's two phases and the blur phase
+        args = (f1y, f1u, f1v, *probe, 16, 8, 6, windows,
+                F.FIRST_NEIGHBOR_ITERATION, geom.res_scalar, geom.height,
+                geom.stride, luma_shift)
+        stamps = torch.zeros((10, 5 + 2 * steps), dtype=torch.int64,
+                             device=dev)
+        for row in stamps:
+            KS.flow_pyramid(*args, timeline=row, subpel=True)
+        d = stamps.diff(dim=1).median(dim=0).values.cpu().numpy() / 1e3
+        phases_us = (float(d[-3]), float(d[-2]), float(d[-1]))
+        log(f"  K1 + S1 + K3 {tag} inside the launch, us: the steps "
+            f"{d[:-3].sum():.2f}, S1's probe phase {phases_us[0]:.2f}, its "
+            f"fit phase {phases_us[1]:.2f}, the blur phase "
+            f"{phases_us[2]:.2f}")
+        field = KS.flow_pyramid(*args)
         wild = torch.from_numpy(rng.integers(-400, 401, (2, lh, lw)).astype(
             np.int32)).to(dev)
         for name, offset in (("pyramid", field), ("wild", wild)):
-            args = (offset, f1y, f1u, f1v, *probe, geom.res_scalar,
-                    geom.height, geom.stride, luma_shift)
-            got = KP.subpel_refine(*args)
-            want = KP.subpel_refine_plain(*args)
+            before = KP.counts.kernel
+            got = KP.subpel_refine(offset, *sub)
+            check(KP.counts.kernel == before + 1, "the standalone S1 took "
+                  "other than one launch")
+            want = KP.subpel_refine_plain(offset, *sub)
             e = max_abs_err(got, want)
             refined = int(((got - (offset << 6)) != 0).any(0).sum())
-            log(f"  S1 {np.dtype(dt).name} {name} field: max_abs_err={e}, "
+            log(f"  S1 standalone {tag} {name} field: max_abs_err={e}, "
                 f"{refined} of {lh * lw} pixels refined")
             err = max(err, e)
-        args = (field, f1y, f1u, f1v, *probe, geom.res_scalar, geom.height,
-                geom.stride, luma_shift)
         item = np.dtype(dt).itemsize
-        res[item] = dict(device_ms=device_ms(lambda: KP.subpel_refine(*args)),
-                         ms=cuda_ms(lambda: KP.subpel_refine(*args), 20),
-                         plain_ms=cuda_ms(lambda: KP.subpel_refine_plain(
-                             *args), 5),
-                         bound=subpel_bound(geom, item))
+        res[item] = dict(
+            device_ms=device_ms(lambda: KP.subpel_refine(field, *sub)),
+            ms=cuda_ms(lambda: KP.subpel_refine(field, *sub), 20),
+            plain_ms=cuda_ms(lambda: KP.subpel_refine_plain(field, *sub),
+                             5),
+            bound=subpel_bound(geom, item),
+            phases_ms=(phases_us[0] + phases_us[1]) / 1e3,
+            k1_subpel_device_ms=device_ms(lambda: KS.flow_pyramid(
+                *args, subpel=True)),
+            k1_blur_device_ms=device_ms(lambda: KS.flow_pyramid(
+                *args, blur=True)))
+        r = res[item]
+        log(f"  S1 {tag}: phases in K1's launch {r['phases_ms']:.4f} ms "
+            f"(timeline); K1 with them {r['k1_subpel_device_ms']:.4f} "
+            f"device ms against {r['k1_blur_device_ms']:.4f} with the blur "
+            f"phase alone; standalone kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     return dict(res[1], max_abs_err=err, p010=res[2])
 
 
@@ -1108,11 +1188,15 @@ def phase_reference(dev):
         flow = 0 if model in ("blend", "repeat") or level == 3 else pairs
         blended = mode == 2
         subpel = extra.get("subpel_flow", False)
-        check(launches["subpel_refine"] == (flow if subpel else 0)
-              and launches["blur_flow"] == (flow if subpel else 0),
+        # S1 and the blur run as phases of K1's launch, never on their own
+        check(launches["subpel_refine"] == launches["blur_flow"] == 0
+              and counts["subpel_refine"].fused == (flow if subpel else 0)
+              and counts["blur_flow"].fused == flow,
               f"{what}: S1 and the standalone K3 launched "
               f"{launches['subpel_refine']} and {launches['blur_flow']} "
-              f"times for {pairs} pairs")
+              f"times, S1's and K3's phases ran "
+              f"{counts['subpel_refine'].fused} and "
+              f"{counts['blur_flow'].fused} times for {pairs} pairs")
         check(launches["flow_step"] == flow,
               f"{what}: K1 launched {launches['flow_step']} times for "
               f"{pairs} pairs")
@@ -1201,6 +1285,7 @@ def run_cli(dev, frames: int, extra):
         wall = time.perf_counter() - t0
         launches = {k: c.kernel for k, c in counts.items()}
         launches["blur_fused"] = counts["blur_flow"].fused
+        launches["subpel_fused"] = counts["subpel_refine"].fused
         plain = {k: c.plain for k, c in counts.items()}
         with open(stats_path) as fh:
             stats = json.load(fh)
@@ -1231,16 +1316,17 @@ def run_cli(dev, frames: int, extra):
           f"a plain version ran on the path: {plain}")
     check(stats["scene_cuts"] == 0, "scene cut fired on a smooth clip")
     pairs = frames - 1
-    # under --subpel-flow the pyramid runs without its blur phase, S1 and
-    # the standalone K3 once a pair; otherwise the blur is K1's last phase
+    # the blur is K1's last phase; under --subpel-flow S1's two phases run
+    # in the same launch before it: no standalone S1 or K3
     subpel = "--subpel-flow" in extra
     check(launches["flow_step"] == pairs
-          and launches["blur_fused"] == (0 if subpel else pairs)
-          and launches["blur_flow"] == (pairs if subpel else 0)
-          and launches["subpel_refine"] == (pairs if subpel else 0),
+          and launches["blur_fused"] == pairs
+          and launches["subpel_fused"] == (pairs if subpel else 0)
+          and launches["blur_flow"] == launches["subpel_refine"] == 0,
           f"K1 and its blur phase launched {launches['flow_step']} and "
-          f"{launches['blur_fused']} times for {pairs} pairs, K3 on its "
-          f"own {launches['blur_flow']} times, S1 "
+          f"{launches['blur_fused']} times for {pairs} pairs, S1's phases "
+          f"{launches['subpel_fused']} times, K3 on its own "
+          f"{launches['blur_flow']} times, S1 "
           f"{launches['subpel_refine']} times (subpel_flow {subpel})")
     model = extra[extra.index("--model") + 1] if "--model" in extra \
         else "hopper"
@@ -1327,13 +1413,15 @@ def phase_hopperx_path(dev):
 
 def phase_subpel_path(dev):
     """Phase 11: model hopperq with the measured sub-pel flow, CLI at 4K
-    24 -> 120, radius 16: K1 once a pair without its blur phase, S1 and
-    the standalone K3 once a pair, Q1 (with the sub-pel field) once an
-    output (all checked by run_cli)."""
+    24 -> 120, radius 16: K1 once a pair with S1's phases and the blur
+    phase inside it, no standalone S1 or K3, Q1 (with the sub-pel field)
+    once an output (all checked by run_cli)."""
     frames = 4
     launches = run_cli(dev, frames, ["--model", "hopperq", "--subpel-flow"])
     pairs = frames - 1
-    log(f"  launches a pair: K1 {launches['flow_step'] / pairs:g}, S1 "
+    log(f"  launches a pair: K1 {launches['flow_step'] / pairs:g} (S1's "
+        f"phases {launches['subpel_fused'] / pairs:g}, blur phase "
+        f"{launches['blur_fused'] / pairs:g}), S1 standalone "
         f"{launches['subpel_refine'] / pairs:g}, K3 standalone "
         f"{launches['blur_flow'] / pairs:g}, Q1 "
         f"{launches['bilinear_blend'] / pairs:g}")
@@ -1498,7 +1586,7 @@ def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
 
 OUR_KERNELS = ("pyramid_kernel", "pair_blend_kernel", "fused_blend_kernel",
                "blur_kernel", "sample_dir_kernel", "blend_levels_kernel",
-               "bilinear_blend_kernel", "subpel_kernel")
+               "bilinear_blend_kernel", "slice_kernel")
 
 
 def write_y4m(path: str, frames, width: int, height: int,
@@ -2554,62 +2642,198 @@ def slice_bound(geom, radius: int, n: int, item: int):
     return bound(nbytes, 35 * cand)
 
 
+def kernel_rows(fn, expect: int = 1, setup=None) -> dict:
+    """{name: (count, device us)} of the device rows (kernels, memsets,
+    copies) of one call of fn under torch.profiler (after one call
+    outside it), `setup` called before each call, outside the trace.  A
+    trace late in a long process loses the device records it takes first,
+    a few of them, so 64 spin kernels open it and their rows are left
+    out; one with fewer than `expect` rows is taken again, up to five
+    times (the last is returned)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
+    setup = setup or (lambda: None)
+    setup()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        rows = {e.key: (e.count, self_device_us(e))
+                for e in prof.key_averages()
+                if self_device_us(e) > 0 and "spin" not in e.key}
+        if sum(c for c, _ in rows.values()) >= expect:
+            break
+    return rows
+
+
 def phase_layer_slice(dev, rng, geom):
-    """K1's layer slice at 4K, radius 16, against its plain version:
-    slices of 4 and 8 layers (and all 16) at every window of the pyramid,
-    both axes, the neighbour bias where the pyramid has it, 8-bit and
-    P010; then one rank's slices of a pair (2 x iterations launches) timed
-    at each slice width.  Returns the entry of the kernels line (the
-    16-layer slices, world size 1) with the others under `slices`."""
+    """K1's layer slice at 4K, radius 16, against its plain version (the
+    plain composition on the card, ``layer_slice_step_plain``): slices of
+    4 and 8 layers (and all 16) at every window of the pyramid and window
+    1, both axes, the neighbour bias where the pyramid has it, 8-bit and
+    P010, each launch first committing the previous case's pairs of two
+    ranks; then one rank's launches of a pair (2 x iterations steps and
+    the commit that ends the pyramid) timed at each slice width, with its
+    device rows: one slice kernel a launch and nothing else.  Returns the
+    entry of the kernels line (the 16-layer slices, world size 1) with the
+    others under `slices`."""
     from mpv_frame_interpolator_tpu_torch.ops import flow as F
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
-    from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
-        pyramid_steps)
     lh, lw, rs = geom.low_h, geom.low_w, geom.res_scalar
-    steps = pyramid_steps(geom.window_schedule(),
-                          F.FIRST_NEIGHBOR_ITERATION)
+    steps = KS.pyramid_steps(geom.window_schedule(),
+                             F.FIRST_NEIGHBOR_ITERATION)
     err = 0
     timed = {}
     for dt, luma_shift in ((np.uint8, 0), (np.uint16, 8)):
         f1y, _, f1u, f1v = random_planes(rng, dev, dt)
         f2y, _, f2u, f2v = random_planes(rng, dev, dt)
-        probe = F.subsampled_f2(geom, f2y, f2u, f2v)
-        ox = torch.from_numpy(block_field(rng, lh, lw, 8, 6, 64)).to(dev)
-        oy = torch.from_numpy(block_field(rng, lh, lw, 8, 6, 64)).to(dev)
+        planes = (f1y, f1u, f1v, *F.subsampled_f2(geom, f2y, f2u, f2v))
+        start = torch.from_numpy(np.stack([
+            block_field(rng, lh, lw, 8, 6, 64),
+            block_field(rng, lh, lw, 8, 6, 64)])).to(dev)
+        scalars = (16, 8, 6, rs, geom.height, geom.stride, luma_shift)
         for n in (4, 8, 16):
             e = 0
+            field, plain = start.clone(), start.clone()
+            sums = torch.zeros((2, KS.slice_sums_words(
+                lh, lw, n, geom.window_schedule())), dtype=torch.int32,
+                device=dev)
+            gathered = prev = None
+            k = 0
+            # window 1 after the pyramid's steps
             for z0 in range(0, 16, n):
-                for window, is_y, nb in steps + ((1, 0, True),):
-                    args = (f1y, f1u, f1v, *probe, ox, oy, is_y, z0, n, 16,
-                            8, 6, window, nb, rs, geom.height, geom.stride,
-                            luma_shift)
-                    e = max(e, max_err(KS.flow_layer_slice(*args),
-                                       KS.flow_layer_slice_plain(*args)))
+                for step in steps + ((1, 0, True),):
+                    got = KS.flow_layer_slice(
+                        *planes, field, gathered, prev, step, z0, n,
+                        *scalars, sums=(sums[k & 1], sums[~k & 1]))
+                    k += 1
+                    want = KS.layer_slice_step_plain(
+                        *planes, plain, gathered, prev, step, z0, n,
+                        *scalars)
+                    e = max(e, max_err([got, field], [want, plain]))
+                    # two ranks' pairs for the next launch to commit: these
+                    # and the same layers with other minima
+                    other = got.clone()
+                    other[0] = torch.from_numpy(rng.integers(
+                        -2 ** 31, 2 ** 31, tuple(got[0].shape)).astype(
+                            np.int32)).to(dev)
+                    gathered, prev = torch.stack((got, other)), step[:2]
             log(f"  K1 layer slice {np.dtype(dt).name} n={n}: every slice "
-                f"of radius 16 at every step: max_abs_err={e}")
+                f"of radius 16 at every step and window 1, each launch "
+                f"committing two ranks' pairs: max_abs_err={e}")
             err = max(err, e)
             if dt == np.uint16:
                 continue
-            calls = [(f1y, f1u, f1v, *probe, ox, oy, is_y, 0, n, 16, 8, 6,
-                      window, nb, rs, geom.height, geom.stride, 0)
-                     for window, is_y, nb in steps]
 
-            def pair(calls=calls):
-                return [KS.flow_layer_slice(*a) for a in calls]
+            def reset(field=field):
+                field.zero_()
 
-            def pair_plain(calls=calls):
-                return [KS.flow_layer_slice_plain(*a) for a in calls]
+            def pair(launch=KS.flow_layer_slice, n=n, field=field,
+                     timelines=None):
+                """One rank's launches of a pair on `field`, from a zero
+                field after reset(), on ping-pong sums (the plain version
+                takes none); each launch's timeline into `timelines`."""
+                gathered = prev = None
+                for k, step in enumerate(steps + (None,)):
+                    kw = {} if launch is KS.layer_slice_step_plain else dict(
+                        sums=(sums[k & 1], sums[~k & 1]),
+                        timeline=None if timelines is None else timelines[k])
+                    if step is None:
+                        kw.pop("sums", None)
+                        launch(*planes, field, gathered, prev, None, 0, n,
+                               *scalars, **kw)
+                        break
+                    gathered = launch(*planes, field, gathered, prev, step,
+                                      0, n, *scalars, **kw)[None]
+                    prev = step[:2]
 
-            timed[n] = dict(device_ms=device_ms(pair),
-                            ms=cuda_ms(pair, 10),
-                            plain_ms=cuda_ms(pair_plain, 2, 1),
-                            bound=slice_bound(geom, 16, n, 1))
+            reset()
+            before = KS.slice_counts.kernel
+            pair()
+            launched = KS.slice_counts.kernel - before
+            # the device time: the trace's rows of every launch of a pair
+            rows = kernel_rows(pair, len(steps) + 1, reset)
+            traced = sum(c for c, _ in rows.values())
+            timed[n] = dict(ms=cuda_ms(lambda: (reset(), pair()), 10),
+                            plain_ms=cuda_ms(lambda: (reset(), pair(
+                                KS.layer_slice_step_plain)), 2, 1),
+                            bound=slice_bound(geom, 16, n, 1),
+                            rows=rows, device_ms=sum(
+                                us for _, us in rows.values()) / 1e3)
             r = timed[n]
-            log(f"  K1 layer slice n={n}, one rank's {len(calls)} slices of "
-                f"a pair: kernel {r['ms']:.4f} ms (device "
-                f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            # inside the launches (median of 5 pairs): the start of the
+            # sums (the commit is inside them), the sums, the minima of the
+            # windows of 16 and up
+            stamps = torch.zeros((5, len(steps) + 1, 4), dtype=torch.int64,
+                                 device=dev)
+            for t in stamps:
+                reset()
+                pair(timelines=t)
+            t = stamps.cpu().numpy().astype(np.float64)[:, :-1] / 1e3
+            phases = [float(np.median(x.sum(1))) for x in (
+                t[..., 1] - t[..., 0], t[..., 2] - t[..., 1],
+                np.where(t[..., 3] > 0, t[..., 3] - t[..., 2], 0))]
+            r["phases_us"] = phases
+            log(f"  K1 layer slice n={n} inside one rank's {len(steps)} "
+                f"launches of a pair, us (timelines): start {phases[0]:.2f}, "
+                f"sums with the commit {phases[1]:.2f}, minima "
+                f"{phases[2]:.2f}")
+            check(launched == len(steps) + 1 == traced
+                  and all("slice_kernel" in k for k in rows),
+                  f"one rank's launches of a pair: {launched} slice "
+                  f"launches for {len(steps)} steps and the commit, device "
+                  f"rows {rows}")
+            log(f"  K1 layer slice n={n}, one rank's {len(steps)} launches "
+                f"of a pair and the commit: kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f} ms; {launched} launches, {traced} "
+                f"slice-kernel rows traced and no other row), plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                f"({r['bound'][1]})")
     return dict(timed[16], max_abs_err=err, slices=timed)
+
+
+def profile_sharded_flow(dev, planes) -> dict:
+    """The layer-sharded flow at world size 1 on nccl, in this process: a
+    4K pair's slice launches (the counter), its device rows (one slice
+    kernel a step and one commit, the gathers, the blur; no memset), its
+    device ms, and its ms a pair on the wall clock (10 pairs, a
+    synchronise after each)."""
+    import torch.distributed as dist
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.parallel import sharding
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1)
+        try:
+            geom = F.FlowGeometry.create(H4K, W4K, W4K)
+            fn = sharding.sharded_flow(geom, 16, None, 0, dev)
+            t = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                 for p in planes]
+            steps = 2 * geom.iterations
+            before = KS.slice_counts.kernel
+            fn(*t)
+            launches = KS.slice_counts.kernel - before
+            # a slice, a copy and a collective a step, the commit, the blur
+            rows = kernel_rows(lambda: fn(*t), 3 * steps + 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn(*t)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e2
+        finally:
+            dist.destroy_process_group()
+    return dict(rows=rows, wall_ms=wall_ms, launches=launches,
+                device_ms=sum(us for _, us in rows.values()) / 1e3)
 
 
 def phase_row_band(dev, rng, geom):
@@ -2859,6 +3083,20 @@ def phase_parallel(dev):
                                                    seed=SEED), 2))
     planes = (f1.y, f1.uv[:, 0::2], f1.uv[:, 1::2],
               f2.y, f2.uv[:, 0::2], f2.uv[:, 1::2])
+    steps = 2 * geom.iterations
+    prof = profile_sharded_flow(dev, planes)
+    rows = prof["rows"]
+    memsets = [k for k in rows if "memset" in k.lower()]
+    log(f"  sharded flow at 4K, 1 rank on nccl: {prof['wall_ms']:.3f} ms a "
+        f"pair (wall), device {prof['device_ms']:.4f} ms, "
+        f"{prof['launches']} slice launches; device rows "
+        + "; ".join(f"{k[:48]} x{c} {us:.1f} us" for k, (c, us)
+                    in sorted(rows.items(), key=lambda kv: -kv[1][1])))
+    check(prof["launches"] == steps + 1 and not memsets
+          and not any("slice_sums" in k or "slice_min" in k for k in rows),
+          f"the sharded flow launched {prof['launches']} slices for "
+          f"{steps} steps, device rows {list(rows)}")
+    results["flow_layer_slice"]["sharded_flow"] = prof
     launches = None
     for world, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
         t0 = time.perf_counter()
@@ -2878,10 +3116,9 @@ def phase_parallel(dev):
             f"({time.perf_counter() - t0:.1f} s: every rank started, joined "
             f"and done at {', '.join(f'{x:.1f}' for x in res['seconds'])}"
             f" s)")
-    steps = 2 * geom.iterations
     # world 1: the checked step and 5 timed steps, each 2 x iterations
-    # slices and one band
-    check(launches == {"flow_layer_slice": 6 * steps,
+    # slice launches, the commit that ends the pyramid and one band
+    check(launches == {"flow_layer_slice": 6 * (steps + 1),
                        "pair_blend_rows": 6},
           f"the world-1 sharded step launched {launches}")
     t0 = time.perf_counter()
@@ -2914,6 +3151,17 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "Used" in line or "Compiling" in line or "spill" in line:
             log(f"  {line.strip()}")
+    # K1's main-path instantiations (5, 8 and 16 layers, no chunk loop,
+    # no S1 phases, both sample types): 64 registers at most, no spills
+    wanted = [f"pyramid_kernelI{t}Li{layers}ELb0ELb0E" for t in "ht"
+              for layers in (5, 8, 16)]
+    main = {k: v for k, v in ptxas_report(_build.build_log()).items()
+            if any(w in k for w in wanted)}
+    log(f"  K1 main-path instantiations (registers, spilled bytes): "
+        f"{sorted(main.values())}")
+    check(len(main) == 6 and all(r <= 64 and not sp
+                                 for r, sp in main.values()),
+          f"K1's main-path instantiations: {main}")
     # the native host library (readers, codecs), built here so that no
     # CLI run below pays for it
     from mpv_frame_interpolator_tpu_torch import native
@@ -2923,7 +3171,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
     log(f"  K1 pyramid_kernel resident blocks an SM: "
-        f"{KS.blocks_per_sm(1)} (uint8), {KS.blocks_per_sm(2)} (uint16)")
+        f"{KS.blocks_per_sm(1)} (uint8), {KS.blocks_per_sm(2)} (uint16); "
+        f"with S1's phases {KS.blocks_per_sm(1, subpel=True)} / "
+        f"{KS.blocks_per_sm(2, subpel=True)}, at radius 5 "
+        f"{KS.blocks_per_sm(1, 5, 5, True)}, at radius 24 "
+        f"{KS.blocks_per_sm(1, 24, 24, True)}")
+    for sample in (1, 2):
+        for layers, radius in ((5, 5), (8, 8), (16, 16), (24, 24)):
+            check(KS.blocks_per_sm(sample, layers, radius) >= 4,
+                  f"K1 ({layers} layers, radius {radius}, {sample}-byte "
+                  f"samples) holds fewer than 4 blocks an SM")
 
     log("phase 3: kernels vs plain versions at 4K shapes")
     results = phase_kernels(dev)
@@ -3024,13 +3281,16 @@ def main() -> int:
         "bilinear_blend_frac": ("warp_bilinear.cu",
                                 "mpv_frame_interpolator_tpu/ops/warp.py:1021",
                                 subpel_launches["bilinear_blend"]),
-        "subpel_refine": ("subpel.cu",
+        # S1 runs as two phases of K1's launch on the sub-pel path, as K3
+        # runs as its blur phase on every path
+        "subpel_refine": ("subpel_tile.cuh",
                           "mpv_frame_interpolator_tpu/ops/flow.py:833",
-                          subpel_launches["subpel_refine"]),
+                          subpel_launches["subpel_fused"]
+                          + subpel_launches["subpel_refine"]),
         # launch modes of K1 and K2 for the sharded step (phase 18, world
         # size 1): they replace the XLA layer sums of the JAX package's
         # shard_map body and its GSPMD row sharding
-        "flow_layer_slice": ("flow_step.cu",
+        "flow_layer_slice": ("flow_slice.cu",
                              "mpv_frame_interpolator_tpu/parallel/"
                              "sharding.py:60",
                              sharded_launches["flow_layer_slice"]),

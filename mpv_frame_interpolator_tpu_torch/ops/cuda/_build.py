@@ -29,10 +29,11 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
-SOURCES = ("flow_step.cu", "blur.cu", "warp_pair.cu", "warp_fused.cu",
-           "warp_sample.cu", "blend_levels.cu", "warp_bilinear.cu",
-           "subpel.cu", "pack_probe.cu", "dma_probe.cu")
-HEADERS = ("warp_common.cuh", "warp_runs.cuh", "blur_tile.cuh")
+SOURCES = ("flow_step.cu", "flow_slice.cu", "blur.cu", "warp_pair.cu",
+           "warp_fused.cu", "warp_sample.cu", "blend_levels.cu",
+           "warp_bilinear.cu", "pack_probe.cu", "dma_probe.cu")
+HEADERS = ("warp_common.cuh", "warp_runs.cuh", "blur_tile.cuh",
+           "flow_tile.cuh", "subpel_tile.cuh")
 
 # --fmad=false: no multiply-add contraction, so the warp's f32
 # round(flow * t) is the product rounded once, as in the reference;
@@ -45,22 +46,22 @@ I = ctypes.c_int
 
 # C signature of every entry point: (argtypes); restype is int
 _SIGNATURES = {
-    # f1y f1u f1v y2 u2 v2 in_x in_y field blurred sums | steps (host
+    # f1y f1u f1v y2 u2 v2 in_x in_y field blurred fine sums | steps (host
     # ints) | n_steps sums_words layers radius ds nbs rs H W lh lw
     # f1y_pitch f1c_pitch sample_bytes luma_shift | timeline stream
-    "mfi_flow_pyramid": (P,) * 11 + (ctypes.POINTER(I),) + (I,) * 15
+    "mfi_flow_pyramid": (P,) * 12 + (ctypes.POINTER(I),) + (I,) * 15
     + (P, P),
-    # f1y f1u f1v y2 u2 v2 fx fy sums out_min out_arg | z0 n radius lg
-    # is_y nb ds nbs rs H W lh lw f1y_pitch f1c_pitch sample_bytes
-    # luma_shift | stream
-    "mfi_flow_layer_slice": (P,) * 11 + (I,) * 17 + (P,),
-    # sample_bytes layers radius | per_sm (one host int, out)
-    "mfi_flow_pyramid_occupancy": (I, I, I, ctypes.POINTER(I)),
+    # f1y f1u f1v y2 u2 v2 field gathered pairs sums next_sums |
+    # next_words ranks prev_code code z0 n radius ds nbs rs H W lh lw
+    # f1y_pitch f1c_pitch sample_bytes luma_shift | timeline stream
+    "mfi_flow_layer_slice": (P,) * 11 + (I,) * 18 + (P, P),
+    # sample_bytes layers radius subpel | per_sm (one host int, out)
+    "mfi_flow_pyramid_occupancy": (I, I, I, I, ctypes.POINTER(I)),
     # in out | lh lw | stream
     "mfi_blur_flow": (P, P, I, I, P),
-    # offset f1y f1u f1v y2 u2 v2 out | lh lw rs H W f1y_pitch f1c_pitch
-    # sample_bytes luma_shift | stream
-    "mfi_subpel_refine": (P,) * 8 + (I,) * 9 + (P,),
+    # offset f1y f1u f1v y2 u2 v2 out field sums | lh lw rs H W f1y_pitch
+    # f1c_pitch sample_bytes luma_shift | stream
+    "mfi_subpel_refine": (P,) * 10 + (I,) * 9 + (P,),
     # f1y f1uv f2y f2uv blurred ts out_y out_uv | n H Wa pitch lh lw rs
     # scale_shift black white vec | stream
     "mfi_pair_blend": (P,) * 8 + (I,) * 11 + (P,),

@@ -27,9 +27,20 @@ buckets), and a launch runs the instantiation that serves the `layers`
 the caller chose (``kernel_layers``); radii above 16 take 16-layer chunks
 in a loop inside the launch.  The output depends on the radius alone.
 
-Both entry points dispatch on the device of their tensors: CPU tensors
-take ``flow_step_plain`` / ``flow_pyramid_plain``, CUDA tensors launch the
-kernel (or raise).
+Under the sub-pel option, ``flow_pyramid(..., subpel=True)`` runs S1's
+two phases in the same launch after the last step and blurs the 1/64-pel
+field they write (csrc/subpel_tile.cuh, ops/cuda/subpel.py): the sub-pel
+flow of a pair is one launch.
+
+``flow_layer_slice`` is the launch of the layer-sharded flow
+(parallel/sharding.py), its own kernel (csrc/flow_slice.cu) on the same
+per-pixel step: one cooperative launch a step and rank commits the
+previous step's winners from every rank's gathered (min, layer) pairs and
+sums the rank's slice of layers.
+
+The entry points dispatch on the device of their tensors: CPU tensors
+take ``flow_step_plain`` / ``flow_pyramid_plain`` /
+``layer_slice_step_plain``, CUDA tensors launch the kernel (or raise).
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import torch
 
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as _blur
+from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as _subpel
 from mpv_frame_interpolator_tpu_torch.ops.flow import (
     MAX_RADIUS, mirror_inside, signed_square)
 
@@ -233,26 +245,35 @@ def _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs: int,
 
 def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
             ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
-            timeline=None, blur: bool = False, layers=None):
+            timeline=None, blur: bool = False, layers=None,
+            subpel: bool = False):
     """One cooperative launch of the pyramid kernel over `steps`, from
     (off_x, off_y), or from zero when both are None, on the instantiation
     ``kernel_layers(radius, layers)``.  Returns the (2, lh, lw) int32
-    field it wrote, or (field, its blur) with `blur`."""
+    field it wrote, or (field, its blur) with `blur`; with `subpel` (which
+    implies `blur`), (field, the blur of its 1/64-pel field) from S1's
+    phases after the last step."""
+    blur = blur or subpel
     if timeline is not None:
         _build.require(timeline, "timeline", torch.int64,
-                       (2 + 2 * len(steps) + int(blur),), y2.device)
+                       (2 + 2 * len(steps) + 2 * int(subpel) + int(blur),),
+                       y2.device)
     _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs, H, W)
     lh, lw = y2.shape
     dev = y2.device
     # one sums buffer holds the largest step's window sums, or a window-1
-    # step's per-pixel winners; the kernel ping-pongs between two
+    # step's per-pixel winners; the kernel ping-pongs between two, and S1's
+    # phases take both for the nine probe planes
     words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
                  if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
                               else 1])
+    if subpel:
+        words = max(words, -(-9 * lh * lw // 2))
     if words >= 1 << 31:
         raise ValueError(f"{words} sums words do not fit the kernel's int")
     field = torch.empty((2, lh, lw), dtype=torch.int32, device=dev)
     blurred = torch.empty_like(field) if blur else None
+    fine = torch.empty_like(field) if subpel else None
     sums = torch.empty((2, words), dtype=torch.int32, device=dev)
     codes = (ctypes.c_int * max(len(steps), 1))(*(
         (w.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
@@ -262,7 +283,8 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
     rc = _build.load().mfi_flow_pyramid(
         f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
         u2.data_ptr(), v2.data_ptr(), *start, field.data_ptr(),
-        None if blurred is None else blurred.data_ptr(), sums.data_ptr(),
+        None if blurred is None else blurred.data_ptr(),
+        None if fine is None else fine.data_ptr(), sums.data_ptr(),
         codes, len(steps), words, kernel_layers(radius, layers), radius,
         ds, nbs, rs, H, W, lh, lw,
         f1y.shape[1], f1u.shape[1], f1y.element_size(), luma_shift,
@@ -273,13 +295,15 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
     if blurred is None:
         return field
     _blur.counts.fused += 1
+    if subpel:
+        _subpel.counts.fused += 1
     return field, blurred
 
 
 def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
                  windows, first_nb_iteration: int, rs: int, H: int, W: int,
                  luma_shift: int = 0, timeline=None, blur: bool = False,
-                 layers=None):
+                 layers=None, subpel: bool = False):
     """Every step of one pair's pyramid, from a zero field: the x axis then
     the y axis at each window of `windows`, the neighbour bias from
     iteration `first_nb_iteration` on.  Planes as for ``flow_step``;
@@ -288,13 +312,19 @@ def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
     Returns the (2, lh, lw) int32 field, plane 0 the x offsets and plane 1
     the y offsets; with `blur`, (field, its 8x8 blur), on the card from
     the same launch (``blur.counts.fused``), on the CPU from
+    ``blur.blur_flow``.  With `subpel` (the sub-pel option; it implies
+    `blur`), (field, the blur of the 1/64-pel field (field << 6) + frac):
+    on the card S1's two phases run in the same launch after the last
+    step and the blur phase blurs their field (``subpel.counts.fused``
+    and ``blur.counts.fused``), on the CPU ``subpel.subpel_refine`` then
     ``blur.blur_flow``.
 
     `timeline`, for measurement on the card only: an int64 tensor of 2 + 4
-    x len(windows) entries (one more with `blur`) that receives the card's
-    clock in ns at the launch's start, after its prologue, after each
-    phase (sums, then commit) of each step, with a barrier after the last
-    step, and after the blur phase."""
+    x len(windows) entries (two more with `subpel`, one more with `blur`)
+    that receives the card's clock in ns at the launch's start, after its
+    prologue, after each phase (sums, then commit) of each step, with a
+    barrier after the last step, after S1's probe phase and its fit phase,
+    and after the blur phase."""
     steps = pyramid_steps(windows, first_nb_iteration)
     _check_scalars(radius, ds, nbs, luma_shift, steps)
     kernel_layers(radius, layers)
@@ -303,21 +333,25 @@ def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
         field = flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius, ds,
                                    nbs, windows, first_nb_iteration, rs, H,
                                    W, luma_shift)
+        if subpel:
+            return field, _blur.blur_flow(_subpel.subpel_refine(
+                field, f1y, f1u, f1v, y2, u2, v2, rs, H, W, luma_shift))
         return (field, _blur.blur_flow(field)) if blur else field
     return _launch(f1y, f1u, f1v, y2, u2, v2, None, None, steps, radius, ds,
-                   nbs, rs, H, W, luma_shift, timeline, blur, layers)
+                   nbs, rs, H, W, luma_shift, timeline, blur, layers, subpel)
 
 
 def blocks_per_sm(sample_bytes: int, layers: int = 16,
-                  radius: int = 16) -> int:
+                  radius: int = 16, subpel: bool = False) -> int:
     """The resident blocks an SM on the current card of the pyramid
-    kernel that serves (layers, radius) (its cooperative grid is this
-    times the SMs, at most one block a tile)."""
+    kernel that serves (layers, radius), with S1's phases under `subpel`
+    (its cooperative grid is this times the SMs, at most one block a
+    tile)."""
     per_sm = ctypes.c_int()
     _build.check("flow_pyramid_occupancy", _build.load()
                  .mfi_flow_pyramid_occupancy(
                      sample_bytes, kernel_layers(radius, layers), radius,
-                     ctypes.byref(per_sm)))
+                     int(subpel), ctypes.byref(per_sm)))
     return per_sm.value
 
 
@@ -348,49 +382,155 @@ def flow_step(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
     return (off_x, field[1]) if is_y else (field[0], off_y)
 
 
+def first_unsigned_min(pairs: torch.Tensor) -> torch.Tensor:
+    """The winning layer of each window from every rank's (min, layer)
+    pair, (D, 2, nwy, nwx) int32: the layer of the first rank whose
+    minimum is the least in unsigned order (the minima are the 32 bits of
+    uint32 window sums, so a signed order would be wrong above 2^31)."""
+    mins = pairs[:, 0].to(torch.int64) & _MASK
+    first = torch.argmin(mins, dim=0)          # first minimum: lowest rank
+    return pairs[:, 1].gather(0, first[None])[0]
 
-def flow_layer_slice(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y: int,
+
+def layer_slice_step_plain(f1y, f1u, f1v, y2, u2, v2, field, gathered, prev,
+                           step, z0: int, n: int, radius: int, ds: int,
+                           nbs: int, rs: int, H: int, W: int,
+                           luma_shift: int = 0):
+    """The plain version of a launch of ``flow_layer_slice``, on the
+    device of its tensors: the commit of `gathered` (``first_unsigned_min``
+    then ``commit_plain``, into `field` in place), then the slice of
+    `step` (``flow_layer_slice_plain``); its (2, nwy, nwx) pairs, or None
+    without a step."""
+    if gathered is not None:
+        off_x, off_y = commit_plain(field[0], field[1], prev[1],
+                                    first_unsigned_min(gathered), radius,
+                                    prev[0])
+        field[0], field[1] = off_x, off_y
+    if step is None:
+        return None
+    return torch.stack(flow_layer_slice_plain(
+        f1y, f1u, f1v, y2, u2, v2, field[0], field[1], step[1], z0, n,
+        radius, ds, nbs, step[0], step[2], rs, H, W, luma_shift))
+
+
+def slice_sums_words(lh: int, lw: int, n: int, windows) -> int:
+    """The sums scratch of a rank's slices of n layers over the pyramid's
+    `windows`: n words a window at the widest step that spans tiles
+    (window 16 and up), at least one."""
+    return max([n * -(-lh // w) * -(-lw // w) for w in windows if w >= 16]
+               + [1])
+
+
+def flow_layer_slice(f1y, f1u, f1v, y2, u2, v2, field, gathered, prev, step,
                      z0: int, n: int, radius: int, ds: int, nbs: int,
-                     window: int, nb_enabled: bool, rs: int, H: int, W: int,
-                     luma_shift: int = 0):
-    """K1's layer slice: one pyramid step's window sums over the layers
-    [z0, z0 + n) of `radius` (candidates at signed_square(z - radius//2),
-    phase A's sums mod 2^32 with the probe and neighbour biases) and, per
-    window (nwy, nwx), their first minimum in unsigned order and the
-    global layer that reaches it; no commit.  Returns (min, layer), each
-    (nwy, nwx) int32 (min holds the 32 bits of the unsigned sum).  Planes
-    and the field as for ``flow_step``; the field is read, not written.
+                     rs: int, H: int, W: int, luma_shift: int = 0,
+                     sums=None, timeline=None):
+    """One rank's launch of a pyramid step of the layer-sharded flow: the
+    previous step's commit, then K1's layer slice of this step.
 
-    The layer-sharded flow (parallel/sharding.py) runs one slice a rank
-    and step.  CPU tensors take ``flow_layer_slice_plain``; CUDA tensors
-    launch the slice kernel (csrc/flow_step.cu ``mfi_flow_layer_slice``,
-    its own entry: the pyramid kernel's instantiations are untouched) or
-    raise.  ``slice_counts`` counts its launches."""
+    1. `gathered` (D, 2, pnwy, pnwx) int32, every rank's (min, layer)
+       pairs of the previous step `prev` = (window, is_y), or None at the
+       first step: each window's winner is the layer of the first rank
+       whose minimum is least in unsigned order (``first_unsigned_min``),
+       and its signed square is added to the stepped axis of `field`
+       ((2, lh, lw) int32, the rank's copy of the committed field, updated
+       in place; ``commit_plain``).
+    2. `step` = (window, is_y, nb_enabled), or None for the commit that
+       ends the pyramid: the window sums of the layers [z0, z0 + n) of
+       `radius` (candidates at signed_square(z - radius//2), phase A's sums
+       mod 2^32 with the probe and neighbour biases) and, per window
+       (nwy, nwx), their first minimum in unsigned order and the global
+       layer that reaches it (``flow_layer_slice_plain``).
+
+    Returns this rank's (2, nwy, nwx) int32 pairs (min holds the 32 bits
+    of the unsigned sum), or None without a step.  Planes as for
+    ``flow_step``.  CPU tensors compose the plain versions in that order
+    (``layer_slice_step_plain``); CUDA tensors take one cooperative launch
+    of the slice kernel (csrc/flow_slice.cu ``mfi_flow_layer_slice``: no
+    memset, no other kernel) or raise.
+
+    A step with the neighbour bias on the axis `prev` stepped is refused
+    (the launch commits inside its sums phase, and the bias would read
+    committed neighbours; the pyramid alternates the axes).
+
+    `sums`, on the card with a step: K1's ping-pong buffers as a pair
+    (this step's, the next step's), each of ``slice_sums_words`` int32
+    words: this step's is zero on entry, and the launch zeroes the next
+    step's, so a caller that swaps the two between steps (and starts
+    from zeros) launches no memset.  ``slice_counts`` counts its
+    launches.  `timeline`, for
+    measurement on the card only: an int64 tensor of 4 entries that
+    receives the card's clock in ns at the launch's start and after each
+    of its phases (commit, sums, minimum; without a step, the first
+    two)."""
     _check_scalars(radius, ds, nbs, luma_shift,
-                   ((window, is_y, nb_enabled),))
-    if not (n >= 1 and z0 >= 0 and z0 + n <= radius):
+                   (() if step is None else (step,))
+                   + (() if prev is None else ((prev[0], prev[1], False),)))
+    if step is not None and not (n >= 1 and z0 >= 0 and z0 + n <= radius):
         raise ValueError(f"layers [{z0}, {z0 + n}) are not a slice of "
                          f"radius {radius}")
-    if off_x.device.type == "cpu":
-        slice_counts.plain += 1
-        return flow_layer_slice_plain(f1y, f1u, f1v, y2, u2, v2, off_x,
-                                      off_y, is_y, z0, n, radius, ds, nbs,
-                                      window, nb_enabled, rs, H, W,
-                                      luma_shift)
-    _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs, H, W)
+    if (gathered is None) != (prev is None):
+        raise ValueError("the gathered pairs and the previous step come "
+                         "together")
+    if step is not None and prev is not None and step[2] and (
+            step[1] == prev[1]):
+        raise ValueError("a step with the neighbour bias on the axis the "
+                         "previous step stepped")
     lh, lw = y2.shape
+    if step is not None:
+        window = step[0]
+        shape = (2, -(-lh // window), -(-lw // window))
+    if gathered is not None:
+        pw = prev[0]
+        if gathered.dim() != 4 or tuple(gathered.shape[1:]) != (
+                2, -(-lh // pw), -(-lw // pw)):
+            raise ValueError(f"gathered pairs {tuple(gathered.shape)} are "
+                             f"not (D, 2) pairs of window {pw}")
+    if field.device.type == "cpu":
+        slice_counts.plain += 1
+        return layer_slice_step_plain(f1y, f1u, f1v, y2, u2, v2, field,
+                                      gathered, prev, step, z0, n, radius,
+                                      ds, nbs, rs, H, W, luma_shift)
     dev = y2.device
-    nwy, nwx = -(-lh // window), -(-lw // window)
-    sums = torch.empty((n, nwy, nwx), dtype=torch.int32, device=dev)
-    best = torch.empty((nwy, nwx), dtype=torch.int32, device=dev)
-    arg = torch.empty_like(best)
+    _require_planes(f1y, f1u, f1v, y2, u2, v2, None, None, rs, H, W)
+    _build.require(field, "field", torch.int32, (2, lh, lw), dev)
+    if gathered is not None:
+        _build.require(gathered, "gathered", torch.int32, None, dev)
+    if timeline is not None:
+        _build.require(timeline, "timeline", torch.int64, (4,), dev)
+    code = 0
+    cur = nxt = None
+    if step is not None:
+        window, is_y, nb = step
+        code = (window.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+        words = n * shape[1] * shape[2] if window >= 16 else 0
+        if sums is None:
+            raise ValueError("a step on the card takes its two sums "
+                             "buffers")
+        cur, nxt = sums
+        for name, t in (("sums", cur), ("next sums", nxt)):
+            _build.require(t, name, torch.int32, None, dev)
+        if cur.numel() < words:
+            raise ValueError(f"sums holds {cur.numel()} words, the step "
+                             f"needs {words}")
+        if cur.data_ptr() == nxt.data_ptr():
+            raise ValueError("the two sums buffers are one")
+    prev_code = 0 if prev is None else (
+        (prev[0].bit_length() - 1) | (prev[1] << 8))
     rc = _build.load().mfi_flow_layer_slice(
         f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
-        u2.data_ptr(), v2.data_ptr(), off_x.data_ptr(), off_y.data_ptr(),
-        sums.data_ptr(), best.data_ptr(), arg.data_ptr(), z0, n, radius,
-        window.bit_length() - 1, is_y, int(bool(nb_enabled)), ds, nbs, rs,
-        H, W, lh, lw, f1y.shape[1], f1u.shape[1], f1y.element_size(),
-        luma_shift, _build.stream_of(y2))
+        u2.data_ptr(), v2.data_ptr(), field.data_ptr(),
+        None if gathered is None else gathered.data_ptr(),
+        None if step is None else out.data_ptr(),
+        None if cur is None else cur.data_ptr(),
+        None if nxt is None else nxt.data_ptr(),
+        0 if nxt is None else nxt.numel(),
+        0 if gathered is None else gathered.shape[0], prev_code, code, z0, n,
+        radius, ds, nbs, rs, H, W, lh, lw, f1y.shape[1], f1u.shape[1],
+        f1y.element_size(), luma_shift,
+        None if timeline is None else timeline.data_ptr(),
+        _build.stream_of(y2))
     _build.check("flow_layer_slice", rc)
     slice_counts.kernel += 1
-    return best, arg
+    return out if step is not None else None

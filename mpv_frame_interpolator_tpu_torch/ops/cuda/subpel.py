@@ -1,4 +1,5 @@
-"""S1: the measured sub-pel refinement of the flow (csrc/subpel.cu).
+"""S1: the measured sub-pel refinement of the flow (csrc/subpel_tile.cuh,
+two phases of K1's launch in csrc/flow_step.cu).
 
 Not a TPU kernel: the JAX package computes it with XLA,
 ``mpv_frame_interpolator_tpu/ops/flow.py:833 subpel_refine``, the
@@ -13,11 +14,18 @@ through the nine costs gives the Newton step in 1/64 pel, clipped to
 specification, held bit-exact against the JAX function by the CPU tests);
 S1 writes ``(offset << 6) + frac``, the field the sub-pel path blurs next,
 and ``subpel_refine_plain`` is its plain version.  Bound on the card:
-operations, and few of them (~1 us at 4K; see the header of
-csrc/subpel.cu).
+bytes, and few of them (~2 us at 4K; see the header of
+csrc/subpel_tile.cuh).
 
-``subpel_refine`` dispatches on the device: CPU tensors take
-``subpel_refine_plain``, CUDA tensors launch the kernel (or raise).
+On the engine's path S1 is no launch of its own: under ``subpel_flow``
+K1's cooperative launch runs S1's two phases after its last step (the
+nine probe SADs of every pixel, then per tile their windows and the fit)
+and blurs their field (``flow_step.flow_pyramid(..., subpel=True)``,
+which adds one to ``counts.fused``).  ``subpel_refine``, the entry for
+other callers, is the same launch with an empty schedule: the offset as
+the starting field, the two phases and no blur (``counts.kernel``).  It
+dispatches on the device: CPU tensors take ``subpel_refine_plain``, CUDA
+tensors launch the kernel (or raise).
 """
 
 from __future__ import annotations
@@ -28,7 +36,19 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda.blur import blur_flow_plain
 from mpv_frame_interpolator_tpu_torch.ops.flow import mirror_inside
 
-counts = _build.LaunchCounts()
+class SubpelCounts(_build.LaunchCounts):
+    """S1's counts: `kernel` launches of the standalone entry, `plain`
+    calls of the plain version, `fused` runs of S1's phases inside a
+    flow-pyramid launch."""
+
+    __slots__ = ("fused",)
+
+    def reset(self):
+        super().reset()
+        self.fused = 0
+
+
+counts = SubpelCounts()
 
 # probe p's (dx, dy), in the JAX function's order
 PROBES = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1),
@@ -123,18 +143,21 @@ def subpel_refine(offset, f1y, f1u, f1v, y2, u2, v2, rs: int, H: int,
     sample = f1y.dtype
     if sample not in (torch.uint8, torch.uint16):
         raise ValueError(f"planes must be uint8 or uint16, got {sample}")
-    _build.require(offset, "offset", torch.int32, None, dev)
+    _build.require(offset, "offset", torch.int32, (2, lh, lw), dev)
     _build.require(f1y, "f1y", sample, None, dev)
     _build.require(f1u, "f1u", sample, None, dev)
     _build.require(f1v, "f1v", sample, f1u.shape, dev)
     for name, t in (("y2", y2), ("u2", u2), ("v2", v2)):
         _build.require(t, name, sample, (lh, lw), dev)
     out = torch.empty_like(offset)
+    field = torch.empty_like(offset)        # the launch's starting field
+    sums = torch.empty(9 * lh * lw, dtype=torch.int32, device=dev)
     rc = _build.load().mfi_subpel_refine(
         offset.data_ptr(), f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(),
-        y2.data_ptr(), u2.data_ptr(), v2.data_ptr(), out.data_ptr(), lh, lw,
-        rs, H, W, f1y.shape[1], f1u.shape[1], f1y.element_size(),
-        luma_shift, _build.stream_of(offset))
+        y2.data_ptr(), u2.data_ptr(), v2.data_ptr(), out.data_ptr(),
+        field.data_ptr(), sums.data_ptr(), lh, lw, rs, H, W, f1y.shape[1],
+        f1u.shape[1], f1y.element_size(), luma_shift,
+        _build.stream_of(offset))
     _build.check("subpel_refine", rc)
     counts.kernel += 1
     return out

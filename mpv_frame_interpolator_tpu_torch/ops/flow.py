@@ -16,10 +16,12 @@ engine chose for the radius (the JAX package's layer buckets, 5, 8 and
 5, 8 and 16 layers and takes radii above 16 in 16-layer chunks, and the
 output depends on the radius alone (ops/cuda/flow_step.kernel_layers).
 
-``subpel_flow`` is the sub-pel option (the JAX package's
+``flow(..., subpel=True)`` is the sub-pel option (the JAX package's
 ``subpel_refine``): the 3x3 SAD probes around the unblurred committed
 offset, windowed and fitted with a quadratic, give the 1/64-pel field
-(offset << 6) + frac on the sub-pel kernel (ops/cuda/subpel.py).
+(offset << 6) + frac, which is blurred in place of the offset; on the
+card all of it runs in the same launch as the pyramid, as two more phases
+before its blur phase (ops/cuda/subpel.py).
 
 Frames are planar on the device: y (H, stride) and u, v (H//2, stride//2),
 uint8 for NV12 or uint16 for P010.  H is the frame height and the flow
@@ -153,14 +155,16 @@ def subsampled_f2(geom: FlowGeometry, f2y: torch.Tensor, f2u: torch.Tensor,
 
 def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
          delta_scalar: int = 8, neighbor_bias_scalar: int = 6,
-         luma_shift: int = 0, layers=None, blur: bool = True):
+         luma_shift: int = 0, layers=None, blur: bool = True,
+         subpel: bool = False):
     """The whole pyramid, and with `blur` its blur in the same launch.  f1
     is the OLDER frame, f2 the newer; `luma_shift` is 8 for P010 and 0 for
     NV12; `layers` (>= radius; default the radius) is the layer count the
     engine chose, which picks the kernel's instantiation and leaves the
     output as it is.  Returns (offset (2, lh, lw) int32, blurred (2, lh,
     lw) int32), plane 0 the x offsets and plane 1 the y offsets, or the
-    offset alone without `blur`."""
+    offset alone without `blur`.  With `subpel`, (offset, the blur of the
+    1/64-pel field (offset << 6) + frac), from the same launch."""
     from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
         flow_pyramid)
     if not MIN_RADIUS <= radius <= MAX_RADIUS:
@@ -171,20 +175,7 @@ def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
                         neighbor_bias_scalar, geom.window_schedule(),
                         FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
                         geom.height, geom.stride, luma_shift, blur=blur,
-                        layers=layers)
-
-
-def subpel_flow(geom: FlowGeometry, offset, f1y, f1u, f1v, f2y, f2u, f2v,
-                luma_shift: int = 0):
-    """The measured 1/64-pel field (offset << 6) + frac of the unblurred
-    committed (2, lh, lw) int32 `offset` (the JAX package's
-    ``ops/flow.subpel_refine`` gives frac), on the sub-pel kernel."""
-    from mpv_frame_interpolator_tpu_torch.ops.cuda.subpel import (
-        subpel_refine)
-    return subpel_refine(offset, f1y, f1u, f1v,
-                         *subsampled_f2(geom, f2y, f2u, f2v),
-                         geom.res_scalar, geom.height, geom.stride,
-                         luma_shift)
+                        layers=layers, subpel=subpel)
 
 
 def blur_flow(offset: torch.Tensor) -> torch.Tensor:

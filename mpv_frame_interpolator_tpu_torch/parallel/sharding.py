@@ -7,13 +7,17 @@ whose ``shard_map`` over a device mesh a process group replaces).
   [d R/D, (d+1) R/D) and runs K1's layer slice on them
   (``ops/cuda/flow_step.flow_layer_slice``): per window, the first
   minimum of its window sums in unsigned order and the global layer that
-  reaches it.  One all_gather of the (min, layer) pairs, and every rank
-  takes the first rank that holds the unsigned minimum; the blocks of
-  layers ascend with the rank, so that is the single-device first minimum
-  (determineLowestLayerKernel.cl:13-18).  The commit is plain torch on
-  the replicated field, as the JAX package does it in XLA, so every rank
-  holds the same field for the next step's neighbour bias.  The blur then
-  runs once, on the blur kernel (``ops/flow.blur_flow``).
+  reaches it, written straight into the tensor that one all_gather
+  exchanges.  The next step's launch first commits the gathered pairs:
+  each window takes the layer of the first rank that holds the unsigned
+  minimum (the blocks of layers ascend with the rank, so that is the
+  single-device first minimum, determineLowestLayerKernel.cl:13-18) and
+  adds it to its own copy of the field, so every rank holds the same
+  field for the next step's neighbour bias; a commit-only launch ends the
+  pyramid.  A step is that one launch and the gather; the rank's field
+  and its two sums buffers (a step's zero on entry, its launch zeroing
+  the other for the next step) live for the pair, on its stream.  The
+  blur then runs once, on the blur kernel (``ops/flow.blur_flow``).
 * **Row sharding (warp).**  In mode 2 each rank runs K2's row band
   (``ops/cuda/warp_pair.pair_blend_rows``) on its rows of the output,
   reading the sources whole, and one all_gather assembles the frame.
@@ -36,8 +40,6 @@ without a card that raises).  The outputs are the JAX functions': the
 
 from __future__ import annotations
 
-from typing import List
-
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -46,12 +48,10 @@ from mpv_frame_interpolator_tpu_torch.convert import require_device
 from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
 from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
-    commit_plain, flow_layer_slice, pyramid_steps)
+    flow_layer_slice, pyramid_steps, slice_sums_words)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_pair import (
     band_rows, pair_blend_rows)
 from mpv_frame_interpolator_tpu_torch.ops.flow import FlowGeometry
-
-_MASK = 0xFFFFFFFF
 
 
 def make_group(ranks=None):
@@ -68,36 +68,26 @@ def _group(group):
     return make_group() if group is None else group
 
 
-def gather(t: torch.Tensor, group) -> List[torch.Tensor]:
-    """Every rank's `t` (one shape on every rank), in rank order, on t's
-    device: on nccl the card's tensors themselves, on gloo through a
-    copy to the host and back."""
+def gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `t` (one shape on every rank) stacked in rank order,
+    (world, *t.shape) on t's device: on nccl one all_gather_into_tensor on
+    the card, on gloo through the host (the list form, one copy back)."""
     backend = dist.get_backend(group)
     world = dist.get_world_size(group)
     t = t.contiguous()
     if backend == "nccl":
         if not t.is_cuda:
             raise ValueError(f"nccl gathers CUDA tensors, got {t.device}")
-        out = [torch.empty_like(t) for _ in range(world)]
-        dist.all_gather(out, t, group=group)
+        out = torch.empty((world, *t.shape), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
         return out
     if backend == "gloo":
         host = t.cpu()
-        out = [torch.empty_like(host) for _ in range(world)]
-        dist.all_gather(out, host, group=group)
-        return [o.to(t.device) for o in out]
+        out = torch.empty((world, *t.shape), dtype=t.dtype)
+        dist.all_gather(list(out.unbind(0)), host, group=group)
+        return out.to(t.device)
     raise ValueError(f"backend {backend!r}: the sharded step gathers over "
                      "nccl or gloo")
-
-
-def first_unsigned_min(pairs: torch.Tensor) -> torch.Tensor:
-    """The winning layer of each window from every rank's (min, layer)
-    pair, (D, 2, nwy, nwx) int32: the layer of the first rank whose
-    minimum is the least in unsigned order (the minima are the 32 bits of
-    uint32 window sums, so a signed order would be wrong above 2^31)."""
-    mins = pairs[:, 0].to(torch.int64) & _MASK
-    first = torch.argmin(mins, dim=0)          # first minimum: lowest rank
-    return pairs[:, 1].gather(0, first[None])[0]
 
 
 def _to(device, planes):
@@ -128,24 +118,32 @@ def sharded_flow(geom: FlowGeometry, radius: int, group=None,
     steps = pyramid_steps(geom.window_schedule(),
                           flow_ops.FIRST_NEIGHBOR_ITERATION)
 
+    lh, lw = geom.low_h, geom.low_w
+    words = slice_sums_words(lh, lw, n, geom.window_schedule())
+
     def flow(f1y, f1u, f1v, f2y, f2u, f2v, ds: int = 8, nbs: int = 6):
         f1y, f1u, f1v, f2y, f2u, f2v = _to(dev, (f1y, f1u, f1v, f2y, f2u,
                                                  f2v))
-        y2, u2, v2 = flow_ops.subsampled_f2(geom, f2y, f2u, f2v)
-        off_x = torch.zeros((geom.low_h, geom.low_w), dtype=torch.int32,
-                            device=dev)
-        off_y = torch.zeros_like(off_x)
-        for window, is_y, nb in steps:
-            best, arg = flow_layer_slice(
-                f1y, f1u, f1v, y2, u2, v2, off_x, off_y, is_y, z0, n,
-                radius, ds, nbs, window, nb, geom.res_scalar, geom.height,
-                geom.stride, luma_shift)
-            winner = first_unsigned_min(torch.stack(
-                gather(torch.stack((best, arg)), group)))
-            off_x, off_y = commit_plain(off_x, off_y, is_y, winner, radius,
-                                        window)
-        offset = torch.stack((off_x, off_y))
-        return offset, flow_ops.blur_flow(offset)
+        planes = (f1y, f1u, f1v, *flow_ops.subsampled_f2(geom, f2y, f2u,
+                                                         f2v))
+        scalars = (radius, ds, nbs, geom.res_scalar, geom.height,
+                   geom.stride, luma_shift)
+        field = torch.zeros((2, lh, lw), dtype=torch.int32, device=dev)
+        # K1's ping-pong sums: a step's buffer is zero, its launch zeroes
+        # the other for the next step
+        sums = (torch.zeros((2, words), dtype=torch.int32, device=dev)
+                if dev.type == "cuda" else None)
+        gathered = prev = None
+        for k, (window, is_y, nb) in enumerate(steps):
+            pairs = flow_layer_slice(
+                *planes, field, gathered, prev, (window, is_y, nb), z0, n,
+                *scalars, sums=None if sums is None else (sums[k & 1],
+                                                          sums[~k & 1]))
+            gathered = gather(pairs, group)
+            prev = (window, is_y)
+        flow_layer_slice(*planes, field, gathered, prev, None, z0, n,
+                         *scalars)
+        return field, flow_ops.blur_flow(field)
 
     return flow
 

@@ -10,12 +10,12 @@ Per source pair, on the engine's device and without a host sync:
    families (hopper, hopperx, hopperq, hopperxq), on the kernel's
    instantiation for the layer count of the live radius
    (``layer_buckets``); ``blend`` and ``repeat`` search no flow and take
-   a zero field.  Under ``subpel_flow`` the pyramid runs without its blur
-   phase, the sub-pel kernel (``ops/cuda/subpel.py``) turns the unblurred
-   offset into the 1/64-pel field (offset << 6) + frac, and the blur
-   kernel blurs that on its own; hopperq and hopperxq take the floor of
-   the blur and its 1/64-pel remainder, hopper and hopperx the blur
-   rounded to the nearest pel;
+   a zero field.  Under ``subpel_flow`` the same launch turns the
+   unblurred offset into the 1/64-pel field (offset << 6) + frac after
+   its last step (S1's phases, ``ops/cuda/subpel.py``) and blurs that in
+   its blur phase; hopperq and hopperxq take the floor of the blur and
+   its 1/64-pel remainder, hopper and hopperx the blur rounded to the
+   nearest pel;
 3. the cut folded in on the device: where the score exceeds the
    threshold the flow is zeroed and the blend positions snap to the
    nearer source (``torch.where``, no host branch); model ``repeat`` then
@@ -331,10 +331,8 @@ def _flow_stage(geom, scale_shift: int, scene_enabled: bool, model: str,
         _, blurred = flow_ops.flow(*args, radius, ds, nbs, scale_shift,
                                    layers=layers)
         return blurred, None, score
-    offset = flow_ops.flow(*args, radius, ds, nbs, scale_shift,
-                           layers=layers, blur=False)
-    b64 = flow_ops.blur_flow(flow_ops.subpel_flow(*args[:1], offset,
-                                                  *args[1:], scale_shift))
+    _, b64 = flow_ops.flow(*args, radius, ds, nbs, scale_shift,
+                           layers=layers, subpel=True)
     if model in ("hopperq", "hopperxq"):
         blurred = b64 >> 6
         return blurred, b64 - (blurred << 6), score

@@ -28,7 +28,15 @@ as absent.  Prints, with the card's name and power limit:
 * the flow as the engine runs it (``ops/flow.flow``: the pyramid and its
   blur): device ms and launches a pair, and host ms (50 enqueued);
 * S1 (the sub-pel refinement, where the tree has it): device ms on a 4K
-  field of committed flows, 8-bit and P010;
+  field of committed flows, 8-bit and P010; the sub-pel flow of a pair
+  (one launch where K1 runs S1's phases, else K1 without its blur phase,
+  S1 and the standalone blur): device ms, device rows and their us;
+* K1's layer slice: one rank's device work of the layer-sharded flow of
+  a pair at 16, 8 and 4 layers a slice without the collective (the
+  tree's launches a step, and where a launch commits nothing, the host's
+  stack, winner and commit), its device rows, and its wall ms a pair;
+  the layer-sharded flow at world size 1 on nccl: device ms and wall ms
+  a pair;
 * K3: device ms of the standalone blur of a 4K field, and the us of the
   blur phase inside the pyramid's launch (its timeline stamp);
 * K2: device ms of the five blend positions of a 4K pair, 8-bit at the
@@ -115,6 +123,17 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
         return sum(self_device_us(e) for e in prof.key_averages()) / 1e3 \
             / reps
+
+    def kernel_rows(fn):
+        """{name: (count, device us)} of one call of fn's device rows."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: (e.count, self_device_us(e))
+                for e in prof.key_averages() if self_device_us(e) > 0}
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -406,6 +425,104 @@ def main(argv=None) -> int:
         out["s1_p010_device_ms"] = device_ms(lambda: KP.subpel_refine(
             field16, p1[0], p1[2], p1[3], *probe16, rs, geom.height,
             geom.stride, 8))
+
+    # the sub-pel flow of a pair: one launch where the tree has S1's
+    # phases in K1 (the pyramid, S1, the blur), else the pyramid without
+    # its blur phase, S1 and the standalone blur
+    fused_subpel = "subpel" in inspect.signature(KS.flow_pyramid).parameters
+
+    def subpel_flow():
+        if fused_subpel:
+            return F.flow(geom, f1y, f1u, f1v, f2y, f2u, f2v, 16,
+                          subpel=True)
+        offset = F.flow(geom, f1y, f1u, f1v, f2y, f2u, f2v, 16, blur=False)
+        return F.blur_flow(F.subpel_flow(geom, offset, f1y, f1u, f1v, f2y,
+                                         f2u, f2v))
+
+    out["subpel_flow_device_ms"] = device_ms(subpel_flow)
+    rows = kernel_rows(subpel_flow)
+    out["subpel_flow_launches"] = sum(c for c, _ in rows.values())
+    out["subpel_flow_rows"] = {k[:40]: round(us, 2)
+                               for k, (_, us) in rows.items()}
+
+    # one rank's device work of the layer-sharded flow of a pair, without
+    # the collective (world 1): the tree's launches a step, and where the
+    # slice commits nothing itself, the host's stack, winner and commit
+    new_slice = "gathered" in inspect.signature(
+        KS.flow_layer_slice).parameters
+    scalars = (8, 6, rs, geom.height, geom.stride, 0)
+
+    def rank_pair(n):
+        if new_slice:
+            field = torch.zeros((2, geom.low_h, geom.low_w),
+                                dtype=torch.int32, device=dev)
+            # the ping-pong sums of a pair, as the sharded flow holds them
+            sums = torch.zeros((2, KS.slice_sums_words(
+                geom.low_h, geom.low_w, n, windows)), dtype=torch.int32,
+                device=dev)
+            gathered = prev = None
+            for k, step in enumerate(steps):
+                gathered = KS.flow_layer_slice(
+                    f1y, f1u, f1v, *probe, field, gathered, prev, step, 0, n,
+                    16, *scalars, sums=(sums[k & 1], sums[~k & 1]))[None]
+                prev = step[:2]
+            KS.flow_layer_slice(f1y, f1u, f1v, *probe, field, gathered, prev,
+                                None, 0, n, 16, *scalars)
+            return field
+        from mpv_frame_interpolator_tpu_torch.parallel.sharding import (
+            first_unsigned_min)
+        ox = oy = zero
+        for w, is_y, nb in steps:
+            best, arg = KS.flow_layer_slice(
+                f1y, f1u, f1v, *probe, ox, oy, is_y, 0, n, 16, 8, 6, w, nb,
+                rs, geom.height, geom.stride)
+            winner = first_unsigned_min(torch.stack([torch.stack((best,
+                                                                  arg))]))
+            ox, oy = KS.commit_plain(ox, oy, is_y, winner, 16, w)
+        return ox, oy
+
+    for n in (16, 8, 4):
+        rows = kernel_rows(lambda n=n: rank_pair(n))
+        out[f"slice_rank_pair_n{n}_device_ms"] = sum(
+            us for _, us in rows.values()) / 1e3
+        out[f"slice_rank_pair_n{n}_slice_device_ms"] = sum(
+            us for k, (_, us) in rows.items() if "slice" in k) / 1e3
+        out[f"slice_rank_pair_n{n}_device_rows"] = sum(
+            c for c, _ in rows.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            rank_pair(n)
+            torch.cuda.synchronize()
+        out[f"slice_rank_pair_n{n}_wall_ms"] = (time.perf_counter()
+                                                - t0) / 20 * 1e3
+
+    # the layer-sharded flow of a pair at world size 1 on nccl (the
+    # collective included): wall ms a pair with a synchronise after each,
+    # and device ms
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from mpv_frame_interpolator_tpu_torch.parallel import sharding
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1)
+        try:
+            fn = sharding.sharded_flow(geom, 16, None, 0, dev)
+
+            def sharded():
+                return fn(f1y, f1u, f1v, f2y, f2u, f2v)
+
+            out["sharded_flow_w1_device_ms"] = device_ms(sharded)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                sharded()
+                torch.cuda.synchronize()
+            out["sharded_flow_w1_wall_ms"] = (time.perf_counter()
+                                              - t0) / 20 * 1e3
+        finally:
+            dist.destroy_process_group()
 
     print(f"card: {smi}  tree: {args.root} {args.label}")
     for key, value in out.items():

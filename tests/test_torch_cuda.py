@@ -928,7 +928,9 @@ def test_flow_pyramid_occupancy(cuda):
     launch bounds), so every tile of a 4K field is resident."""
     for sample in (1, 2):
         for layers, radius in ((5, 5), (8, 8), (16, 16), (64, 64)):
-            assert KS.blocks_per_sm(sample, layers, radius) >= 4
+            for subpel in (False, True):
+                assert KS.blocks_per_sm(sample, layers, radius,
+                                        subpel) >= 4
 
 
 @pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
@@ -1017,9 +1019,9 @@ def test_engine_auto_quality_path_on_the_card_equals_the_cpu(
         cuda, model, pixfmt, levels, subpel, level, radius):
     """The sub-pel path, the ladder's rungs (level 3: the blend family)
     and radii above 16: the engine on the card equals the engine on the
-    CPU, with its launches: K1 once a pair (none on the blend rung), under
-    subpel_flow S1 and the standalone blur once a pair and the fused blur
-    never."""
+    CPU, with its launches: K1 once a pair (none on the blend rung) with
+    the blur as its last phase, under subpel_flow S1's phases too (no
+    standalone S1 or blur launch)."""
     from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
     cfg = synthetic.SyntheticConfig(width=64, height=544, fps=24.0,
                                     pixfmt=pixfmt)
@@ -1032,7 +1034,7 @@ def test_engine_auto_quality_path_on_the_card_equals_the_cpu(
         e.quality.enabled = False       # the level stays where it is set
         e.quality.level = level
     counts = (KS.counts, KP.counts, KB.counts)
-    before = [c.kernel for c in counts] + [KB.counts.fused]
+    before = [c.kernel for c in counts] + [KB.counts.fused, KP.counts.fused]
     for frame in synthetic.scene_cut(cfg, 6):
         outs = [e.push(frame) for e in engines]
         assert len(outs[0]) == len(outs[1])
@@ -1041,12 +1043,12 @@ def test_engine_auto_quality_path_on_the_card_equals_the_cpu(
             fa, fb = a.to_video_frame(), b.to_video_frame()
             np.testing.assert_array_equal(fa.y, fb.y)
             np.testing.assert_array_equal(fa.uv, fb.uv)
-    after = [c.kernel for c in counts] + [KB.counts.fused]
-    k1, s1, k3, fused = (a - b for a, b in zip(after, before))
+    after = [c.kernel for c in counts] + [KB.counts.fused, KP.counts.fused]
+    k1, s1, k3, fused, s1_fused = (a - b for a, b in zip(after, before))
     flows = 0 if level == 3 else 5
     assert k1 == flows
-    assert (s1, k3, fused) == ((flows, flows, 0) if subpel
-                               else (0, 0, flows))
+    assert (s1, k3, fused, s1_fused) == (0, 0, flows,
+                                         flows if subpel else 0)
 
 
 # --- the grouped path (CUDA graphs) and staged uploads ----------------------
@@ -1422,7 +1424,8 @@ def test_an_output_read_at_once_from_another_thread_is_finished(cuda):
 def test_flow_layer_slice(cuda, dt, luma_shift, h, w, stride, mcr):
     """K1's layer slice against its plain version: every window of the
     pyramid, both axes, with and without the neighbour bias, slices of a
-    radius-16 step, and a delta scalar whose sums wrap past 2^31."""
+    radius-16 step, and a delta scalar whose sums wrap past 2^31; each
+    launch first commits the previous case's pairs of two ranks."""
     rng = np.random.default_rng(h + w)
     geom = F.FlowGeometry.create(h, stride, w, mcr)
     lh, lw = geom.low_h, geom.low_w
@@ -1431,19 +1434,137 @@ def test_flow_layer_slice(cuda, dt, luma_shift, h, w, stride, mcr):
     u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
     probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
                             uv2[:, 1::2].contiguous())
-    off = [torch.from_numpy(rng.integers(-9, 10, (lh, lw)).astype(np.int32))
-           .to(cuda) for _ in range(2)]
-    for window in geom.window_schedule() + (1,):
+    field = torch.from_numpy(rng.integers(-9, 10, (2, lh, lw)).astype(
+        np.int32)).to(cuda)
+    plain = field.cpu()
+    host = [t.cpu() for t in (y1, u1, v1, *probe)]
+    windows = geom.window_schedule() + (1,)
+    sums = torch.zeros((2, KS.slice_sums_words(lh, lw, 16, windows)),
+                       dtype=torch.int32, device=cuda)
+    gathered = prev = None
+    k = 0
+    for window in windows:
         for is_y, nb, ds, (z0, n) in ((0, False, 8, (0, 16)),
                                       (1, True, 8, (4, 4)),
                                       (0, True, 23, (8, 8)),
                                       (1, False, 23, (15, 1))):
-            args = (y1, u1, v1, *probe, *off, is_y, z0, n, 16, ds, 6, window,
-                    nb, geom.res_scalar, geom.height, geom.stride,
-                    luma_shift)
-            got = KS.flow_layer_slice(*args)
-            want = KS.flow_layer_slice_plain(*args)
-            _equal(got, want)
+            step = (window, is_y, nb)
+            args = (z0, n, 16, ds, 6, geom.res_scalar, geom.height,
+                    geom.stride, luma_shift)
+            before = KS.slice_counts.kernel
+            got = KS.flow_layer_slice(y1, u1, v1, *probe, field, gathered,
+                                      prev, step, *args,
+                                      sums=(sums[k & 1], sums[~k & 1]))
+            k += 1
+            assert KS.slice_counts.kernel == before + 1
+            want = KS.flow_layer_slice(
+                *host, plain, None if gathered is None else gathered.cpu(),
+                prev, step, *args)
+            _equal([got, field.cpu()], [want.to(cuda), plain])
+            # two ranks' pairs for the next launch's commit: this slice's
+            # and the same pairs with other minima
+            other = got.clone()
+            other[0] = torch.from_numpy(rng.integers(
+                -2 ** 31, 2 ** 31, tuple(got[0].shape)).astype(
+                    np.int32)).to(cuda)
+            gathered, prev = torch.stack((got, other)), (window, is_y)
+
+
+@pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
+@pytest.mark.parametrize("h,w,stride,mcr,radius,split", [
+    (118, 202, 202, 64, 16, (3, 5, 8)),      # lh, lw odd: 59 x 101
+    (118, 202, 202, 64, 16, (12, 4)),
+    (48, 64, 64, 24, 24, (12, 12)),          # two ranks at radius 24
+    (68, 94, 94, 270, 64, (64,)),            # one rank: 16-layer chunks
+    (68, 94, 94, 270, 64, (32, 32)),
+    (2160, 3840, 3840, 270, 16, (16,)),
+    (2160, 3840, 3840, 270, 16, (5, 5, 6))])
+def test_layer_slices_give_the_pyramid_on_the_card(cuda, dt, luma_shift, h,
+                                                   w, stride, mcr, radius,
+                                                   split):
+    """Each rank's launches over a whole pyramid with window 1 at its end
+    (a launch a step: the previous step's commit, the slice, on two
+    ping-pong sums buffers; the pairs of every rank stacked between steps;
+    one commit-only launch), slices of
+    3, 4, 5, 6, 8, 12, 16, 32 and 64 layers (the 5-, 8- and 16-layer
+    instantiations and the chunk loop): every rank's field equals the
+    pyramid kernel's and the plain pyramid's."""
+    rng = np.random.default_rng(h + radius + len(split))
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    windows = geom.window_schedule() + (1,)
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    args = (radius, 8, 6, geom.res_scalar, geom.height, geom.stride,
+            luma_shift)
+    steps = KS.pyramid_steps(windows, F.FIRST_NEIGHBOR_ITERATION)
+    starts = np.cumsum((0,) + split[:-1])
+    fields = [torch.zeros((2, geom.low_h, geom.low_w), dtype=torch.int32,
+                          device=cuda) for _ in split]
+    # each rank's ping-pong sums, as the sharded flow passes them
+    sums = [torch.zeros((2, KS.slice_sums_words(geom.low_h, geom.low_w, n,
+                                                windows)),
+                        dtype=torch.int32, device=cuda) for n in split]
+    gathered = prev = None
+    before = KS.slice_counts.kernel
+    for k, step in enumerate(steps):
+        gathered = torch.stack([KS.flow_layer_slice(
+            y1, u1, v1, *probe, field, gathered, prev, step, int(z0), n,
+            *args, sums=(b[k & 1], b[~k & 1]))
+            for field, b, z0, n in zip(fields, sums, starts, split)])
+        prev = step[:2]
+    for field in fields:
+        KS.flow_layer_slice(y1, u1, v1, *probe, field, gathered, prev, None,
+                            0, 1, *args)
+    assert KS.slice_counts.kernel == before + len(split) * (len(steps) + 1)
+    pyr = (y1, u1, v1, *probe, radius, 8, 6, windows,
+           F.FIRST_NEIGHBOR_ITERATION, geom.res_scalar, geom.height,
+           geom.stride, luma_shift)
+    want = KS.flow_pyramid(*pyr)
+    if h < 1000:
+        _equal([want], [KS.flow_pyramid_plain(*pyr)])
+    for field in fields:
+        _equal([field], [want])
+
+
+@pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
+@pytest.mark.parametrize("h,w,stride,mcr,radius", [
+    (118, 202, 202, 270, 5), (48, 64, 80, 270, 16), (544, 96, 96, 270, 24),
+    (48, 64, 64, 2, 16), (2160, 3840, 3840, 270, 16)])
+def test_flow_pyramid_subpel(cuda, dt, luma_shift, h, w, stride, mcr,
+                             radius):
+    """The pyramid with S1's phases and the blur in one launch against the
+    plain pyramid, subpel_refine_plain and the plain blur, at radius 5, 16
+    (the 5- and 16-layer instantiations) and 24 (the chunk loop), one
+    launch and no standalone S1 or blur; its timeline has the two
+    stamps."""
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
+    rng = np.random.default_rng(h * radius + luma_shift)
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    windows = geom.window_schedule() or (2, 1)
+    y1, uv1 = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    u1, v1 = uv1[:, 0::2].contiguous(), uv1[:, 1::2].contiguous()
+    probe = F.subsampled_f2(geom, y2, uv2[:, 0::2].contiguous(),
+                            uv2[:, 1::2].contiguous())
+    args = (y1, u1, v1, *probe, radius, 8, 6, windows, 4, geom.res_scalar,
+            geom.height, geom.stride, luma_shift)
+    counts = (KS.counts, KP.counts, KB.counts)
+    before = [c.kernel for c in counts] + [KP.counts.fused, KB.counts.fused]
+    field, b64 = KS.flow_pyramid(*args, subpel=True)
+    after = [c.kernel for c in counts] + [KP.counts.fused, KB.counts.fused]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 1, 1]
+    want = KS.flow_pyramid_plain(*args)
+    fine = KP.subpel_refine_plain(want, y1, u1, v1, *probe,
+                                  geom.res_scalar, geom.height, geom.stride,
+                                  luma_shift)
+    _equal([field, b64], [want, KB.blur_flow_plain(fine)])
+    timeline = torch.zeros(5 + 2 * len(KS.pyramid_steps(windows, 4)),
+                           dtype=torch.int64, device=cuda)
+    KS.flow_pyramid(*args, timeline=timeline, subpel=True)
+    assert bool((timeline.diff() >= 0).all()) and int(timeline[0]) > 0
 
 
 @pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),

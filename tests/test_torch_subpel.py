@@ -6,6 +6,9 @@ the JAX package with the same seeded numpy inputs:
   scalars 0 and 2) and P010 clips (the SAD shifted to the 8-bit scale),
   and on fields with wild offsets that send probes past every edge; and
   ``subpel_refine_plain`` = (offset << 6) + frac, the field S1 writes;
+* ``flow_pyramid(..., subpel=True)`` (on the card one launch: the
+  pyramid, S1's phases, the blur) against the JAX pyramid, its
+  ``subpel_refine`` and its blur of the 1/64-pel field, 8-bit and P010;
 * Q1's plain version with a sub-pel field against the JAX bilinear
   branch with its FX fields (``_warp_fields(..., frac)`` and
   ``_warp_sample(..., bilinear=True)``), NV12 and P010 with levels
@@ -87,6 +90,36 @@ def test_subpel_frac_equals_jax(w, h, pixfmt, source, field):
     assert (KP.counts.plain, KP.counts.kernel) == (before[0] + 1, before[1])
     np.testing.assert_array_equal(field64.numpy(),
                                   (offset.numpy() << 6) + want)
+
+
+@pytest.mark.parametrize("pixfmt", ["nv12", "p010"])
+def test_pyramid_with_subpel_equals_jax(pixfmt):
+    w, h = 64, 48
+    planes = _clip(w, h, pixfmt, "moving_box")
+    luma_shift = 8 if pixfmt == "p010" else 0
+    tgeom = TF.FlowGeometry.create(h, w, w)
+    t = [torch.from_numpy(p) for p in planes]
+    probe = TF.subsampled_f2(tgeom, *t[3:])
+    counts = (KS.counts, KP.counts, KB.counts)
+    before = [c.plain for c in counts]
+    field, b64 = KS.flow_pyramid(*t[:3], *probe, 8, 8, 6,
+                                 tgeom.window_schedule(),
+                                 TF.FIRST_NEIGHBOR_ITERATION,
+                                 tgeom.res_scalar, h, w, luma_shift,
+                                 subpel=True)
+    # the plain pyramid, S1 and the blur, once each
+    assert [c.plain - b for c, b in zip(counts, before)] == [1, 1, 1]
+    geom = JF.FlowGeometry.create(h, w, w)
+    a = [jnp.asarray(p) for p in planes]
+    offset, _ = JF.make_flow_fn(geom, 8, luma_shift)(
+        *a, jnp.int32(8), jnp.int32(6))
+    frac = JF.subpel_refine(geom, offset, *a[:3],
+                            JF._subsampled_f2(geom, *a[3:]),
+                            luma_shift=luma_shift)
+    want = JF.blur_flow((offset << 6) + frac, geom.low_h, geom.low_w)
+    np.testing.assert_array_equal(field.numpy(), np.asarray(offset))
+    np.testing.assert_array_equal(b64.numpy(), np.asarray(want))
+    assert np.count_nonzero(np.asarray(frac)) > 0
 
 
 def test_subpel_refine_checks():
@@ -183,7 +216,8 @@ def check_subpel_engine(model, pixfmt, levels):
             n += 1
     assert n == 1 + 2 * 4
     after = [c.plain for c in counts] + [KB.counts.fused]
-    # four pairs: the pyramid without its blur phase, S1, the blur
+    # four pairs: the plain pyramid, S1, the blur (on the card: one
+    # launch, S1's phases and the blur inside it)
     assert [a - b for a, b in zip(after, before)] == [4, 4, 4, 0]
 
 
