@@ -42,10 +42,13 @@ Phases (any failure raises and exits non-zero):
    launch, against the pyramid, ``subpel_refine_plain`` and the plain
    blur, the phases' us from the kernel's timeline), and the standalone
    entry on a pyramid field and on wild offsets;
-3b. the toolchain probes through their entry points: P1 (packed bytes)
-   every probe OK, P2 (asynchronous copies) its matrix printed, the
-   aligned control OK under cp.async and TMA, every case that is not
-   REJECTED OK, and every verdict the H100's (``--expect-h100``);
+3b. the toolchain probes through their entry points: P1 (packed bytes:
+   the JAX probe's five arrays and the card's own packing) every probe OK
+   in one launch, each entry bit-exact at five pairs of shifts, beside
+   the device time of a launch that does nothing; P2 (asynchronous
+   copies) its matrix printed, the aligned control OK under cp.async and
+   TMA, every case that is not REJECTED OK, and every verdict the H100's
+   (``--expect-h100``);
 4. the engine on the card against the engine on the CPU (the plain
    versions) on small clips at radius 5 and 16, scene cuts among them:
    8-bit NV12 under the "pair" sampler, and P010 with levels (16.5, 235)
@@ -235,24 +238,63 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn) -> float:
-    """The card's own time of one call of fn: the device rows (kernels,
-    memsets, copies) of a torch.profiler trace, as profile_pair counts
-    them.  A trace that recorded no device row (it happens now and then)
-    is taken again, up to three times."""
+def spin_opening():
+    """64 spin kernels (torch.cuda._sleep), the opening of every trace."""
+    for _ in range(64):
+        torch.cuda._sleep(100)
+
+
+def kernel_rows(fn, expect: int = 1, setup=None, opening=spin_opening,
+                left_out: str = "spin") -> dict:
+    """{name: (count, device us)} of the device rows (kernels, memsets,
+    copies) of one call of fn under torch.profiler (after one call
+    outside it), `setup` called before each call, outside the trace.  A
+    trace late in a long process loses the device records it takes first,
+    a few of them, so `opening` (64 spin kernels) opens it and its rows
+    (those whose name holds `left_out`) are left out; one with fewer than
+    `expect` rows is taken again, up to five times (the last is
+    returned)."""
     from torch.profiler import ProfilerActivity, profile
     from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
+    setup = setup or (lambda: None)
+    setup()
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
+        setup()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            opening()
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        ms = sum(self_device_us(e) for e in prof.key_averages()) / 1e3
-        if ms > 0:
+        rows = {e.key: (e.count, self_device_us(e))
+                for e in prof.key_averages()
+                if self_device_us(e) > 0 and left_out not in e.key}
+        if sum(c for c, _ in rows.values()) >= expect:
             break
-    return ms
+    return rows
+
+
+def device_ms(fn, expect: int = 1) -> float:
+    """The card's own time of one call of fn: the sum of its device rows
+    (kernels, memsets, copies) as profile_pair counts them, in a trace
+    that kernel_rows opens with 64 spin kernels and takes again while it
+    holds fewer than `expect` rows."""
+    return sum(us for _, us in kernel_rows(fn, expect).values()) / 1e3
+
+
+def launch_floor_ms(n: int = 20) -> float:
+    """The device time of a launch that does nothing: the mean of n
+    torch.cuda._sleep(0) (a spin kernel of no cycles) in one trace,
+    opened with 64 fills in place of the spin kernels."""
+    one = torch.zeros(1, device="cuda")
+    rows = kernel_rows(lambda: [torch.cuda._sleep(0) for _ in range(n)], n,
+                       opening=lambda: [one.fill_(1) for _ in range(64)],
+                       left_out="Fill")
+    count, us = next(v for k, v in rows.items() if "spin" in k)
+    return us / count / 1e3
 
 
 def bound(nbytes: float, ops: float):
@@ -974,10 +1016,13 @@ def phase_kernels(dev):
     return results
 
 
-def phase_probes(dev):
+def phase_probes(dev, smi: str):
     """Phase 3b: P1 and P2 through their entry points (their counters set
-    to 0 just before and read just after), then each timed against its
-    plain version on the same card inputs."""
+    to 0 just before and read just after; P1's is one launch), then each
+    timed against its plain version on the same card inputs: P1's every
+    entry bit-exact at its default shifts and at shifts that wrap, sit on
+    the 16-byte grid and leave it, with the device time of a launch that
+    does nothing beside its own."""
     from mpv_frame_interpolator_tpu_torch.tools import dma_probe as DP
     from mpv_frame_interpolator_tpu_torch.tools import pack_probe as PP
     results = {}
@@ -991,20 +1036,33 @@ def phase_probes(dev):
         check(launches > 0 and plain == 0,
               f"{name}: {launches} launches, {plain} plain calls")
         results[name] = dict(launches=launches)
+    check(results["pack_probe"]["launches"] == 1,
+          f"pack_probe: {results['pack_probe']['launches']} launches for "
+          "every probe, not 1")
 
     x = PP.make_inputs(0, dev)
+    entries = range(len(PP.PROBES))
     got = PP.run_all(x)
-    want = [PP.plain(p, m, x) for p, _, m in PP.PROBES]
+    want = [PP.plain_at(i, x) for i in entries]
+    check(all(g.dtype == w.dtype and g.shape == w.shape
+              for g, w in zip(got, want)),
+          "pack_probe: an output's shape or dtype is not its plain version's")
+    err = max_err(got, want)
+    for shifts in ((0, 0), (16, 4), (17, 1), (PP.C - 1, PP.R - 1)):
+        err = max(err, max_err(PP.run_all(x, *shifts),
+                               [PP.plain_at(i, x, *shifts) for i in entries]))
     # every input read once, every output written once
     nbytes = sum(t.numel() for t in x.values()) + sum(
         t.numel() * t.element_size() for t in got)
+    floor = launch_floor_ms()
     results["pack_probe"].update(
-        max_abs_err=max_err(got, want),
+        max_abs_err=err,
         device_ms=device_ms(lambda: PP.run_all(x)),
         ms=cuda_ms(lambda: PP.run_all(x), 20),
-        plain_ms=cuda_ms(lambda: [PP.plain(p, m, x)
-                                  for p, _, m in PP.PROBES], 20),
+        plain_ms=cuda_ms(lambda: [PP.plain_at(i, x) for i in entries], 20),
         bound=bound(nbytes, 0))
+    log(f"  pack_probe: {nbytes} bytes moved; one launch that does nothing "
+        f"(torch.cuda._sleep(0)) takes {floor:.4f} device ms on {smi}")
 
     # the cases that run in this process and are OK, each through its
     # mechanism
@@ -1021,7 +1079,8 @@ def phase_probes(dev):
     nbytes = 2 * sum(t.numel() * t.element_size() for t in got)
     results["dma_probe"].update(
         max_abs_err=max_err(got, want),
-        device_ms=device_ms(lambda: [fn(src, *w) for fn, src, *w in runs]),
+        device_ms=device_ms(lambda: [fn(src, *w) for fn, src, *w in runs],
+                            len(runs)),
         ms=cuda_ms(lambda: [fn(src, *w) for fn, src, *w in runs], 20),
         plain_ms=cuda_ms(lambda: [DP.window_plain(src, *w)
                                   for _, src, *w in runs], 20),
@@ -1032,7 +1091,7 @@ def phase_probes(dev):
         # the same copies' own device time, beside the probe's device_ms
         library_device_ms=device_ms(lambda: [
             src[dy:dy + r, dx:dx + c].clone()
-            for _, src, dy, dx, r, c in runs]),
+            for _, src, dy, dx, r, c in runs], len(runs)),
         bound=bound(nbytes, 0))
     for name, r in results.items():
         log(f"  {name}: kernels {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
@@ -2642,38 +2701,6 @@ def slice_bound(geom, radius: int, n: int, item: int):
     return bound(nbytes, 35 * cand)
 
 
-def kernel_rows(fn, expect: int = 1, setup=None) -> dict:
-    """{name: (count, device us)} of the device rows (kernels, memsets,
-    copies) of one call of fn under torch.profiler (after one call
-    outside it), `setup` called before each call, outside the trace.  A
-    trace late in a long process loses the device records it takes first,
-    a few of them, so 64 spin kernels open it and their rows are left
-    out; one with fewer than `expect` rows is taken again, up to five
-    times (the last is returned)."""
-    from torch.profiler import ProfilerActivity, profile
-    from mpv_frame_interpolator_tpu_torch.profile_pair import self_device_us
-    setup = setup or (lambda: None)
-    setup()
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):
-        setup()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(64):
-                torch.cuda._sleep(100)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        rows = {e.key: (e.count, self_device_us(e))
-                for e in prof.key_averages()
-                if self_device_us(e) > 0 and "spin" not in e.key}
-        if sum(c for c, _ in rows.values()) >= expect:
-            break
-    return rows
-
-
 def phase_layer_slice(dev, rng, geom):
     """K1's layer slice at 4K, radius 16, against its plain version (the
     plain composition on the card, ``layer_slice_step_plain``): slices of
@@ -3185,7 +3212,7 @@ def main() -> int:
     log("phase 3: kernels vs plain versions at 4K shapes")
     results = phase_kernels(dev)
     log("phase 3b: toolchain probes P1 and P2")
-    probes = phase_probes(dev)
+    probes = phase_probes(dev, smi)
     log("phase 4: engine on the card vs engine on the CPU, small clips")
     phase_reference(dev)
     log("phase 5: main path end to end (cli, 4K 24->120, radius 16)")

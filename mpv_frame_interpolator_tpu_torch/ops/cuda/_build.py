@@ -80,14 +80,9 @@ _SIGNATURES = {
     # f1y f1uv f2y f2uv blurred frac t out_y out_uv | H Wa pitch lh lw rs
     # scale_shift black white occlusion vec | stream
     "mfi_bilinear_blend": (P,) * 9 + (I,) * 11 + (P,),
-    # in out | n_words | stream
-    "mfi_probe_b32": (P, P, I, P),
-    # in out | R C shift method | stream
-    "mfi_probe_vec16": (P, P, I, I, I, I, P),
-    # idx val acc out | n_words method | stream
-    "mfi_probe_bytesel": (P,) * 4 + (I, I, P),
-    # lo out | stream
-    "mfi_probe_rep8": (P, P, P),
+    # a idx val acc lo | outs (a table of pointers, one a probe) | mask
+    # col_shift row_shift | stream
+    "mfi_probe_run": (P,) * 5 + (ctypes.POINTER(P), I, I, I, P),
     # src | src_row_bytes dy dx_bytes rows row_bytes width band_rows |
     # out stream
     "mfi_dma_cp_async": (P,) + (I,) * 7 + (P, P),

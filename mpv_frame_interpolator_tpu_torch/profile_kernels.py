@@ -1,5 +1,5 @@
-"""K1-K5, G1 and Q1 on the card at their paths' 4K shapes, for comparing
-two trees of the port in turns.
+"""K1-K5, G1, Q1 and P1 on the card at their paths' 4K shapes, for
+comparing two trees of the port in turns.
 
     python3 mpv_frame_interpolator_tpu_torch/profile_kernels.py \
         [--root TREE] [--label NAME] [--model NAME ...]
@@ -10,10 +10,14 @@ archive``) and the current one in one run on one card.  Only entry
 points that every tree of the port has are called: the flow step, the
 pyramid (``flow_pyramid`` where the tree has it, else the loop of steps
 from a zero field), ``ops/flow.flow``, ``blur_flow``, ``pair_blend``,
-``fused_blend``, ``sample_dir`` and the engine; an item that needs what
-the tree lacks (the blur phase of the pyramid's launch, G1) is printed
-as absent.  Prints, with the card's name and power limit:
+``fused_blend``, ``sample_dir``, ``tools.pack_probe.run_all`` and the
+engine; an item that needs what the tree lacks (the blur phase of the
+pyramid's launch, G1) is printed as absent.  Prints, with the card's
+name and power limit:
 
+* P1 (the toolchain probe of packed bytes): every probe of the tree's
+  ``run_all`` on its inputs of seed 0, its launches, device ms and the
+  host ms a call (50 enqueued);
 * K1: device ms of the whole radius-16 pyramid of a 4K pair, its
   launches, and the host ms its wrapper calls take (50 pyramids
   enqueued with no synchronise between them); its resident blocks an
@@ -151,6 +155,18 @@ def main(argv=None) -> int:
     geom = F.FlowGeometry.create(H4K, W4K, W4K)
     rs = geom.res_scalar
     out = {"label": args.label, "root": args.root, "card": smi}
+    from mpv_frame_interpolator_tpu_torch.tools import pack_probe as PP
+    px = PP.make_inputs(0, dev)
+    before = PP.counts.kernel
+    PP.run_all(px)
+    out["p1_launches"] = PP.counts.kernel - before
+    out["p1_device_ms"] = device_ms(lambda: PP.run_all(px))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        PP.run_all(px)
+    out["p1_host_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
     f1y, f1uv, f1u, f1v = planes(np.uint8)
     f2y, f2uv, f2u, f2v = planes(np.uint8)
     probe = F.subsampled_f2(geom, f2y, f2u, f2v)

@@ -20,6 +20,8 @@ They import no jax, so on a machine without it they run as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -553,7 +555,36 @@ def test_sample_dir_equals_the_oracle(cuda, w, h, stride, radius):
 def test_pack_probe(cuda):
     PP.counts.reset()
     assert PP.main([]) == 0
-    assert PP.counts.kernel == len(PP.PROBES) and PP.counts.plain == 0
+    # every probe in one launch of one kernel
+    assert PP.counts.kernel == 1 and PP.counts.plain == 0
+
+
+def test_pack_probe_each_probe_alone_and_through_a_mask(cuda):
+    """Each probe alone (a mask of one) equals its plain version and its
+    slice of the all-probe launch, at shifts that wrap, sit on the 16-byte
+    grid and leave it; a mask whose probes are not contiguous in the grid
+    gives the same; the C entry refuses a bad mask, a shift out of range
+    and a misaligned pointer."""
+    x = PP.make_inputs(2, cuda)
+    for shifts in ((5, 7), (0, 0), (16, 4), (17, 1), (PP.C - 1, PP.R - 1)):
+        every = PP.run_all(x, *shifts)
+        for i, key in enumerate(PP.PROBES):
+            alone = PP.run(*key, x, *shifts)
+            _equal([alone, every[i]], [PP.plain_at(i, x, *shifts), alone])
+        picked = (9, 0, 4, 7)
+        _equal(PP.run_many([PP.PROBES[i] for i in picked], x, *shifts),
+               [every[i] for i in picked])
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
+    lib = _build.load()
+    out = torch.empty((PP.R // 4, PP.C), dtype=torch.int32, device=cuda)
+    table = (ctypes.c_void_p * len(PP.PROBES))(out.data_ptr())
+    ins = [x[k].data_ptr() for k in PP.INPUTS]
+    stream = _build.stream_of(out)
+    for args in ((ins, 0, 5, 7), (ins, 1 << len(PP.PROBES), 5, 7),
+                 (ins, 1, PP.C, 7), (ins, 1, -1, 7), (ins, 1, 5, PP.R),
+                 ([ins[0] + 1] + ins[1:], 1, 5, 7)):
+        assert lib.mfi_probe_run(*args[0], table, *args[1:], stream) == 1
+    torch.cuda.synchronize()
 
 
 def test_dma_probe(cuda):

@@ -6,6 +6,9 @@ cp.async alignment rule on the seven DMA cases, and the probes' CPU
 dispatch.  Bit-exact.  The kernels themselves run on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,12 +20,18 @@ torch.set_num_threads(1)
 
 
 def _pack4(a8):
-    """Little-endian uint32 words of four consecutive columns (the JAX
-    probe's hypothesis, for the card's row-major packing)."""
+    """Little-endian uint32 words of four consecutive columns (the card's
+    row-major packing)."""
     return (a8[:, 0::4].astype(np.uint32)
             | (a8[:, 1::4].astype(np.uint32) << 8)
             | (a8[:, 2::4].astype(np.uint32) << 16)
             | (a8[:, 3::4].astype(np.uint32) << 24)).astype(np.int32)
+
+
+def _quads(a8):
+    """The JAX probe's hypothesis: word (r, c) = rows 4r..4r+3 of column c,
+    little-endian."""
+    return _pack4(a8.T).T
 
 
 @pytest.fixture(scope="module")
@@ -31,9 +40,45 @@ def x():
 
 
 def test_b32_is_the_little_endian_column_pack(x):
-    got = PP.b32_plain(x["a"])
+    got = PP.plain("b32", "column words", x)
     assert got.dtype == torch.int32 and got.shape == (PP.R, PP.C // 4)
     np.testing.assert_array_equal(got.numpy(), _pack4(x["a"].numpy()))
+
+
+def test_b32_row_quads_is_the_jax_packing(x):
+    got = PP.plain("b32", None, x)
+    assert got.dtype == torch.int32 and got.shape == (PP.R // 4, PP.C)
+    np.testing.assert_array_equal(got.numpy(), _quads(x["a"].numpy()))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 4, 5, 15, 16, PP.C - 1])
+def test_colroll_is_a_column_roll(x, shift):
+    got = PP.colroll_plain(x["a"], shift)
+    assert got.dtype == torch.int32 and got.shape == (PP.R // 4, PP.C)
+    np.testing.assert_array_equal(
+        got.numpy(), _quads(np.roll(x["a"].numpy(), shift, axis=1)))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 4, 5, 7, 15, 16, PP.R - 1])
+def test_rowroll_is_a_row_roll(x, shift):
+    got = PP.rowroll_plain(x["a"], shift)
+    assert got.dtype == torch.int32 and got.shape == (PP.R // 4, PP.C)
+    np.testing.assert_array_equal(
+        got.numpy(), _quads(np.roll(x["a"].numpy(), -shift, axis=0)))
+
+
+def test_shifts_wrap_as_np_roll_does(x):
+    """run takes a shift modulo its axis: -1 and C + 5 columns, -3 and R + 7
+    rows."""
+    a = x["a"].numpy()
+    for s in (-1, PP.C + 5):
+        np.testing.assert_array_equal(
+            PP.run("colroll", None, x, col_shift=s).numpy(),
+            _quads(np.roll(a, s, axis=1)))
+    for s in (-3, PP.R + 7):
+        np.testing.assert_array_equal(
+            PP.run("rowroll", None, x, row_shift=s).numpy(),
+            _quads(np.roll(a, -s, axis=0)))
 
 
 @pytest.mark.parametrize("shift", [0, 1, 2, 3, 4, 5, 11, 15, 16])
@@ -43,16 +88,28 @@ def test_vec16_is_a_column_shift(x, shift):
     np.testing.assert_array_equal(got, a[:, shift:shift + PP.C - 16])
 
 
-def test_bytesel_is_where(x):
+def _bytesel_is_where(x, variant):
     idx, val, acc = (x[k].numpy() for k in ("idx", "val", "acc"))
-    got = PP.bytesel_plain(x["idx"], x["val"], x["acc"]).numpy()
-    np.testing.assert_array_equal(got, np.where(idx == 1, val, acc))
+    got = PP.plain("bytesel", variant, x)
+    assert got.dtype == torch.int32 and got.shape == (PP.R // 4, PP.C)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _quads(np.where(idx == 1, val, acc)))
+
+
+def test_bytesel_is_where(x):
+    _bytesel_is_where(x, None)
+
+
+def test_bytesel_vcmpeq4_is_where(x):
+    _bytesel_is_where(x, "__vcmpeq4")
 
 
 def test_rep8_is_a_x8_nearest_upsample(x):
     lo = x["lo"].numpy()
-    got = PP.rep8_plain(x["lo"]).numpy()
-    np.testing.assert_array_equal(got, np.repeat(np.repeat(lo, 8, 0), 8, 1))
+    got = PP.rep8_plain(x["lo"])
+    assert got.dtype == torch.int32 and got.shape == (128, 256)
+    np.testing.assert_array_equal(
+        got.numpy(), np.repeat(np.repeat(lo.astype(np.int32), 8, 0), 8, 1))
 
 
 def test_pack_probes_take_the_plain_version_on_the_cpu(x):
@@ -61,6 +118,30 @@ def test_pack_probes_take_the_plain_version_on_the_cpu(x):
     assert len(outs) == len(PP.PROBES)
     assert (PP.counts.kernel, PP.counts.plain) == (before[0],
                                                    before[1] + len(outs))
+    for i, out in enumerate(outs):
+        assert (tuple(out.shape), out.dtype) == PP.SHAPES[i]
+
+
+def test_probe_order_is_the_kernels():
+    """PROBES lists the entries in the order of csrc/pack_probe.cu's Probe
+    numbers (bit p of the mask is PROBES[p]), the JAX probe's five first."""
+    src = (Path(PP.__file__).resolve().parents[1] / "csrc"
+           / "pack_probe.cu").read_text()
+    body = re.search(r"enum Probe \{(.*?)\};", src, re.S).group(1)
+    names = re.findall(r"^\s*(k\w+)", body, re.M)
+    assert names == ["kB32", "kColroll", "kRowroll", "kByteselTrick",
+                     "kRep8", "kB32Words", "kVec16Aligned", "kVec16Perm",
+                     "kVec16Funnel", "kByteselVcmp", "kProbes"]
+    assert [p for p, _ in PP.JAX_PROBES] == ["b32", "colroll", "rowroll",
+                                              "bytesel", "rep8"]
+    assert len(PP.PROBES) == len(PP.SHAPES) == len(names) - 1
+
+
+def test_run_many_refuses_a_repeated_or_unknown_probe(x):
+    with pytest.raises(ValueError, match="distinct"):
+        PP.run_many([("b32", None), ("b32", "row quads")], x)
+    with pytest.raises(ValueError, match="no probe"):
+        PP.run("vec16", "shift 7", x)
 
 
 @pytest.mark.parametrize("case,width", zip(DP.CASES,
@@ -189,7 +270,7 @@ def test_probes_never_fall_back_off_the_cpu():
     before = (PP.counts.kernel, PP.counts.plain, DP.counts.kernel,
               DP.counts.plain)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        PP.run("b32", 0, meta)
+        PP.run("b32", None, meta)
     for fn in (DP.cp_async_window, DP.tma_window):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(src, 32, 128, 128, 256)
