@@ -211,7 +211,13 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str):
+    """Print a line; a phase's heading with the seconds since the start."""
+    if msg.startswith("phase "):
+        msg = f"[{time.perf_counter() - T_START:.0f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -751,6 +757,26 @@ def phase_kernels(dev):
             log(f"  K2 N=3 {W4K}x{H4K} scale_shift={ss} levels={levels} "
                 f"{name} flow: max_abs_err={e}")
             err = max(err, e)
+        # every position count of a pair (a block loops over them)
+        for n in range(1, 5):
+            args = (*warp_args(dt), ts[:n], rs, geom.actual_width, ss,
+                    levels)
+            e = max_err(KW.pair_blend(*args), KW.pair_blend_plain(*args))
+            log(f"  K2 N={n} {W4K}x{H4K} scale_shift={ss} levels={levels}: "
+                f"max_abs_err={e}")
+            err = max(err, e)
+        # rows of 3844 samples: off the 16-byte grid, the per-sample path
+        hi = np.iinfo(dt).max + 1
+        odd_pitch = [torch.from_numpy(rng.integers(0, hi, (r, 3844)).astype(
+            dt)).to(dev) for r in (H4K, H4K // 2, H4K, H4K // 2)]
+        check(not KW.vector_path(odd_pitch, 3844),
+              "the pitch-3844 planes take K2's 16-byte path")
+        args = (*odd_pitch, blurred, t3, rs, 3844, ss, levels)
+        e = max_err(KW.pair_blend(*args), KW.pair_blend_plain(*args))
+        log(f"  K2 N=3 3844x{H4K} (per sample) scale_shift={ss} "
+            f"levels={levels}: max_abs_err={e}")
+        err = max(err, e)
+        del odd_pitch
         args = (*warp_args(dt), ts, rs, geom.actual_width, ss, levels)
         e = max_err(KW.pair_blend(*args), KW.pair_blend_plain(*args))
         log(f"  K2 N=5 {W4K}x{H4K} scale_shift={ss} levels={levels}: "
@@ -761,8 +787,16 @@ def phase_kernels(dev):
                       plain_ms=cuda_ms(lambda: KW.pair_blend_plain(*args),
                                        5),
                       bound=warp_bound(5, np.dtype(dt).itemsize, rs))
+    # the per-position slope: N = 1..5 at 8 bits, one launch each
+    args = (*warp_args(np.uint8), ts, rs, geom.actual_width)
+    slope = {n: device_ms(lambda n=n: KW.pair_blend(*args[:5], ts[:n],
+                                                     *args[6:]))
+             for n in range(1, 6)}
+    log("  K2 8-bit device ms by positions: "
+        + ", ".join(f"N={n} {v:.4f}" for n, v in slope.items()))
     results["pair_blend"] = dict(k2[0], max_abs_err=max(
-        k2[0]["max_abs_err"], k2[8]["max_abs_err"]), p010=k2[8])
+        k2[0]["max_abs_err"], k2[8]["max_abs_err"]), p010=k2[8],
+        p010_device_ms=k2[8]["device_ms"], n_device_ms=slope)
 
     # K4: one blend position, 8-bit and P010, default and TV levels, on
     # the block, edge and odd flows; timed at t = 0.4 on the block flow
@@ -795,7 +829,8 @@ def phase_kernels(dev):
     main = k4[(8, W.level_ints(16, 235))]
     results["fused_blend"] = dict(
         main, max_abs_err=err,
-        nv12=k4[(0, (0, 255))])
+        nv12=k4[(0, (0, 255))],
+        nv12_device_ms=k4[(0, (0, 255))]["device_ms"])
     for key, r in sorted(k4.items()):
         log(f"  K4 scale_shift={key[0]} levels={key[1]} t=0.4: kernel "
             f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
@@ -1616,7 +1651,9 @@ def phase_ladder(dev):
 def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
                       mode: int = 2):
     """Steady-state engine throughput at 4K 24 -> 120, radius 16, frames
-    pre-staged on the card, each pair synchronised (no sink)."""
+    pre-staged on the card, each pair synchronised (no sink).  On the
+    pair sampler in mode 2, K2 must be one device launch a pair (both
+    planes, every position): pairs pushed under torch.profiler."""
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
         EngineConfig, InterpolationEngine)
     levels = (16, 235) if p010 else (0, 255)
@@ -1625,8 +1662,11 @@ def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
         initial_search_radius=16,
         warp_sampling=sampling, black_level=levels[0],
         white_level=levels[1], device=str(dev)))
-    staged = [eng.stage(f)
-              for f in synthetic_frames("moving_box", W4K, H4K, 12, p010)]
+    k2_rows = sampling == "pair" and mode == 2
+    # a K2 trace takes 2 pairs, after 2 untraced, and up to 4 retakes
+    staged = [eng.stage(f) for f in synthetic_frames(
+        "moving_box", W4K, H4K, 24 if k2_rows else 12, p010)]
+    staged, more = staged[:12], iter(staged[12:])
     for f in staged[:3]:
         eng.push(f)
     torch.cuda.synchronize()
@@ -1641,6 +1681,15 @@ def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
         f"levels "
         f"{levels}: {pairs} pairs, {n} outputs in {dt * 1e3:.1f} ms = "
         f"{dt / pairs * 1e3:.3f} ms/pair wall, {n / dt:.1f} out-fps")
+    if k2_rows:
+        rows = kernel_rows(lambda: [eng.push(next(more)) for _ in range(2)],
+                           expect=4)
+        k2 = {k: v for k, v in rows.items() if "pair_blend_kernel" in k}
+        launches = sum(c for c, _ in k2.values())
+        log(f"  K2 on 2 pairs of the engine: {launches} device launches, "
+            f"{sum(us for _, us in k2.values()) / 2e3:.4f} device ms a pair")
+        check(launches == 2, f"K2 took {launches} device launches for 2 "
+              f"pairs, not one a pair: {rows}")
 
 
 OUR_KERNELS = ("pyramid_kernel", "pair_blend_kernel", "fused_blend_kernel",
@@ -2866,7 +2915,9 @@ def profile_sharded_flow(dev, planes) -> dict:
 def phase_row_band(dev, rng, geom):
     """K2's row band at 4K against its plain version and against K2's
     whole planes: 1, 2 and 4 bands, NV12 at the default levels and P010
-    at 16/235, one position (the sharded warp's) and three; timed at each
+    at 16/235, one position (the sharded warp's), three and five, on a
+    block flow, and at three positions on flows that push cells past
+    every edge and on odd flows (odd chroma displacements); timed at each
     band count on one position.  Returns the kernels-line entry (one band,
     the whole frame) with the others under `bands`."""
     from mpv_frame_interpolator_tpu_torch.ops import warp as W
@@ -2875,15 +2926,24 @@ def phase_row_band(dev, rng, geom):
     blurred = torch.from_numpy(np.stack([
         block_field(rng, lh, lw, 8, 12, 96),
         block_field(rng, lh, lw, 8, 12, 96)])).to(dev)
+    far = torch.from_numpy(np.stack([
+        block_field(rng, lh, lw, 8, 12, 400),
+        block_field(rng, lh, lw, 8, 12, 400)])).to(dev)
+    odd = torch.from_numpy(2 * np.stack([
+        block_field(rng, lh, lw, 8, 12, 48),
+        block_field(rng, lh, lw, 8, 12, 48)]) + 1).to(dev)
+    cases = (("block", [0.4], blurred), ("block", [0.0, 0.4, 1.0], blurred),
+             ("block", [0.0, 0.2, 0.4, 0.6, 0.8], blurred),
+             ("edge", [0.0, 0.4, 1.0], far), ("odd", [0.0, 0.4, 1.0], odd))
     err = 0
     timed = {}
     for dt, ss, levels in ((np.uint8, 0, (0, 255)),
                            (np.uint16, 8, W.level_ints(16, 235))):
         f1y, f1uv, _, _ = random_planes(rng, dev, dt)
         f2y, f2uv, _, _ = random_planes(rng, dev, dt)
-        for ts in ([0.4], [0.0, 0.4, 1.0]):
+        for name, ts, flow in cases:
             tt = torch.tensor(ts, dtype=torch.float32, device=dev)
-            args = (f1y, f1uv, f2y, f2uv, blurred, tt, rs, W4K)
+            args = (f1y, f1uv, f2y, f2uv, flow, tt, rs, W4K)
             whole = KW.pair_blend(*args, ss, levels)
             for parts in (1, 2, 4):
                 bands = [KW.pair_blend_rows(*args, r0, r1, ss, levels)
@@ -2895,7 +2955,8 @@ def phase_row_band(dev, rng, geom):
                                     torch.cat([b[1] for b in bands], 1)],
                                    whole))
                 log(f"  K2 row band {np.dtype(dt).name} levels={levels} "
-                    f"N={len(ts)} {parts} bands: max_abs_err={e}")
+                    f"N={len(ts)} {name} flow {parts} bands: "
+                    f"max_abs_err={e}")
                 err = max(err, e)
                 if dt != np.uint8 or len(ts) != 1:
                     continue
@@ -2916,7 +2977,8 @@ def phase_row_band(dev, rng, geom):
                     f"one position: kernel {r['ms']:.4f} ms (device "
                     f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
                     f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    return dict(timed[1], max_abs_err=err, bands=timed)
+    return dict(timed[1], max_abs_err=err, bands=timed,
+                bands_device_ms={k: v["device_ms"] for k, v in timed.items()})
 
 
 def _warm_then_timed(run, warm, timed) -> tuple:
@@ -3189,6 +3251,16 @@ def main() -> int:
     check(len(main) == 6 and all(r <= 64 and not sp
                                  for r, sp in main.values()),
           f"K1's main-path instantiations: {main}")
+    # K2 (one kernel for the whole frame and the band, both planes) and
+    # K4 share blend_run: every instantiation without spills
+    warps = {k: v for k, v in ptxas_report(_build.build_log()).items()
+             if "pair_blend_kernel" in k or "fused_blend_kernel" in k}
+    log(f"  K2 / K4 instantiations (registers, spilled bytes): "
+        f"{sorted(warps.values())}")
+    check(any("pair_blend_kernel" in k for k in warps)
+          and any("fused_blend_kernel" in k for k in warps)
+          and not any(sp for _, sp in warps.values()),
+          f"K2 and K4's instantiations: {warps}")
     # the native host library (readers, codecs), built here so that no
     # CLI run below pays for it
     from mpv_frame_interpolator_tpu_torch import native
@@ -3351,7 +3423,12 @@ def main() -> int:
             # set of probes, nine windowed SAD probes and an integer
             # quadratic fit); P2's is the slice copy
             "library_ms": r.get("library_ms"),
-            "device_ms": r.get("device_ms")})
+            "device_ms": r.get("device_ms"),
+            # K2 under P010 and at N = 1..5, the band at 1, 2 and 4
+            # bands, K4 at 8 bits
+            **{k: r[k] for k in ("p010_device_ms", "n_device_ms",
+                                 "bands_device_ms", "nv12_device_ms")
+               if k in r}})
     log(f"launches on the 8-bit main path {main_launches}, on the P010 "
         f"fused path {p010_launches}, on the warp12 path {warp12_launches}, "
         f"on the pallas blend path {pallas_launches}, on the hopperxq path "

@@ -43,8 +43,8 @@ __global__ void __launch_bounds__(kBX * kBY) blend_levels_kernel(
     const T* __restrict__ s12y, const T* __restrict__ s12uv,
     const T* __restrict__ s21y, const T* __restrict__ s21uv,
     const float* __restrict__ t, T* __restrict__ out_y,
-    T* __restrict__ out_uv, int H, int Wa, int luma_blocks, int ss, int k,
-    int w, int vec) {
+    T* __restrict__ out_uv, int H, int Wa, int luma_blocks, int ss,
+    mfi::Levels lv, int vec) {
   constexpr int item = sizeof(T);
   constexpr int kE = 16 / item;  // samples a run
   const bool chroma = (int)blockIdx.y >= luma_blocks;
@@ -74,8 +74,8 @@ __global__ void __launch_bounds__(kBX * kBY) blend_levels_kernel(
       unsigned bl = (sa * w1 + sb * tw) >> frac;
       if (kOcclusion)
         bl = mfi::occlusion_adjust((int)bl, (int)sa, (int)sb, near12, ss);
-      vals[j] = chroma ? mfi::levels_uv(bl, ss, w)
-                       : mfi::levels_y(bl, ss, k, w);
+      vals[j] = chroma ? mfi::levels_uv(bl, ss, lv)
+                       : mfi::levels_y(bl, ss, lv);
     }
     unsigned r[4];
 #pragma unroll
@@ -89,8 +89,8 @@ __global__ void __launch_bounds__(kBX * kBY) blend_levels_kernel(
     unsigned bl = ((unsigned)a[j] * w1 + (unsigned)b[j] * tw) >> frac;
     if (kOcclusion)
       bl = mfi::occlusion_adjust((int)bl, (int)a[j], (int)b[j], near12, ss);
-    o[j] = (T)(chroma ? mfi::levels_uv(bl, ss, w)
-                      : mfi::levels_y(bl, ss, k, w));
+    o[j] = (T)(chroma ? mfi::levels_uv(bl, ss, lv)
+                      : mfi::levels_y(bl, ss, lv));
   }
 }
 
@@ -108,7 +108,8 @@ int launch(const void* s12y, const void* s12uv, const void* s21y,
       static_cast<const T*>(s12y), static_cast<const T*>(s12uv),
       static_cast<const T*>(s21y), static_cast<const T*>(s21uv),
       static_cast<const float*>(t), static_cast<T*>(out_y),
-      static_cast<T*>(out_uv), H, Wa, luma_blocks, ss, k, w, vec);
+      static_cast<T*>(out_uv), H, Wa, luma_blocks, ss, mfi::levels(k, w),
+      vec);
   return (int)cudaGetLastError();
 }
 

@@ -106,8 +106,8 @@ __device__ __forceinline__ int bilinear_tap(const T* __restrict__ src,
 // JAX order, the occlusion correction and the level map: one output sample.
 template <bool kChroma, bool kOcclusion>
 __device__ __forceinline__ unsigned bilinear_mix(int q12, int q21, float t,
-                                                 float fs21, int ss, int k,
-                                                 int w) {
+                                                 float fs21, int ss,
+                                                 const mfi::Levels& lv) {
   const float a = __int2float_rn(q12), b = __int2float_rn(q21);
   constexpr float kInv = 1.0f / 4096.0f;
   const float val = __fmul_rn(__fadd_rn(__fmul_rn(a, fs21), __fmul_rn(b, t)),
@@ -118,8 +118,8 @@ __device__ __forceinline__ unsigned bilinear_mix(int q12, int q21, float t,
     const int s21i = (int)floorf(__fadd_rn(__fmul_rn(b, kInv), 0.5f));
     blended = mfi::occlusion_adjust(blended, s12i, s21i, t < 0.5f, ss);
   }
-  return kChroma ? mfi::levels_uv((unsigned)blended, ss, w)
-                 : mfi::levels_y((unsigned)blended, ss, k, w);
+  return kChroma ? mfi::levels_uv((unsigned)blended, ss, lv)
+                 : mfi::levels_y((unsigned)blended, ss, lv);
 }
 
 // The 1/64-pel displacements d = {x12, y12, x21, y21} of the segment whose
@@ -182,7 +182,7 @@ __device__ __forceinline__ void bilinear_run(
     const T* __restrict__ f1, const T* __restrict__ f2,
     const int* __restrict__ blurred, const int* __restrict__ frac, float t,
     T* __restrict__ o, int x0, int cy, int rows, int Wa, int pitch, int lh,
-    int lw, int rs, int ss, int k, int w, int vec) {
+    int lw, int rs, int ss, const mfi::Levels& lv, int vec) {
   constexpr int item = sizeof(T);
   constexpr int kE = 16 / item;          // samples a run
   constexpr int kSeg = 1 << kLogSeg;
@@ -233,7 +233,7 @@ __device__ __forceinline__ void bilinear_run(
       for (int j = 0; j < kSeg; ++j) {
         const unsigned v = bilinear_mix<kChroma, kOcclusion>(
             window_tap<T, kStep>(a0, a1, j, fx12, fy12),
-            window_tap<T, kStep>(b0, b1, j, fx21, fy21), t, fs21, ss, k, w);
+            window_tap<T, kStep>(b0, b1, j, fx21, fy21), t, fs21, ss, lv);
         const int i = g * kSeg + j;
         r[i / (4 / item)] |= v << (8 * item * (i % (4 / item)));
       }
@@ -256,7 +256,7 @@ __device__ __forceinline__ void bilinear_run(
       const int q21 = bilinear_tap(f2, pitch, by + d[g][3], bx + d[g][2],
                                    rows, dim_x, kStep, cpar);
       o[g * kSeg + j] =
-          (T)bilinear_mix<kChroma, kOcclusion>(q12, q21, t, fs21, ss, k, w);
+          (T)bilinear_mix<kChroma, kOcclusion>(q12, q21, t, fs21, ss, lv);
     }
   }
 }
@@ -269,7 +269,7 @@ __global__ void __launch_bounds__(kBX * kBY) bilinear_blend_kernel(
     const int* __restrict__ blurred, const int* __restrict__ frac,
     const float* __restrict__ t, T* __restrict__ out_y,
     T* __restrict__ out_uv, int H, int Wa, int pitch, int lh, int lw, int rs,
-    int luma_blocks, int ss, int k, int w, int vec) {
+    int luma_blocks, int ss, mfi::Levels lv, int vec) {
   constexpr int kE = 16 / sizeof(T);
   const bool chroma = (int)blockIdx.y >= luma_blocks;
   const int x0 = (blockIdx.x * kBX + threadIdx.x) * kE;
@@ -281,11 +281,11 @@ __global__ void __launch_bounds__(kBX * kBY) bilinear_blend_kernel(
   if (chroma)
     bilinear_run<T, true, kOcclusion, kFrac, kLogSegC>(
         f1uv, f2uv, blurred, frac, t12, out_uv + (size_t)cy * Wa + x0, x0, cy,
-        rows, Wa, pitch, lh, lw, rs, ss, k, w, vec);
+        rows, Wa, pitch, lh, lw, rs, ss, lv, vec);
   else
     bilinear_run<T, false, kOcclusion, kFrac, kLogSegY>(
         f1y, f2y, blurred, frac, t12, out_y + (size_t)cy * Wa + x0, x0, cy,
-        rows, Wa, pitch, lh, lw, rs, ss, k, w, vec);
+        rows, Wa, pitch, lh, lw, rs, ss, lv, vec);
 }
 
 template <bool kOcclusion, bool kFrac>
@@ -306,7 +306,7 @@ struct Variant {
               static_cast<const int*>(blurred), static_cast<const int*>(frac),
               static_cast<const float*>(t), static_cast<T*>(out_y),
               static_cast<T*>(out_uv), H, Wa, pitch, lh, lw, rs, luma_blocks,
-              ss, k, w, vec);
+              ss, mfi::levels(k, w), vec);
       return (int)cudaGetLastError();
     }
   };

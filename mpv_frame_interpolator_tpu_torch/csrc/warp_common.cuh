@@ -25,9 +25,11 @@
 //     255 << ss); chroma: with m = 128 << ss, min(floor(max((b - m) * 255
 //     + m * w, 0) / max(w, 1)), 255 << ss), with (k, w) the black and
 //     white levels rounded half to even by the caller.  C division of the
-//     positive numerators is already the exact floor (no _div_exact).  At
-//     the default levels (0, 255) both maps are the clip to the cap, which
-//     levels_* takes directly (the same value, without the division).
+//     positive numerators is already the exact floor (no _div_exact), and
+//     so is the multiply and shift (Divider) the kernels take in its
+//     place.  At the default levels (0, 255) both maps are the clip to the
+//     cap, which levels_* takes directly (the same value, without the
+//     division).
 // iround rounds half away from zero; every float product is rounded once
 // (__fmul_rn, and the library is built with --fmad=false).
 
@@ -44,10 +46,12 @@ __device__ __forceinline__ int mirror_edge2(int pos, int dim) {
   return min(max(res, 1), dim - 2);
 }
 
-// (int)(sign(x) * floor(|x| + 0.5)), in float32
+// (int)(sign(x) * floor(|x| + 0.5)), in float32, without a branch:
+// round-to-nearest is symmetric, so x + copysign(0.5, x) is sign(x) times
+// |x| + 0.5 as that sum rounds, and its truncation toward zero is
+// sign(x) * floor(|x| + 0.5) (0 for x = 0)
 __device__ __forceinline__ int iround(float x) {
-  const float r = floorf(__fadd_rn(fabsf(x), 0.5f));
-  return x > 0.f ? (int)r : (x < 0.f ? -(int)r : 0);
+  return __float2int_rz(__fadd_rn(x, copysignf(0.5f, x)));
 }
 
 __device__ __forceinline__ unsigned blend_weight(float t, int frac) {
@@ -57,25 +61,56 @@ __device__ __forceinline__ unsigned blend_weight(float t, int frac) {
   return (unsigned)w;
 }
 
-// int32 arithmetic, as the JAX maps compute (b <= 65535, so the
-// numerators fit for any level in [-8000, 8000])
-__device__ __forceinline__ unsigned levels_y(unsigned b, int ss, int k,
-                                             int w) {
-  const int cap = 255 << ss;
-  if (k == 0 && w == 255) return min((int)b, cap);
-  const int n = ((int)b - k * (1 << ss)) * 255;
-  if (n <= 0) return 0;
-  return min(n / max(w - k, 1), cap);
+// The quotient floor(n / d) of a level map, 0 <= n < 2^31, by a divisor
+// d >= 1 fixed for a launch: one 32 x 32 -> 64-bit product and a shift,
+// exact for every such n (Granlund and Montgomery 1994, theorem 4.2: with
+// l = ceil(log2 d) and m = ceil(2^(31 + l) / d), 0 <= m d - 2^(31 + l) <
+// d <= 2^l).  divider() makes it on the host.
+struct Divider {
+  int d;
+  unsigned m;
+  int sh;
+  __device__ __forceinline__ int operator()(int n) const {
+    return (int)(((unsigned long long)(unsigned)n * m) >> sh);
+  }
+};
+
+inline Divider divider(int d) {
+  int l = 0;
+  while ((1ll << l) < d) ++l;
+  return {d, (unsigned)(((1ull << (31 + l)) + d - 1) / d), 31 + l};
 }
 
-__device__ __forceinline__ unsigned levels_uv(unsigned b, int ss, int w) {
+// A launch's black and white levels (k, w) and the divisors of its luma
+// and chroma maps, max(w - k, 1) and max(w, 1) (host: levels(k, w)).
+struct Levels {
+  int k, w;
+  Divider y, uv;
+};
+
+inline Levels levels(int k, int w) {
+  return {k, w, divider(w - k > 1 ? w - k : 1), divider(w > 1 ? w : 1)};
+}
+
+// int32 arithmetic, as the JAX maps compute (b <= 65535, so the
+// numerators fit for any level in [-8000, 8000])
+__device__ __forceinline__ unsigned levels_y(unsigned b, int ss,
+                                             const Levels& lv) {
   const int cap = 255 << ss;
-  if (w == 255) return min((int)b, cap);
-  const int d = max(w, 1);
-  const int m = 128 << ss;
-  const int n = ((int)b - m) * 255 + m * d;
+  if (lv.k == 0 && lv.w == 255) return min((int)b, cap);
+  const int n = ((int)b - lv.k * (1 << ss)) * 255;
   if (n <= 0) return 0;
-  return min(n / d, cap);
+  return min(lv.y(n), cap);
+}
+
+__device__ __forceinline__ unsigned levels_uv(unsigned b, int ss,
+                                              const Levels& lv) {
+  const int cap = 255 << ss;
+  if (lv.w == 255) return min((int)b, cap);
+  const int m = 128 << ss;
+  const int n = ((int)b - m) * 255 + m * lv.uv.d;
+  if (n <= 0) return 0;
+  return min(lv.uv(n), cap);
 }
 
 // The occlusion correction of the hopperx families (ops/warp.
@@ -190,8 +225,8 @@ __device__ __forceinline__ T blend_pixel(const T* __restrict__ f1,
                                          const T* __restrict__ f2, int pitch,
                                          int rows, int Wa, int cx, int cy,
                                          int dx12, int dy12, int dx21,
-                                         int dy21, float t12, int ss, int k,
-                                         int w) {
+                                         int dy21, float t12, int ss,
+                                         const Levels& lv) {
   const unsigned s12 =
       sample_dir_pixel<T, kChroma>(f1, pitch, rows, Wa, cx, cy, dx12, dy12);
   const unsigned s21 =
@@ -199,7 +234,7 @@ __device__ __forceinline__ T blend_pixel(const T* __restrict__ f1,
   const int frac = ss ? 16 : 24;
   const unsigned tw = blend_weight(t12, frac);
   const unsigned b = (s12 * ((1u << frac) - tw) + s21 * tw) >> frac;
-  return (T)(kChroma ? levels_uv(b, ss, w) : levels_y(b, ss, k, w));
+  return (T)(kChroma ? levels_uv(b, ss, lv) : levels_y(b, ss, lv));
 }
 
 }  // namespace mfi

@@ -43,8 +43,8 @@ template <typename T, bool kChroma, int kLogSeg>
 __device__ __forceinline__ void fused_plane(
     const T* __restrict__ f1, const T* __restrict__ f2,
     const int* __restrict__ blurred, float t12, T* __restrict__ out, int by,
-    int rows, int Wa, int pitch, int lh, int lw, int rs, int ss, int k, int w,
-    int vec) {
+    int rows, int Wa, int pitch, int lh, int lw, int rs, int ss,
+    const mfi::Levels& lv, int vec) {
   constexpr int kE = 16 / sizeof(T);
   constexpr int kSeg = 1 << kLogSeg;
   constexpr int kNSeg = kE / kSeg;
@@ -56,7 +56,7 @@ __device__ __forceinline__ void fused_plane(
                                        fy12, fx21, fy21);
   mfi::blend_run<T, kChroma, kLogSeg>(f1, f2, fx12, fy12, fx21, fy21, t12,
                                       out + (size_t)cy * Wa + x0, x0, cy,
-                                      rows, Wa, pitch, ss, k, w, vec);
+                                      rows, Wa, pitch, ss, lv, vec);
 }
 
 template <typename T, int kLogSegY, int kLogSegC>
@@ -65,16 +65,17 @@ __global__ void __launch_bounds__(kBX * kBY) fused_blend_kernel(
     const T* __restrict__ f2y, const T* __restrict__ f2uv,
     const int* __restrict__ blurred, const float* __restrict__ t,
     T* __restrict__ out_y, T* __restrict__ out_uv, int H, int Wa, int pitch,
-    int lh, int lw, int rs, int luma_blocks, int ss, int k, int w, int vec) {
+    int lh, int lw, int rs, int luma_blocks, int ss, mfi::Levels lv,
+    int vec) {
   const float t12 = *t;
   if ((int)blockIdx.y >= luma_blocks)
     fused_plane<T, true, kLogSegC>(f1uv, f2uv, blurred, t12, out_uv,
                                    blockIdx.y - luma_blocks, H / 2, Wa, pitch,
-                                   lh, lw, rs, ss, k, w, vec);
+                                   lh, lw, rs, ss, lv, vec);
   else
     fused_plane<T, false, kLogSegY>(f1y, f2y, blurred, t12, out_y,
                                     blockIdx.y, H, Wa, pitch, lh, lw, rs, ss,
-                                    k, w, vec);
+                                    lv, vec);
 }
 
 template <typename T, int kLogSegY, int kLogSegC>
@@ -91,7 +92,7 @@ struct Launch {
         static_cast<const T*>(f2y), static_cast<const T*>(f2uv),
         static_cast<const int*>(blurred), static_cast<const float*>(t),
         static_cast<T*>(out_y), static_cast<T*>(out_uv), H, Wa, pitch, lh, lw,
-        rs, luma_blocks, ss, k, w, vec);
+        rs, luma_blocks, ss, mfi::levels(k, w), vec);
     return (int)cudaGetLastError();
   }
 };

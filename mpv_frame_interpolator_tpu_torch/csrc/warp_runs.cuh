@@ -14,14 +14,15 @@
 // registers (a word select and __funnelshift_r) and writes one 16-byte
 // store.  Interleaved chroma addresses (x' & ~1) + (x & 1): for an odd
 // displacement dx the even (u) samples read x + dx - 1 and the odd (v) ones
-// x + dx + 1, so such a segment assembles two windows and takes u from one
-// and v from the other ("the chroma trap").  Every other run takes the
-// per-sample step of warp_common.cuh.
+// x + dx + 1 ("the chroma trap"), so a chroma segment assembles one window
+// two samples longer from x + dx - odd and takes u from its start and v two
+// samples on.  Every other run takes the per-sample step of
+// warp_common.cuh.
 //
 // No load starts at an unaligned address: the window is built from the
 // aligned chunks around it (a TMA box or cp.async at an unaligned column is
-// what the card refuses, PERF.md P2), and the second chunk is read only
-// when the window reaches into it, so no read leaves the source row.  The
+// what the card refuses, PERF.md P2), and a later chunk is read only when
+// the window reaches into it, so no read leaves the source row.  The
 // vector path needs 16-byte aligned plane pointers and rows of a multiple
 // of 16 bytes (the source pitch and the output width); each C entry refuses
 // a vector launch on planes that do not qualify.
@@ -58,18 +59,17 @@ constexpr int log_run() {
 // bytes.
 constexpr int kBX = 8, kBY = 32;
 
-// Host: the grid of 16-byte runs over `rows` x Wa samples of T, `depth`
-// deep.
+// Host: the grid of 16-byte runs over `rows` x Wa samples of T.
 template <typename T>
-inline dim3 run_grid(int rows, int Wa, int depth = 1) {
+inline dim3 run_grid(int rows, int Wa) {
   constexpr int kE = 16 / sizeof(T);
-  return dim3(((Wa + kE - 1) / kE + kBX - 1) / kBX,
-              (rows + kBY - 1) / kBY, depth);
+  return dim3(((Wa + kE - 1) / kE + kBX - 1) / kBX, (rows + kBY - 1) / kBY);
 }
 
-// Host: the grid of one launch over a luma plane of H rows and its chroma
-// plane of H / 2, the luma block rows first (*luma_blocks of them), so that
-// the branch on the plane is uniform per block (K4, K5).
+// Host: the grid of one launch over a luma plane (or band) of H rows and
+// its chroma plane of H / 2, the luma block rows first (*luma_blocks of
+// them), so that the branch on the plane is uniform per block (K2, K4,
+// K5).
 template <typename T>
 inline dim3 two_plane_grid(int H, int Wa, int* luma_blocks) {
   const dim3 y = run_grid<T>(H, Wa), c = run_grid<T>(H / 2, Wa);
@@ -123,11 +123,13 @@ __device__ __forceinline__ void window_words(const unsigned char* row, int sb,
       v[4 * c + 3] = chunk.w;
     }
   }
+  // words q = o >> 2 on, selected in two levels (q's bit 1, then bit 0)
   const int q = o >> 2;
-  unsigned u[kW + 1];
+  unsigned h[kW + 2], u[kW + 1];
 #pragma unroll
-  for (int i = 0; i <= kW; ++i)
-    u[i] = q == 0 ? v[i] : (q == 1 ? v[i + 1] : (q == 2 ? v[i + 2] : v[i + 3]));
+  for (int i = 0; i <= kW + 1; ++i) h[i] = (q & 2) ? v[i + 2] : v[i];
+#pragma unroll
+  for (int i = 0; i <= kW; ++i) u[i] = (q & 1) ? h[i + 1] : h[i];
   const unsigned sh = (unsigned)(o & 3) * 8u;
 #pragma unroll
   for (int i = 0; i < kW; ++i) w[i] = __funnelshift_r(u[i], u[i + 1], sh);
@@ -152,17 +154,29 @@ __device__ __forceinline__ unsigned pack_word(const unsigned* v) {
 // The windows of one segment of kSeg samples from column xs of `row`,
 // displaced by dx: a for the even samples, b for the odd ones.  They differ
 // only for chroma at an odd displacement (u from xs + dx - 1, v from
-// xs + dx + 1).
+// xs + dx + 1): chroma reads one window of kSeg + 2 samples from
+// xs + dx - odd, and b is that window two samples on (a funnel shift by
+// 0 or 2 samples, so no branch and no second read).
 template <typename T, bool kChroma, int kSeg>
 __device__ __forceinline__ void segment_windows(const T* row, int xs, int dx,
                                                 unsigned a[4], unsigned b[4]) {
   constexpr int item = sizeof(T);
   const unsigned char* r = reinterpret_cast<const unsigned char*>(row);
-  const int odd = kChroma ? (dx & 1) : 0;
-  window_words<4, kSeg * item>(r, (xs + dx - odd) * item, a);
+  if (!kChroma) {
+    window_words<4, kSeg * item>(r, (xs + dx) * item, a);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) b[q] = a[q];
-  if (odd) window_words<4, kSeg * item>(r, (xs + dx + 1) * item, b);
+    for (int q = 0; q < 4; ++q) b[q] = a[q];
+    return;
+  }
+  const int odd = dx & 1;
+  unsigned v[5];
+  window_words<5, (kSeg + 2) * item>(r, (xs + dx - odd) * item, v);
+  const unsigned sh = (unsigned)(odd * 16 * item);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    a[q] = v[q];
+    b[q] = __funnelshift_rc(v[q], v[q + 1], sh);
+  }
 }
 
 // Whether every warped coordinate of the segment [xs, xs + seg) of row cy,
@@ -193,13 +207,16 @@ __device__ __forceinline__ void run_flows(const int* __restrict__ blurred,
 // The blended run at (x0, cy) of one position t12, written to `o` (the
 // run's first output sample), given each segment's flows (run_flows).
 // Interior runs blend and level-map per sample from the windows; edge runs
-// (or a launch without the vector path, vec == 0) take blend_pixel.
+// (or a launch without the vector path, vec == 0) take blend_pixel.  A
+// 16-byte run is written with a streaming store (st.global.cs,
+// evict-first): an output is not read again by the launch, and the sources
+// that the next runs read stay in L2.
 template <typename T, bool kChroma, int kLogSeg>
 __device__ __forceinline__ void blend_run(
     const T* __restrict__ f1, const T* __restrict__ f2, const float* fx12,
     const float* fy12, const float* fx21, const float* fy21, float t12,
     T* __restrict__ o, int x0, int cy, int rows, int Wa, int pitch, int ss,
-    int k, int w, int vec) {
+    const Levels& lv, int vec) {
   constexpr int item = sizeof(T);
   constexpr int kE = 16 / item;  // samples a run
   constexpr int kSeg = 1 << kLogSeg;
@@ -207,7 +224,7 @@ __device__ __forceinline__ void blend_run(
   const int frac = ss ? 16 : 24;
   // an 8-bit blend never exceeds 255, so at the default levels its level
   // map is the identity
-  const bool identity = item == 1 && w == 255 && (kChroma || k == 0);
+  const bool identity = item == 1 && lv.w == 255 && (kChroma || lv.k == 0);
   const float t21 = __fsub_rn(1.0f, t12);
   unsigned r[4] = {0u, 0u, 0u, 0u};
   bool interior = vec != 0;
@@ -241,13 +258,13 @@ __device__ __forceinline__ void blend_run(
         const unsigned s21 = sample_of<T>((j & 1) ? b21 : a21, j);
         const unsigned bl = (s12 * w1 + s21 * tw) >> frac;
         vals[g * kSeg + j] = identity ? bl
-                             : kChroma ? levels_uv(bl, ss, w)
-                                       : levels_y(bl, ss, k, w);
+                             : kChroma ? levels_uv(bl, ss, lv)
+                                       : levels_y(bl, ss, lv);
       }
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) r[q] = pack_word<T>(vals + q * (4 / item));
-    *reinterpret_cast<uint4*>(o) = make_uint4(r[0], r[1], r[2], r[3]);
+    __stcs(reinterpret_cast<uint4*>(o), make_uint4(r[0], r[1], r[2], r[3]));
     return;
   }
   // edge run (or no vector path): the per-sample step
@@ -258,13 +275,14 @@ __device__ __forceinline__ void blend_run(
     if (!vec && cx >= Wa) break;
     const unsigned v = blend_pixel<T, kChroma>(f1, f2, pitch, rows, Wa, cx, cy,
                                                dx12[g], dy12[g], dx21[g],
-                                               dy21[g], t12, ss, k, w);
+                                               dy21[g], t12, ss, lv);
     if (vec)
       r[j / (4 / item)] |= v << (8 * item * (j % (4 / item)));
     else
       o[j] = (T)v;
   }
-  if (vec) *reinterpret_cast<uint4*>(o) = make_uint4(r[0], r[1], r[2], r[3]);
+  if (vec)
+    __stcs(reinterpret_cast<uint4*>(o), make_uint4(r[0], r[1], r[2], r[3]));
 }
 
 // The raw run of ONE direction at (x0, cy), written to `o`: direction 12

@@ -10,15 +10,19 @@ kernel covers only 8-bit NV12 at the default levels; this one serves
 every case.
 
 Bound on the card, ideally: memory traffic (at 4K with N = 5 a pair
-writes ~62 MB and reads two nearest source samples per output sample
-from sources that stay in L2).  One thread per 16-byte output run of a
-row (and, at 8 bits, per position) computes each flow cell's
-displacements once a position and, where no sample of the run is
-mirrored, reads its sources with aligned 16-byte loads and writes one
-16-byte store a position; edge runs take the per-sample step (see the
-header of csrc/warp_pair.cu).
+writes ~62 MB and reads the two source frames, ~25 MB, once); measured,
+by its instructions.  One launch covers both planes and every position.
+One thread per 16-byte output run of a row reads the run's flows once
+for every position, computes each flow cell's displacements once a
+position and, where no sample of the run is mirrored, reads its sources
+with aligned 16-byte loads and writes one 16-byte streaming store a
+position; edge runs take the per-sample step (see the header of
+csrc/warp_pair.cu).  The row band
+(``pair_blend_rows``) is the same launch over rows [r0, r1); the whole
+frame is the band [0, H).
 ``vector_path`` says whether a launch may take the 16-byte path at all
-(tests/test_torch_warp_runs.py models the run decomposition on the CPU).
+(tests/test_torch_warp_runs.py models the runs and the launch's grid on
+the CPU).
 
 ``pair_blend`` dispatches on the device: CPU tensors take
 ``pair_blend_plain``, CUDA tensors launch the kernel (or raise).
@@ -189,9 +193,9 @@ def pair_blend_rows(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
     ``pair_blend``'s planes.  The row-sharded warp (parallel/sharding.py)
     runs one band a rank.
 
-    CPU tensors take ``pair_blend_rows_plain``; CUDA tensors launch the
-    row-band kernel (csrc/warp_pair.cu ``mfi_pair_blend_rows``, its own
-    entry: the pair-blend kernel is untouched) or raise.
+    CPU tensors take ``pair_blend_rows_plain``; CUDA tensors launch
+    ``pair_blend``'s kernel over the band (csrc/warp_pair.cu, entry
+    ``mfi_pair_blend_rows``, one launch for both planes) or raise.
     ``rows_counts`` counts its launches."""
     H, pitch, sample = check_args(f1y, f1uv, f2y, f2uv, blurred,
                                   actual_width, scale_shift)

@@ -2,7 +2,7 @@
 comparing two trees of the port in turns.
 
     python3 mpv_frame_interpolator_tpu_torch/profile_kernels.py \
-        [--root TREE] [--label NAME] [--model NAME ...]
+        [--root TREE] [--label NAME] [--model NAME ...] [--warp]
 
 Imports the port from TREE (default: the checkout this file is in), so one
 copy of this script can measure an older tree (an unpacked ``git
@@ -44,7 +44,10 @@ name and power limit:
 * K3: device ms of the standalone blur of a 4K field, and the us of the
   blur phase inside the pyramid's launch (its timeline stamp);
 * K2: device ms of the five blend positions of a 4K pair, 8-bit at the
-  default levels and P010 with levels (16, 235);
+  default levels and P010 with levels (16, 235); 8-bit at N = 1..5
+  positions (the first N of the pair's); its row band at one position
+  (t = 0.4, 8-bit), the first band of a split into 1, 2 and 4 bands (ten
+  launches a trace);
 * K4: device ms of one 4K blend position, 8-bit at the default levels
   and P010 with levels (16, 235);
 * K5: device ms of one 4K launch (direction 12, t = 0.4) at 8 bits and at
@@ -68,10 +71,16 @@ name and power limit:
   on each rung of the default degradation ladder (levels 1-3); a path
   the tree refuses prints as absent.
 
+With --warp only the warp kernels (K2 and its band, K4, K5, G1, Q1)
+and the 8-bit and P010 fused engines are timed, with --k2 only K2 and
+its band.
+
 All flows are random blocks of 8 x 8 low-res cells within +-96.
 
 Device ms is the sum of the device rows (kernels, memsets, copies) of a
-torch.profiler trace of the call.  The last line is the same as JSON.
+torch.profiler trace of the call, opened with 64 spin kernels whose rows
+are left out (a trace late in a process loses the device records it
+takes first).  The last line is the same as JSON.
 """
 
 from __future__ import annotations
@@ -99,7 +108,13 @@ def main(argv=None) -> int:
     p.add_argument("--model", action="append",
                    help="a model family whose mode-2 engine path to time "
                         "(repeatable)")
+    p.add_argument("--warp", action="store_true",
+                   help="time only the warp kernels and the 8-bit and P010 "
+                        "fused engines")
+    p.add_argument("--k2", action="store_true",
+                   help="time only K2 and its row band")
     args = p.parse_args(argv)
+    args.warp = args.warp or args.k2
     models = args.model or ["hopperx", "hopperq", "hopperxq", "blend"]
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: CUDA is not available")
@@ -122,11 +137,14 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        return sum(self_device_us(e) for e in prof.key_averages()) / 1e3 \
-            / reps
+        return sum(self_device_us(e) for e in prof.key_averages()
+                   if "spin" not in e.key) / 1e3 / reps
 
     def kernel_rows(fn):
         """{name: (count, device us)} of one call of fn's device rows."""
@@ -155,18 +173,19 @@ def main(argv=None) -> int:
     geom = F.FlowGeometry.create(H4K, W4K, W4K)
     rs = geom.res_scalar
     out = {"label": args.label, "root": args.root, "card": smi}
-    from mpv_frame_interpolator_tpu_torch.tools import pack_probe as PP
-    px = PP.make_inputs(0, dev)
-    before = PP.counts.kernel
-    PP.run_all(px)
-    out["p1_launches"] = PP.counts.kernel - before
-    out["p1_device_ms"] = device_ms(lambda: PP.run_all(px))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
+    if not args.k2:
+        from mpv_frame_interpolator_tpu_torch.tools import pack_probe as PP
+        px = PP.make_inputs(0, dev)
+        before = PP.counts.kernel
         PP.run_all(px)
-    out["p1_host_ms"] = (time.perf_counter() - t0) / 50 * 1e3
-    torch.cuda.synchronize()
+        out["p1_launches"] = PP.counts.kernel - before
+        out["p1_device_ms"] = device_ms(lambda: PP.run_all(px))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            PP.run_all(px)
+        out["p1_host_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
     f1y, f1uv, f1u, f1v = planes(np.uint8)
     f2y, f2uv, f2u, f2v = planes(np.uint8)
     probe = F.subsampled_f2(geom, f2y, f2u, f2v)
@@ -187,66 +206,69 @@ def main(argv=None) -> int:
                                   6, w, nb, rs, geom.height, geom.stride)
         return ox, oy
 
-    before = KS.counts.kernel
-    pyramid()
-    out["k1_launches_per_pair"] = KS.counts.kernel - before
-    out["k1_pyramid_device_ms"] = device_ms(pyramid)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
+    if not args.warp:
+        before = KS.counts.kernel
         pyramid()
-    out["k1_host_ms_per_pair"] = (time.perf_counter() - t0) / 50 * 1e3
-    torch.cuda.synchronize()
-    n_steps = len(steps)
-    out["k1_blocks_per_sm"] = (KS.blocks_per_sm(1)
-                               if hasattr(KS, "blocks_per_sm") else "absent")
-    if hasattr(KS, "flow_pyramid"):
-        stamps = torch.zeros((10, 2 + 2 * n_steps), dtype=torch.int64,
-                             device=dev)
-        for row in stamps:
-            KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6, windows,
-                            F.FIRST_NEIGHBOR_ITERATION, rs, geom.height,
-                            geom.stride, timeline=row)
-        out["k1_phases_us"] = float((stamps[:, -1] - stamps[:, 0])
-                                    .median()) / 1e3
-    else:
-        out["k1_phases_us"] = "absent"
-    if hasattr(KS, "flow_pyramid") and \
-            "blur" in inspect.signature(KS.flow_pyramid).parameters:
-        stamps = torch.zeros((10, 3 + 2 * n_steps), dtype=torch.int64,
-                             device=dev)
-        for row in stamps:
-            KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6, windows,
-                            F.FIRST_NEIGHBOR_ITERATION, rs, geom.height,
-                            geom.stride, timeline=row, blur=True)
-        d = stamps.diff(dim=1).median(dim=0).values
-        out["k1_phases_before_blur_us"] = float(d[:-1].sum()) / 1e3
-        out["k3_blur_phase_us"] = float(d[-1]) / 1e3
-    else:
-        out["k1_phases_before_blur_us"] = "absent"
-        out["k3_blur_phase_us"] = "absent"
+        out["k1_launches_per_pair"] = KS.counts.kernel - before
+        out["k1_pyramid_device_ms"] = device_ms(pyramid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            pyramid()
+        out["k1_host_ms_per_pair"] = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        n_steps = len(steps)
+        out["k1_blocks_per_sm"] = (KS.blocks_per_sm(1)
+                                   if hasattr(KS, "blocks_per_sm")
+                                   else "absent")
+        if hasattr(KS, "flow_pyramid"):
+            stamps = torch.zeros((10, 2 + 2 * n_steps), dtype=torch.int64,
+                                 device=dev)
+            for row in stamps:
+                KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6, windows,
+                                F.FIRST_NEIGHBOR_ITERATION, rs, geom.height,
+                                geom.stride, timeline=row)
+            out["k1_phases_us"] = float((stamps[:, -1] - stamps[:, 0])
+                                        .median()) / 1e3
+        else:
+            out["k1_phases_us"] = "absent"
+        if hasattr(KS, "flow_pyramid") and \
+                "blur" in inspect.signature(KS.flow_pyramid).parameters:
+            stamps = torch.zeros((10, 3 + 2 * n_steps), dtype=torch.int64,
+                                 device=dev)
+            for row in stamps:
+                KS.flow_pyramid(f1y, f1u, f1v, *probe, 16, 8, 6, windows,
+                                F.FIRST_NEIGHBOR_ITERATION, rs, geom.height,
+                                geom.stride, timeline=row, blur=True)
+            d = stamps.diff(dim=1).median(dim=0).values
+            out["k1_phases_before_blur_us"] = float(d[:-1].sum()) / 1e3
+            out["k3_blur_phase_us"] = float(d[-1]) / 1e3
+        else:
+            out["k1_phases_before_blur_us"] = "absent"
+            out["k3_blur_phase_us"] = "absent"
 
-    def flow():
-        return F.flow(geom, f1y, f1u, f1v, f2y, f2u, f2v, 16)
+        def flow():
+            return F.flow(geom, f1y, f1u, f1v, f2y, f2u, f2v, 16)
 
-    before = KS.counts.kernel + KB.counts.kernel
-    flow()
-    out["flow_launches_per_pair"] = KS.counts.kernel + KB.counts.kernel \
-        - before
-    out["flow_device_ms"] = device_ms(flow)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
+        before = KS.counts.kernel + KB.counts.kernel
         flow()
-    out["flow_host_ms_per_pair"] = (time.perf_counter() - t0) / 50 * 1e3
-    torch.cuda.synchronize()
-    field = flow()[0]
-    out["k3_standalone_device_ms"] = device_ms(lambda: KB.blur_flow(field))
-    out["k1_step_device_ms"] = {
-        w: device_ms(lambda w=w, nb=nb: [KS.flow_step(
-            f1y, f1u, f1v, *probe, zero, zero, is_y, 16, 8, 6, w, nb, rs,
-            geom.height, geom.stride) for is_y in (0, 1)]) / 2
-        for w, _, nb in steps[::2]}
+        out["flow_launches_per_pair"] = KS.counts.kernel + KB.counts.kernel \
+            - before
+        out["flow_device_ms"] = device_ms(flow)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            flow()
+        out["flow_host_ms_per_pair"] = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        field = flow()[0]
+        out["k3_standalone_device_ms"] = device_ms(
+            lambda: KB.blur_flow(field))
+        out["k1_step_device_ms"] = {
+            w: device_ms(lambda w=w, nb=nb: [KS.flow_step(
+                f1y, f1u, f1v, *probe, zero, zero, is_y, 16, 8, 6, w, nb, rs,
+                geom.height, geom.stride) for is_y in (0, 1)]) / 2
+            for w, _, nb in steps[::2]}
 
     blurred = torch.from_numpy(rng.integers(-96, 97, (2, geom.low_h,
                                                       geom.low_w)).astype(
@@ -262,6 +284,17 @@ def main(argv=None) -> int:
     out["k2_p010_device_ms"] = device_ms(lambda: KW.pair_blend(
         g1y, g1uv, g2y, g2uv, blurred, ts, rs, W4K, 8,
         W.level_ints(16, 235)))
+    for n in range(1, 6):
+        out[f"k2_n{n}_device_ms"] = device_ms(lambda n=n: KW.pair_blend(
+            f1y, f1uv, f2y, f2uv, blurred, ts[:n], rs, W4K))
+    for parts in (1, 2, 4):
+        r0, r1 = KW.band_rows(H4K, parts)[0]
+        out[f"k2_band{parts}_device_ms"] = device_ms(
+            lambda r0=r0, r1=r1: [KW.pair_blend_rows(
+                f1y, f1uv, f2y, f2uv, blurred, ts[2:3], rs, W4K, r0, r1)
+                for _ in range(10)]) / 10
+    if args.k2:
+        return report(out)
 
     t = ts[2:3].reshape(())
     out["k4_device_ms"] = device_ms(lambda: KF.fused_blend(
@@ -360,26 +393,30 @@ def main(argv=None) -> int:
      out["engine_busy_share"]) = engine()
     _, out["engine_p010_fused_device_ms_per_pair"], \
         out["engine_p010_fused_busy_share"] = engine(True, "fused")
-    _, out["engine_mode0_device_ms_per_pair"], \
-        out["engine_mode0_busy_share"] = engine(mode=0)
-    _, out["engine_pallas_device_ms_per_pair"], \
-        out["engine_pallas_busy_share"] = engine(sampling="pallas")
-    _, out["engine_hsv_device_ms_per_pair"], \
-        out["engine_hsv_busy_share"] = engine(mode=3)
-    _, out["engine_sbs2_device_ms_per_pair"], \
-        out["engine_sbs2_busy_share"] = engine(mode=6)
-    for model in models:
-        _, out[f"engine_{model}_device_ms_per_pair"], \
-            out[f"engine_{model}_busy_share"] = engine(model=model)
-    _, out["engine_r5_device_ms_per_pair"], \
-        out["engine_r5_busy_share"] = engine(radius=5)
-    _, out["engine_hopperq_subpel_device_ms_per_pair"], \
-        out["engine_hopperq_subpel_busy_share"] = engine(model="hopperq",
-                                                         subpel=True)
-    for level in (1, 2, 3):
-        _, out[f"engine_level{level}_device_ms_per_pair"], \
-            out[f"engine_level{level}_busy_share"] = engine(radius=5,
-                                                            level=level)
+    if not args.warp:
+        _, out["engine_mode0_device_ms_per_pair"], \
+            out["engine_mode0_busy_share"] = engine(mode=0)
+        _, out["engine_pallas_device_ms_per_pair"], \
+            out["engine_pallas_busy_share"] = engine(sampling="pallas")
+        _, out["engine_hsv_device_ms_per_pair"], \
+            out["engine_hsv_busy_share"] = engine(mode=3)
+        _, out["engine_sbs2_device_ms_per_pair"], \
+            out["engine_sbs2_busy_share"] = engine(mode=6)
+        for model in models:
+            _, out[f"engine_{model}_device_ms_per_pair"], \
+                out[f"engine_{model}_busy_share"] = engine(model=model)
+        _, out["engine_r5_device_ms_per_pair"], \
+            out["engine_r5_busy_share"] = engine(radius=5)
+        _, out["engine_hopperq_subpel_device_ms_per_pair"], \
+            out["engine_hopperq_subpel_busy_share"] = engine(model="hopperq",
+                                                             subpel=True)
+        for level in (1, 2, 3):
+            _, out[f"engine_level{level}_device_ms_per_pair"], \
+                out[f"engine_level{level}_busy_share"] = engine(radius=5,
+                                                                level=level)
+
+    if args.warp:
+        return report(out)
 
     # the items this PR's tree added, after every item both trees have,
     # so that both run those in the same order on the same card state
@@ -540,7 +577,12 @@ def main(argv=None) -> int:
         finally:
             dist.destroy_process_group()
 
-    print(f"card: {smi}  tree: {args.root} {args.label}")
+    return report(out)
+
+
+def report(out: dict) -> int:
+    """Print every item, then the whole as one JSON line."""
+    print(f"card: {out['card']}  tree: {out['root']} {out['label']}")
     for key, value in out.items():
         if key not in ("label", "root", "card"):
             print(f"  {key}: {value}")

@@ -238,10 +238,13 @@ def test_flow_step_window_larger_than_the_field(cuda, window):
 
 
 # (height, width, stride, vector path at 8 bits, at P010): rs 0, 2 and 3;
-# 16-byte rows (the vector path) and rows that are not (per sample)
+# 16-byte rows (the vector path) and rows that are not (per sample);
+# planes whose luma and chroma end in part of a block row (70: 35 chroma
+# rows) or fit in one (30)
 _RUN_SHAPES = [(64, 128, 144, True, True), (544, 96, 96, True, True),
                (1088, 64, 80, True, True), (48, 120, 136, False, True),
-               (64, 100, 112, False, False), (544, 90, 96, False, False)]
+               (64, 100, 112, False, False), (544, 90, 96, False, False),
+               (70, 128, 128, True, True), (30, 48, 48, True, True)]
 
 
 @pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
@@ -251,7 +254,8 @@ def test_pair_blend_runs(cuda, scale_shift, levels, h, w, stride, vec8,
                          vec16):
     """K2's 16-byte runs and its per-sample path, each bit-exact: flows
     that push cells past every edge, odd chroma displacements (odd flows
-    at t = 0.4), t in {0, 0.4, 0.9999, 1}."""
+    at t = 0.4), t in {0, 0.4, 0.9999, 1}; then N = 1 and 5 positions,
+    one launch each."""
     rng = np.random.default_rng(h + w + stride + scale_shift)
     dt = np.uint16 if scale_shift else np.uint8
     geom = F.FlowGeometry.create(h, stride, w)
@@ -271,6 +275,12 @@ def test_pair_blend_runs(cuda, scale_shift, levels, h, w, stride, vec8,
     assert KW.vector_path((*f1, *f2, *got), w) == (vec16 if scale_shift
                                                    else vec8)
     _equal(got, KW.pair_blend_plain(*args))
+    for ts in ([0.4], [0.0, 0.2, 0.4, 0.6, 0.8]):
+        args = (*args[:5], torch.tensor(ts, device=cuda), *args[6:])
+        before = KW.counts.kernel
+        got = KW.pair_blend(*args)
+        assert KW.counts.kernel == before + 1
+        _equal(got, KW.pair_blend_plain(*args))
 
 
 def _run_case(cuda, h, w, stride, scale_shift):
@@ -1625,6 +1635,37 @@ def test_pair_blend_rows(cuda, scale_shift, levels, h, w, stride, parts):
     whole = KW.pair_blend(*args, scale_shift, lv)
     _equal((torch.cat([b[0] for b in bands], 1),
             torch.cat([b[1] for b in bands], 1)), whole)
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0))])
+@pytest.mark.parametrize("h,w,stride,vec8,vec16", _RUN_SHAPES)
+def test_pair_blend_rows_runs(cuda, scale_shift, levels, h, w, stride, vec8,
+                              vec16):
+    """The row band on the run shapes (16-byte and per-sample rows,
+    planes ending in part of a block row), the flows of the run tests,
+    N = 1, 3 and 5: every split into 1-4 bands and an uneven band, one
+    launch each, equal to the plain version's rows, and each split
+    stacked equal to K2's whole planes."""
+    geom, f1, f2, blurred = _run_case(cuda, h, w, stride, scale_shift)
+    lv = W.level_ints(*levels)
+    for ts in ([0.4], [0.0, 0.4, 1.0], [0.0, 0.2, 0.4, 0.6, 0.8]):
+        args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                torch.tensor(ts, device=cuda), geom.res_scalar, w)
+        whole = KW.pair_blend(*args, scale_shift, lv)
+        splits = [KW.band_rows(h, parts) for parts in (1, 2, 3, 4)]
+        for split in splits + [[(2, h - h % 2 - 2)]]:
+            bands = []
+            for r0, r1 in split:
+                before = KW.rows_counts.kernel
+                bands.append(KW.pair_blend_rows(*args, r0, r1, scale_shift,
+                                                lv))
+                assert KW.rows_counts.kernel == before + 1
+                _equal(bands[-1], KW.pair_blend_rows_plain(
+                    *args, r0, r1, scale_shift, lv))
+            if split[0][0] == 0 and split[-1][1] == h:
+                _equal((torch.cat([b[0] for b in bands], 1),
+                        torch.cat([b[1] for b in bands], 1)), whole)
 
 
 def test_parity_report_on_the_card(cuda):

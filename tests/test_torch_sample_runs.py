@@ -8,10 +8,10 @@ run is cut into segments of one flow cell (2^rs luma samples, 2^(rs+1)
 interleaved chroma samples), capped at the run; per segment, one flow
 lookup (the forward flow for direction 12; for 21 the forward flow, then
 the reverse flow through it) and one rounded displacement.  An interior
-segment (every warped coordinate in [1, dim - 2]) reads a 16-byte window
-assembled from the aligned chunks around it, and a chroma segment with an
-odd displacement reads two (u from s - 1, v from s + 1); the window's
-samples are the output's.  Every other run takes the per-sample step, the
+segment (every warped coordinate in [1, dim - 2]) reads a window
+assembled from the aligned chunks around it, a chroma segment one of two
+more samples from s - odd (u from s - 1, v from s + 1 at an odd
+displacement); the window's samples are the output's.  Every other run takes the per-sample step, the
 plain version's arithmetic.  The model below does this independently of
 the plain version (its own flow lookup, window reads from the row's bytes
 and u/v select) and checks that no chunk read of an interior run leaves
@@ -39,8 +39,8 @@ from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
-from test_torch_warp_runs import _LEVELS, RUN, _case, _equal, _row_samples, \
-    runs_model
+from test_torch_warp_runs import _LEVELS, RUN, _case, _equal, runs_model, \
+    segment_samples
 
 torch.set_num_threads(1)
 
@@ -85,14 +85,10 @@ def _plane_sample_runs(src, blurred, t, direction, rs, rows, wa, chroma, vec,
           & (Y + dy >= 1) & (Y + dy <= rows - 2))
     interior = ok.all(dim=-1) & vec                    # (Y, R)
     r = (Y + dy).clamp(0, rows - 1)
-    odd = (dx & 1) if (chroma and chroma_trap) else 0
-    even_s, legal_a = _row_samples(src, r, X + dx - odd, seg, item)
-    odd_s, legal_b = _row_samples(src, r, X + dx + odd, seg, item)
-    inside = interior[..., None]
-    assert bool((legal_a | ~inside).all() and (legal_b | ~inside).all()), \
+    out, legal = segment_samples(src, r, X, dx, seg, item,
+                                 chroma and chroma_trap)  # (Y, R, G, S)
+    assert bool((legal | ~interior[..., None]).all()), \
         "a chunk read of an interior run leaves its source row"
-    parity = torch.arange(seg) & 1
-    out = torch.where(parity == 1, odd_s, even_s)      # (Y, R, G, S)
     return out.reshape(rows, nruns * e)[:, :wa], interior
 
 
