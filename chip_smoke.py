@@ -146,7 +146,20 @@ Phases (any failure raises and exits non-zero):
    to single engines, with out-fps; the sharded step at 4K on world sizes
    1 (nccl, in this process, its launches counted), 2 and 4 (gloo, a
    process a rank on this card), equal to the single-device path, with
-   ms a pair; ``dryrun_multichip(4)``.
+   ms a pair; ``dryrun_multichip(4)``;
+19. the last tools on the card: the quality report
+   (``tools/quality_report``: 256x128 sine pans at 6 and 2.5 px a frame,
+   radius 10, every family) with the kernels against the same report on
+   the plain versions (the CPU, in this process), every rendered luma
+   plane byte for byte and every PSNR the same float, each column's
+   launches (the flow K1 once with its blur phase, the sub-pel flow K1
+   once with S1's phases and the blur phase, blend and hopper K2, hopperx
+   K5 twice and G1's occlusion variant, hopperq and hopperxq Q1, with the
+   sub-pel field in the +subpel columns), the table printed; the degrade
+   ladder (``tools/degrade_ladder``) at 4K, nine rungs' ms a pair after
+   the card's name and power limit, the blend rung launching no K1; the
+   ``embed`` and ``serving_farm`` examples at their own sizes, each
+   writing or returning as many frames as the cadence gives.
 
 The 4K synthetic CLI runs of phases 5-11 pass ``--cache no``: under
 ``--cache auto`` a synthetic clip, which cannot seek, is spooled to a
@@ -3218,6 +3231,98 @@ def phase_parallel(dev):
     return results, launches
 
 
+# each stage of the quality report on the card: its launches (the blur
+# and S1 as phases of K1's launch), four blend positions a column
+QUALITY_LAUNCHES = {
+    "flow": {"flow_step": 1, "blur_phase": 1},
+    "flow+subpel": {"flow_step": 1, "subpel_phase": 1, "blur_phase": 1},
+    "blend (no flow)": {"pair_blend": 4},
+    "hopper": {"pair_blend": 4},
+    "hopperx": {"sample_dir": 8, "blend_levels": 4},
+    "hopperq": {"bilinear_blend": 4},
+    "hopperxq": {"bilinear_blend": 4},
+    "hopperq+subpel": {"bilinear_blend": 4},
+    "hopperxq+subpel": {"bilinear_blend": 4},
+}
+
+
+def phase_last_tools(dev):
+    """Phase 19: the last modules on the card.  (1) The quality report
+    (``tools/quality_report``, 256x128 sine pans at 6 and 2.5 px a frame,
+    radius 10, every family) with the kernels and with their plain
+    versions (the CPU, in this process): every rendered luma plane byte
+    for byte and every PSNR the same float, each stage's launches on the
+    card -- the flow K1 once with its blur phase, the sub-pel flow K1 once
+    with S1's phases and the blur phase, blend (a zero field) and hopper
+    K2 once a position, hopperx K5 twice and G1's occlusion variant once,
+    hopperq and hopperxq Q1 once, with the sub-pel field in the +subpel
+    columns -- and no plain version on the card; the table printed.  (2)
+    The degrade ladder (``tools/degrade_ladder``) at 4K: its nine rungs'
+    ms a pair after the card's name and power limit, the blend rung
+    launching no K1.  (3) The examples at their own sizes: ``embed``
+    (Player, hopperq, 640x360) writes as many y4m frames as it reports,
+    ``serving_farm`` (4 streams at 640x360) returns that many a stream."""
+    from mpv_frame_interpolator_tpu_torch.examples import embed, serving_farm
+    from mpv_frame_interpolator_tpu_torch.tools import degrade_ladder
+    from mpv_frame_interpolator_tpu_torch.tools import quality_report as QR
+    t_phase = time.perf_counter()
+
+    counters = kernel_counts()
+    for c in counters.values():
+        c.reset()
+    card = QR.run(str(dev))
+    launched = {k: (c.kernel, getattr(c, "fused", 0))
+                for k, c in counters.items()}
+    plain = sum(c.plain for c in counters.values())
+    cpu = QR.run("cpu", quiet=True)
+    for a, b in zip(card, cpu):
+        check(a.planes.keys() == b.planes.keys(), "quality report: planes")
+        bad = [k for k in a.planes if not np.array_equal(a.planes[k],
+                                                         b.planes[k])]
+        check(not bad, f"quality report at shift {a.shift}: the card's "
+              f"planes differ from the plain versions' at {bad}")
+        check(a.rows == b.rows, f"quality report at shift {a.shift}: PSNR "
+              f"{a.rows} on the card, {b.rows} plain")
+        check(a.launches == QUALITY_LAUNCHES, f"quality report at shift "
+              f"{a.shift}: launches {a.launches}")
+    log(f"  quality report: the card's planes and PSNRs equal the plain "
+        f"versions' at both shifts; launches a shift {card[0].launches}; "
+        f"counters over both {launched}, plain calls {plain}")
+    check(plain == 0, f"the quality report on the card ran {plain} plain "
+          "versions")
+    log(f"  means: " + "; ".join(
+        f"shift {r.shift}: " + ", ".join(f"{n} {v:.1f}" for n, v
+                                        in r.mean().items()) for r in card))
+
+    t0 = time.perf_counter()
+    rungs = degrade_ladder.run(W4K, H4K)
+    check(len(rungs) == 9 and all(r["seconds"] > 0 for r in rungs),
+          f"the degrade ladder ran {len(rungs)} rungs")
+    check(rungs[-1]["model"] == "blend" and rungs[-1]["flow_launches"] == 0
+          and all(r["flow_launches"] > 0 for r in rungs[:-1]),
+          f"K1 launches by rung {[r['flow_launches'] for r in rungs]}")
+    log(f"  degrade ladder at 4K ({time.perf_counter() - t0:.1f} s), ms a "
+        f"pair: " + json.dumps({r["tag"]: round(r["seconds"] * 1e3, 4)
+                                for r in rungs}))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "embed.y4m")
+        n = embed.run(out, str(dev))
+        w, h, frames = y4m_frames(out)
+    check((w, h, frames) == (640, 360, n) and n > 24,
+          f"embed wrote {frames} {w}x{h} frames, reported {n}")
+    farm = serving_farm.run(str(dev))
+    counts = [len(farm[k]) for k in sorted(farm)]
+    check(counts == [n] * serving_farm.N_STREAMS,
+          f"serving farm frames by stream {counts}, embed's cadence {n}")
+    log(f"  examples: embed wrote {n} frames, the serving farm returned "
+        f"{counts} ({time.perf_counter() - t0:.1f} s)")
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {"quality": [r.mean() for r in card],
+            "ladder_ms": {r["tag"]: r["seconds"] * 1e3 for r in rungs}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke "
@@ -3340,6 +3445,10 @@ def main() -> int:
         "step at world sizes 1, 2 and 4, the dry run on 4 ranks)")
     parallel_results, sharded_launches = phase_parallel(dev)
     results.update(parallel_results)
+    log("phase 19: the last tools on the card (the quality report with the "
+        "kernels against the plain versions, the degrade ladder at 4K, the "
+        "embed and serving-farm examples)")
+    phase_last_tools(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
     # main path (K3 as the blur phase of K1's launches), K4 on the P010

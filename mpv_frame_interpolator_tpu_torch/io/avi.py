@@ -26,6 +26,7 @@ import numpy as np
 from mpv_frame_interpolator_tpu_torch.frame import (FrameFormat, NV12, P010,
                                               VideoFrame,
                                               interleave_chroma)
+from mpv_frame_interpolator_tpu_torch.io import corrupt_as
 from mpv_frame_interpolator_tpu_torch.native import interleave_chroma_into
 from mpv_frame_interpolator_tpu_torch.utils import get_logger
 
@@ -64,7 +65,8 @@ class AVIReader:
         self._index: List[Tuple[int, int, float]] = []
         self._pos = 0
         self._last: Optional[VideoFrame] = None
-        self._parse()
+        with corrupt_as(AVIError):
+            self._parse()
         if self._stream_no is None:
             raise AVIError("no video stream found")
         if self._fourcc in MJPEG_FOURCCS:

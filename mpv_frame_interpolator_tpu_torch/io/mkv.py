@@ -34,6 +34,7 @@ import numpy as np
 
 from mpv_frame_interpolator_tpu_torch.frame import (
     FrameFormat, NV12, P010, VideoFrame)
+from mpv_frame_interpolator_tpu_torch.io import corrupt_as
 from mpv_frame_interpolator_tpu_torch.native import interleave_chroma_into
 from mpv_frame_interpolator_tpu_torch.utils import get_logger
 
@@ -135,7 +136,8 @@ class MKVReader:
         # frame index: (byte offset of payload, payload size, pts seconds)
         self._index: List[Tuple[int, int, float]] = []
         self._pos = 0                           # next frame to read
-        self._parse()
+        with corrupt_as(MKVError):
+            self._parse()
         if self.track is None:
             raise MKVError("no video track found")
         t = self.track

@@ -25,6 +25,7 @@ import numpy as np
 
 from mpv_frame_interpolator_tpu_torch.frame import (
     NV12, FrameFormat, VideoFrame)
+from mpv_frame_interpolator_tpu_torch.io import corrupt_as
 from mpv_frame_interpolator_tpu_torch.native import interleave_chroma_into
 from mpv_frame_interpolator_tpu_torch.utils import get_logger
 
@@ -97,7 +98,8 @@ class MP4Reader:
         self.track: Optional[_Track] = None
         self._index: List[Tuple[int, int, float]] = []  # (off, size, pts)
         self._pos = 0
-        self._parse()
+        with corrupt_as(MP4Error):
+            self._parse()
         t = self.track
         if t is None:
             raise MP4Error("no video track found")

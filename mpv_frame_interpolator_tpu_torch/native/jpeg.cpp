@@ -337,6 +337,10 @@ struct Decoder {
       hmax = std::max(hmax, comp[i].h);
       vmax = std::max(vmax, comp[i].v);
     }
+    // the output copies component 0 as the W x H luma plane: it must be
+    // sampled at the frame's full rate (else its plane is smaller)
+    if (comp[0].h != hmax || comp[0].v != vmax)
+      throw JpegError{"luma is not at the largest sampling factors"};
     // plane allocation (padded to whole MCUs)
     int mcux = (width + 8 * hmax - 1) / (8 * hmax);
     int mcuy = (height + 8 * vmax - 1) / (8 * vmax);

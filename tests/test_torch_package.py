@@ -58,6 +58,9 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if m.name.endswith("__main__"):
         continue
     __import__(m.name)
+for name in ("tools.quality_report", "tools.degrade_ladder",
+             "examples.embed", "examples.serving_farm"):
+    assert f"{pkg.__name__}.{name}" in sys.modules, name
 from mpv_frame_interpolator_tpu_torch import cli
 out = os.path.join(tempfile.mkdtemp(), "out.y4m")
 rc = cli.main(["synthetic:moving_box", "--width", "64", "--height", "48",
