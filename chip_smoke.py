@@ -41,7 +41,13 @@ Phases (any failure raises and exits non-zero):
    (the pyramid, S1's phases and the blur of the 1/64-pel field in one
    launch, against the pyramid, ``subpel_refine_plain`` and the plain
    blur, the phases' us from the kernel's timeline), and the standalone
-   entry on a pyramid field and on wild offsets;
+   entry on a pyramid field and on wild offsets; V1 (the side-by-side
+   views, modes 5 and 6) and V2 (the HSV view, mode 3) at 8 bits and
+   default levels and P010 at (16, 235), t in {0, 0.4, 1}, on the block,
+   edge and odd flows and a stride-padded frame: V1 bit-exact, V2 within
+   the JAX package's HSV tolerance with its differing samples counted
+   and placed (and bit-exact on a zero flow), each timed beside its plain
+   version and its bound;
 3b. the toolchain probes through their entry points: P1 (packed bytes:
    the JAX probe's five arrays and the card's own packing) every probe OK
    in one launch, each entry bit-exact at five pairs of shifts, beside
@@ -62,7 +68,8 @@ Phases (any failure raises and exits non-zero):
    case's launches: blend, repeat and the blend rung no K1, hopperx K5
    twice and G1 once an output, hopperq and hopperxq Q1 once an output,
    the sub-pel flow S1's phases inside K1's launch once a pair and no
-   standalone S1 or K3;
+   standalone S1 or K3, mode 3 V2 once an output and no K5 or G1, modes
+   5 and 6 V1 once an output;
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
    the launch counters of K1 and K2 must move during that run (K1
@@ -159,16 +166,23 @@ Phases (any failure raises and exits non-zero):
    ladder (``tools/degrade_ladder``) at 4K, nine rungs' ms a pair after
    the card's name and power limit, the blend rung launching no K1; the
    ``embed`` and ``serving_farm`` examples at their own sizes, each
-   writing or returning as many frames as the cadence gives.
+   writing or returning as many frames as the cadence gives;
+20. the views through the CLI at 4K 24 -> 120, radius 16: ``--mode
+   hsv``, ``--mode sbs1`` and ``--mode sbs2``, each with K1 once a pair,
+   V2 or V1 once an output and no other warp kernel or plain version;
+   each mode's device ms a pair (``profile_pair.profile``) and calc ms a
+   pair against the 29.8 ms bar; then 24 frames of each with the
+   auto-quality controller on, ending at radius 16 and level 0.
 
-The 4K synthetic CLI runs of phases 5-11 pass ``--cache no``: under
+The 4K synthetic CLI runs of phases 5-11 and 20 pass ``--cache no``: under
 ``--cache auto`` a synthetic clip, which cannot seek, is spooled to a
 temporary file.
 
 On every path the blur runs inside K1's launch once a pair and K3's
 standalone kernel never (under the sub-pel flow S1's phases run in the
 same launch, before it), G1 runs only on the "pallas" and hopperx
-paths, and Q1 only on the hopperq / hopperxq paths.
+paths, Q1 only on the hopperq / hopperxq paths, V1 only in modes 5 and
+6 and V2 only in mode 3.
 
 Each path's counters are set to 0 just before it runs and read just
 after.  The port against the NumPy oracle on the card is a test:
@@ -1049,6 +1063,8 @@ def phase_kernels(dev):
             results[key] = dict(q1[(0, False)], max_abs_err=err,
                                 p010=q1[(8, True)], nv12=q1[(0, True)])
 
+    results.update(phase_views_kernels(dev, rng, frames, flows, rs))
+
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -1059,9 +1075,155 @@ def phase_kernels(dev):
                 log(f"  {name} {width.upper()}: kernel {q['ms']:.4f} ms"
                     f"{_device(q)}, plain {q['plain_ms']:.4f} ms, bound "
                     f"{q['bound'][0]:.4f} ms ({q['bound'][1]})")
-        check(r["max_abs_err"] == 0, f"{name} disagrees with its plain "
-              f"version (max_abs_err {r['max_abs_err']})")
+        if "over2_share" in r:      # V2: the HSV tolerance
+            check(r["over2_share"] < HSV_SHARE, f"{name}: a share "
+                  f"{r['over2_share']} of the samples is more than 2 from "
+                  "its plain version's")
+        else:
+            check(r["max_abs_err"] == 0, f"{name} disagrees with its plain "
+                  f"version (max_abs_err {r['max_abs_err']})")
     return results
+
+
+# DEVIATIONS #11, the JAX package's HSV tolerance: under this share of the
+# samples of a plane may differ by more than 2
+HSV_SHARE = 0.005
+
+
+def view_bound(mode: int, item: int, wa: int = W4K, pitch: int = W4K,
+               flow_ints: int = 0):
+    """Bytes and operations of one view at one 4K position: the output
+    written once, the source samples its outputs read (a copied sample
+    one, a warped sample one of each source frame, a filled one none) and
+    the flow read once; per warped sample ~45 scalar operations (the cell,
+    four flow loads and the back-projection, four products and two
+    roundings, two mirrors and the chroma column, two addresses, the blend
+    and the level map), and in mode 3 ~65 more for the colours (atan2f
+    ~20, the angle, hue, sector and its select ~16, the three scaled and
+    clipped channels ~18, the channel's weighted sum, shift and level map
+    ~11)."""
+    planes = ((H4K, 0), (H4K // 2, 1))
+    warped = copied = 0
+    for rows, cz in planes:
+        if mode == 3:
+            warped += rows * wa
+        elif mode == 5:
+            copied += rows * (wa >> 1)
+            warped += rows * (wa - (wa >> 1))
+        else:
+            band = H4K >> (1 + cz)
+            right = max(wa - (pitch >> 1), 0)
+            warped += band * right
+            copied += band * (wa - right)
+    out = (H4K + H4K // 2) * wa
+    ops = (45 + (65 if mode == 3 else 0)) * warped + 2 * copied
+    return bound((out + copied + 2 * warped) * item + 4 * flow_ints, ops)
+
+
+def hsv_diff(got, want):
+    """(max |diff|, samples that differ, share of a plane's samples more
+    than 2 apart at most, up to four (plane, row, column, got, want)) of
+    V2's planes against its plain version's."""
+    err, n, share, where = 0, 0, 0.0, []
+    for plane, g, w in zip(("y", "uv"), got, want):
+        g, w = g.to(torch.int32), w.to(torch.int32)
+        d = (g - w).abs()
+        err = max(err, int(d.max()))
+        n += int((d > 0).sum())
+        share = max(share, float((d > 2).float().mean()))
+        for r, c in torch.nonzero(d)[:4 - len(where)].tolist():
+            where.append((plane, r, c, int(g[r, c]), int(w[r, c])))
+    return err, n, share, where
+
+
+def phase_views_kernels(dev, rng, frames, flows, rs):
+    """Phase 3, V1 and V2 (the views of modes 5/6 and 3) against their
+    plain versions at 4K: 8-bit at the default levels and P010 at (16,
+    235), t in {0, 0.4, 1}, the block, edge and odd flows (the P010 planes'
+    top rows 65535 since K5's check), and a stride-padded frame (pitch
+    3904 over a width of 3840: mode 6 splits at the stride); V1
+    bit-exact, V2 within the HSV tolerance with its differing samples
+    counted and placed, and on a zero flow (its integer parts alone)
+    bit-exact.  Each timed at t = 0.4 on the block flow."""
+    from mpv_frame_interpolator_tpu_torch.ops import warp as W
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_views as KV
+    pitch = W4K + 64
+    padded = {dt: [torch.from_numpy(rng.integers(
+        0, np.iinfo(dt).max + 1, (rows, pitch)).astype(dt)).to(dev)
+        for rows in (H4K, H4K // 2) * 2] for dt in (np.uint8, np.uint16)}
+    zero = torch.zeros_like(flows[0][1])
+    out = {}
+    for key in ("warp_sbs", "warp_hsv"):
+        err, n_diff, share, where, timed = 0, 0, 0.0, [], {}
+        for dt, ss, levels in ((np.uint8, 0, (0, 255)),
+                               (np.uint16, 8, W.level_ints(16, 235))):
+            (f1y, f1uv, _, _), (f2y, f2uv, _, _) = frames[dt]
+            cases = [(W4K, (f1y, f1uv, f2y, f2uv), name, flow)
+                     for name, flow in flows]
+            cases.append((W4K, padded[dt], "padded", flows[0][1]))
+            for wa, planes, name, flow in cases:
+                for mode in ((5, 6) if key == "warp_sbs" else (3,)):
+                    e = 0
+                    for t in (0.0, 1.0, 0.4):
+                        tt = torch.tensor(t, dtype=torch.float32,
+                                          device=dev)
+                        args = (*planes, flow, tt, rs, wa, ss, levels)
+                        if mode == 3:
+                            got = KV.warp_hsv(*args)
+                            d = hsv_diff(got, KV.warp_hsv_plain(*args))
+                            e = max(e, d[0])
+                            n_diff += d[1]
+                            share = max(share, d[2])
+                            where += d[3][:4 - len(where)]
+                        else:
+                            got = KV.warp_sbs(mode, *args)
+                            e = max(e, max_err(
+                                got, KV.warp_sbs_plain(mode, *args)))
+                    log(f"  {'V2' if mode == 3 else 'V1'} mode {mode} "
+                        f"{wa}x{H4K} pitch {planes[0].shape[1]} "
+                        f"scale_shift={ss} levels={levels} {name} flow, t "
+                        f"in (0, 1, 0.4): max_abs_err={e}")
+                    err = max(err, e)
+                    if name == "block" and wa == planes[0].shape[1]:
+                        go = ((lambda: KV.warp_hsv(*args)) if mode == 3
+                              else (lambda m=mode: KV.warp_sbs(m, *args)))
+                        plain = ((lambda: KV.warp_hsv_plain(*args))
+                                 if mode == 3 else
+                                 (lambda m=mode: KV.warp_sbs_plain(m,
+                                                                   *args)))
+                        timed[(mode, ss)] = dict(
+                            device_ms=device_ms(go), ms=cuda_ms(go, 20),
+                            plain_ms=cuda_ms(plain, 3),
+                            bound=view_bound(mode, np.dtype(dt).itemsize,
+                                             flow_ints=flow.numel()))
+            if key == "warp_hsv":
+                # a zero flow: no colour, the blend and level maps alone
+                tt = torch.tensor(0.4, dtype=torch.float32, device=dev)
+                args = (f1y, f1uv, f2y, f2uv, zero, tt, rs, W4K, ss, levels)
+                e = max_err(KV.warp_hsv(*args), KV.warp_hsv_plain(*args))
+                log(f"  V2 {W4K}x{H4K} scale_shift={ss} levels={levels} "
+                    f"zero flow: max_abs_err={e}")
+                check(e == 0, f"V2's integer parts disagree with its plain "
+                      f"version on a zero flow (max_abs_err {e})")
+        for (mode, ss), r in sorted(timed.items()):
+            log(f"  {'V2' if mode == 3 else 'V1'} mode {mode} scale_shift="
+                f"{ss} t=0.4: kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        first = 3 if key == "warp_hsv" else 5
+        out[key] = dict(timed[(first, 0)], max_abs_err=err,
+                        p010=timed[(first, 8)])
+        if key == "warp_sbs":
+            out[key]["sbs2"] = timed[(6, 0)]
+            out[key]["sbs2_p010"] = timed[(6, 8)]
+        else:
+            out[key].update(differing=n_diff, over2_share=share,
+                            where=where)
+            log(f"  V2 against its plain version: {n_diff} samples differ "
+                f"over every case (max |diff| {err}); the largest share of "
+                f"a plane more than 2 apart {share:.6f} (tolerance "
+                f"{HSV_SHARE}); first at {where}")
+    return out
 
 
 def phase_probes(dev, smi: str):
@@ -1317,6 +1479,16 @@ def phase_reference(dev):
         check(launches["bilinear_blend"] == bilinear,
               f"{what}: Q1 launched {launches['bilinear_blend']} times for "
               f"{n} outputs")
+        # the views: mode 3 V2 once an output and no K5 or G1, modes 5 and
+        # 6 V1 once an output, under any sampler and model
+        views = (n if mode == 3 else 0, n if mode in (5, 6) else 0)
+        check((launches["warp_hsv"], launches["warp_sbs"]) == views,
+              f"{what}: V2 and V1 launched {launches['warp_hsv']} and "
+              f"{launches['warp_sbs']} times for {n} outputs")
+        if mode in (3, 5, 6):
+            check(launches["sample_dir"] == launches["blend_levels"] == 0,
+                  f"{what}: K5 and G1 launched {launches['sample_dir']} "
+                  f"and {launches['blend_levels']} times")
         cuts = [e.scene_cuts() for e in engines]
         check(cuts[0] == cuts[1], f"{what}: scene cuts differ: {cuts}")
         if name != "gradient_pan":
@@ -1360,18 +1532,24 @@ def kernel_counts():
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_views as KV
     return {"flow_step": KS.counts, "blur_flow": KB.counts,
             "pair_blend": KW.counts, "fused_blend": KF.counts,
             "sample_dir": KD.counts, "blend_levels": KG.counts,
-            "bilinear_blend": KQ.counts, "subpel_refine": KP.counts}
+            "bilinear_blend": KQ.counts, "subpel_refine": KP.counts,
+            "warp_sbs": KV.sbs_counts, "warp_hsv": KV.hsv_counts}
 
 
-def run_cli(dev, frames: int, extra):
+def run_cli(dev, frames: int, extra, auto_quality: bool = False,
+            stats_out=None):
     """The port's CLI at 4K 24 -> 120, radius 16, y4m sink, with every
     launch counter set to 0 just before and read just after; checks the
-    outputs, that no plain version ran, and that the blur ran inside each
-    pair's K1 launch and never on its own.  Returns the launches of each
-    kernel, "blur_fused" the blurs run inside K1's launches."""
+    outputs, that no plain version ran, that the blur ran inside each
+    pair's K1 launch and never on its own, and that the views of modes 3,
+    5 and 6 ran their kernel once an output and nowhere else.  Returns the
+    launches of each kernel, "blur_fused" the blurs run inside K1's
+    launches; `stats_out`, a dict, gets the run's --dump-stats.  The
+    auto-quality controller is off unless `auto_quality`."""
     from mpv_frame_interpolator_tpu_torch import cli
     counts = kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1382,7 +1560,8 @@ def run_cli(dev, frames: int, extra):
         argv = ["synthetic:moving_box", "--width", str(W4K), "--height",
                 str(H4K), "--fps", "24", "--frames", str(frames),
                 "--display-fps", "120", "--search-radius", "16",
-                "--no-auto-quality", "--untimed", "--cache", "no",
+                *([] if auto_quality else ["--no-auto-quality"]),
+                "--untimed", "--cache", "no",
                 "--device", str(dev), "-o", out, "--dump-stats", stats_path,
                 *extra]
         for c in counts.values():
@@ -1396,13 +1575,17 @@ def run_cli(dev, frames: int, extra):
         plain = {k: c.plain for k, c in counts.items()}
         with open(stats_path) as fh:
             stats = json.load(fh)
+        if stats_out is not None:
+            stats_out.update(stats)
         y4m = (*y4m_frames(out), os.path.getsize(out))
     check(rc == 0, f"cli returned {rc}")
     check(stats["engine_failures"] == 0,
           f"{stats['engine_failures']} engine failures (fail-open)")
-    # the first source frame passes through; at 24 -> 120 every later one
-    # gives the 5 outputs of its pair
-    expected = 1 + 5 * (frames - 1)
+    # the first source frame passes through (in mode 6 it is interpolated,
+    # paired with itself); at 24 -> 120 every later one gives the 5
+    # outputs of its pair
+    mode = extra[extra.index("--mode") + 1] if "--mode" in extra else "blend"
+    expected = 5 * frames if mode == "sbs2" else 1 + 5 * (frames - 1)
     pair = stats["stats"].get("source_frame_time", {})
     log(f"  cli {' '.join(extra) or '(defaults)'}: {stats['frames_in']} "
         f"source -> {stats['frames_out']} output frames (cadence expects "
@@ -1422,7 +1605,13 @@ def run_cli(dev, frames: int, extra):
     check(not any(plain.values()),
           f"a plain version ran on the path: {plain}")
     check(stats["scene_cuts"] == 0, "scene cut fired on a smooth clip")
-    pairs = frames - 1
+    pairs = frames - 1 + (mode == "sbs2")
+    warped = expected if mode == "sbs2" else expected - 1
+    views = (warped if mode == "hsv" else 0,
+             warped if mode in ("sbs1", "sbs2") else 0)
+    check((launches["warp_hsv"], launches["warp_sbs"]) == views,
+          f"V2 and V1 launched {launches['warp_hsv']} and "
+          f"{launches['warp_sbs']} times in mode {mode}, not {views}")
     # the blur is K1's last phase; under --subpel-flow S1's two phases run
     # in the same launch before it: no standalone S1 or K3
     subpel = "--subpel-flow" in extra
@@ -1707,7 +1896,8 @@ def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
 
 OUR_KERNELS = ("pyramid_kernel", "pair_blend_kernel", "fused_blend_kernel",
                "blur_kernel", "sample_dir_kernel", "blend_levels_kernel",
-               "bilinear_blend_kernel", "slice_kernel")
+               "bilinear_blend_kernel", "slice_kernel", "warp_sbs_kernel",
+               "warp_hsv_kernel")
 
 
 def write_y4m(path: str, frames, width: int, height: int,
@@ -3323,6 +3513,88 @@ def phase_last_tools(dev):
             "ladder_ms": {r["tag"]: r["seconds"] * 1e3 for r in rungs}}
 
 
+# the real-time bar at 24 fps: a source frame's time over 1.4
+BAR_MS = 1e3 / 24.0 / 1.4
+
+VIEWS = {"hsv": "warp_hsv", "sbs1": "warp_sbs", "sbs2": "warp_sbs"}
+
+
+def phase_views(dev):
+    """Phase 20: the views of modes 3, 5 and 6 at 4K 24 -> 120, radius 16,
+    ``--cache no``.  Each mode through the CLI (4 frames): K1 once a pair
+    (mode 6 pairs its first frame with itself), V2 (hsv) or V1 (sbs1,
+    sbs2) once an output, no other warp kernel and no plain version
+    (run_cli's checks and the ones here); then the mode's device ms a
+    pair on the profile_pair path (10 pairs after 3 warm, the trace opened
+    with spin kernels) and its calc ms a pair from the CLI run, each under
+    the real-time bar; then 24 frames through the CLI with the
+    auto-quality controller on, which must end at radius 16 and level 0.
+    Returns (each mode's launches, each mode's figures)."""
+    from mpv_frame_interpolator_tpu_torch import profile_pair as PP
+    t_phase = time.perf_counter()
+    launches, figures = {}, {}
+    for mode, view in VIEWS.items():
+        stats = {}
+        got = run_cli(dev, 4, ["--mode", mode], stats_out=stats)
+        others = {k: got[k] for k in ("pair_blend", "fused_blend",
+                                      "sample_dir", "blend_levels",
+                                      "bilinear_blend", "warp_sbs",
+                                      "warp_hsv") if k != view}
+        check(got[view] > 0 and not any(others.values()),
+              f"mode {mode}: {view} launched {got[view]} times, the other "
+              f"warp kernels {others}")
+        launches[mode] = got
+        calc = stats["stats"]["source_frame_time"]
+        r = PP.profile(["--mode", mode], opening=spin_opening)
+        pairs = r["pairs"]
+        rows = {name: (count / pairs, us / 1e3 / pairs)
+                for name, count, us in r["rows"]}
+        view_rows = [v for k, v in rows.items() if f"{view}_kernel" in k]
+        k1_rows = [v for k, v in rows.items() if "pyramid_kernel" in k]
+        fig = dict(device_ms=r["device_ms"] / pairs,
+                   busy_share=r["device_ms"] / (r["wall"] * 1e3),
+                   wall_ms=r["wall"] * 1e3 / pairs,
+                   view_ms=sum(us for _, us in view_rows),
+                   view_launches=sum(c for c, _ in view_rows),
+                   k1_ms=sum(us for _, us in k1_rows),
+                   launches=sum(c for c, _ in rows.values()),
+                   calc_ms_mean=calc["mean"] * 1e3,
+                   calc_ms_p50=calc["p50"] * 1e3,
+                   calc_ms_p99=calc["p99"] * 1e3)
+        del r
+        log(f"  mode {mode}: device {fig['device_ms']:.4f} ms a pair "
+            f"({fig['launches']:g} device rows a pair; {view} "
+            f"{fig['view_launches']:g} x = {fig['view_ms']:.4f} ms, K1 "
+            f"{fig['k1_ms']:.4f} ms), busy share {fig['busy_share']:.3f} "
+            f"of {fig['wall_ms']:.3f} ms under the profiler; calc (CLI) "
+            f"mean {fig['calc_ms_mean']:.3f} / p50 {fig['calc_ms_p50']:.3f} "
+            f"/ p99 {fig['calc_ms_p99']:.3f} ms a pair; the bar "
+            f"{BAR_MS:.2f} ms")
+        log("    rows a pair: " + json.dumps(
+            {k[:60]: [round(c, 2), round(us, 4)] for k, (c, us)
+             in sorted(rows.items(), key=lambda kv: -kv[1][1])}))
+        check(fig["device_ms"] < BAR_MS and fig["calc_ms_p50"] < BAR_MS,
+              f"mode {mode}: {fig['device_ms']:.3f} device ms and "
+              f"{fig['calc_ms_p50']:.3f} calc ms a pair against the "
+              f"{BAR_MS:.2f} ms bar")
+        figures[mode] = fig
+    for mode in VIEWS:
+        stats = {}
+        t0 = time.perf_counter()
+        run_cli(dev, 24, ["--mode", mode], auto_quality=True,
+                stats_out=stats)
+        calc = stats["stats"]["source_frame_time"]
+        log(f"  mode {mode}, 24 frames with auto-quality: radius "
+            f"{stats['search_radius']}, level {stats['level']}, calc p99 "
+            f"{calc['p99'] * 1e3:.3f} ms ({time.perf_counter() - t0:.1f} s)")
+        check((stats["search_radius"], stats["level"]) == (16, 0),
+              f"mode {mode} with auto-quality ended at radius "
+              f"{stats['search_radius']}, level {stats['level']}")
+        figures[mode]["auto_calc_ms_p99"] = calc["p99"] * 1e3
+    log(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke "
@@ -3449,6 +3721,10 @@ def main() -> int:
         "kernels against the plain versions, the degrade ladder at 4K, the "
         "embed and serving-farm examples)")
     phase_last_tools(dev)
+    log("phase 20: the views of modes 3, 5 and 6 end to end (cli --mode "
+        "hsv|sbs1|sbs2, 4K 24->120, radius 16; device and calc ms a pair "
+        "against the bar; auto-quality keeps radius 16, level 0)")
+    views_launches, views = phase_views(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
     # main path (K3 as the blur phase of K1's launches), K4 on the P010
@@ -3506,6 +3782,15 @@ def main() -> int:
                             "mpv_frame_interpolator_tpu/parallel/"
                             "sharding.py:165",
                             sharded_launches["pair_blend_rows"]),
+        # not TPU kernels: V1 and V2 replace the XLA gathers of the side-by-
+        # side views and the float colour ops of the HSV view (phase 20)
+        "warp_sbs": ("warp_views.cu",
+                     "mpv_frame_interpolator_tpu/ops/warp.py:1178",
+                     views_launches["sbs1"]["warp_sbs"]
+                     + views_launches["sbs2"]["warp_sbs"]),
+        "warp_hsv": ("warp_views.cu",
+                     "mpv_frame_interpolator_tpu/ops/warp.py:785",
+                     views_launches["hsv"]["warp_hsv"]),
         "pack_probe": ("pack_probe.cu", "tools/pallas_pack_probe.py:22",
                        probes["pack_probe"]["launches"]),
         "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",
@@ -3530,13 +3815,16 @@ def main() -> int:
             # bilinear taps under mirror_edge2's clamp -- grid_sample's
             # bilinear mode weighs in float and reflects without it -- a
             # set of probes, nine windowed SAD probes and an integer
-            # quadratic fit); P2's is the slice copy
+            # quadratic fit, V1's and V2's views); P2's is the slice copy
             "library_ms": r.get("library_ms"),
             "device_ms": r.get("device_ms"),
             # K2 under P010 and at N = 1..5, the band at 1, 2 and 4
             # bands, K4 at 8 bits
+            # V2: its samples that differ from the plain version, and the
+            # largest share of a plane more than 2 apart (the tolerance)
             **{k: r[k] for k in ("p010_device_ms", "n_device_ms",
-                                 "bands_device_ms", "nv12_device_ms")
+                                 "bands_device_ms", "nv12_device_ms",
+                                 "differing", "over2_share")
                if k in r}})
     log(f"launches on the 8-bit main path {main_launches}, on the P010 "
         f"fused path {p010_launches}, on the warp12 path {warp12_launches}, "
@@ -3544,6 +3832,7 @@ def main() -> int:
         f"{hopperxq_launches}, on the hopperx path {hopperx_launches}, on "
         f"the sub-pel hopperq path {subpel_launches}")
     log(f"launches on the staged 4K player run {player_launches}")
+    log(f"the views a 4K pair (phase 20): {json.dumps(views)}")
     log(f"grouped engine, a pair: {json.dumps(grouped)}")
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,6 +5,8 @@
 // a flow cell (warp_runs.cuh).  G1 (blend_levels.cu) blends two raw samples
 // with the same weight and level maps; G1's occlusion variant and Q1
 // (warp_bilinear.cu, the 1/64-pel bilinear blend) add occlusion_adjust.
+// V1 and V2 (warp_views.cu, the side-by-side and HSV views) compose
+// flow_at, dir_displacement, blend_fix and the level maps per sample.
 //
 // The semantics are those of the JAX blended warp (ops/warp._warp_sample,
 // mode 2), i.e. the reference's warpFrameKernel.cl with the fixed-point
@@ -214,6 +216,15 @@ __device__ __forceinline__ T sample_dir_pixel(const T* __restrict__ src,
   const int y = mirror_edge2(cy + ddy, rows);
   if (kChroma) x = (x & ~1) + (cx & 1);
   return src[(size_t)y * pitch + x];
+}
+
+// The fixed-point blend of two raw samples with weight tw of 2^frac
+// (blend_weight): (s12 * (2^frac - tw) + s21 * tw) >> frac in uint32, with
+// no level map (the views of warp_views.cu: V1 maps its levels after it,
+// V2 recolours it first).
+__device__ __forceinline__ unsigned blend_fix(unsigned s12, unsigned s21,
+                                              unsigned tw, int frac) {
+  return (s12 * ((1u << frac) - tw) + s21 * tw) >> frac;
 }
 
 // One blended output sample of a plane (rows x Wa, sources of `pitch`

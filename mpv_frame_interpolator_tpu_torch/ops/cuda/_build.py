@@ -31,7 +31,8 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
 SOURCES = ("flow_step.cu", "flow_slice.cu", "blur.cu", "warp_pair.cu",
            "warp_fused.cu", "warp_sample.cu", "blend_levels.cu",
-           "warp_bilinear.cu", "pack_probe.cu", "dma_probe.cu")
+           "warp_bilinear.cu", "warp_views.cu", "pack_probe.cu",
+           "dma_probe.cu")
 HEADERS = ("warp_common.cuh", "warp_runs.cuh", "blur_tile.cuh",
            "flow_tile.cuh", "subpel_tile.cuh")
 
@@ -80,6 +81,12 @@ _SIGNATURES = {
     # f1y f1uv f2y f2uv blurred frac t out_y out_uv | H Wa pitch lh lw rs
     # scale_shift black white occlusion vec | stream
     "mfi_bilinear_blend": (P,) * 9 + (I,) * 11 + (P,),
+    # f1y f1uv f2y f2uv blurred t out_y out_uv | mode H Wa pitch lh lw rs
+    # scale_shift black white | stream
+    "mfi_warp_sbs": (P,) * 8 + (I,) * 10 + (P,),
+    # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
+    # scale_shift black white | stream
+    "mfi_warp_hsv": (P,) * 8 + (I,) * 9 + (P,),
     # a idx val acc lo | outs (a table of pointers, one a probe) | mask
     # col_shift row_shift | stream
     "mfi_probe_run": (P,) * 5 + (ctypes.POINTER(P), I, I, I, P),

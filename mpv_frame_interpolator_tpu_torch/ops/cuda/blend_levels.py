@@ -4,10 +4,11 @@ Not a TPU kernel: it replaces the XLA fusion that the JAX package runs
 around its one-direction sampler, ``ops/warp._blend_fix`` followed by
 ``_levels_y_rt`` / ``_levels_uv_rt`` (``mpv_frame_interpolator_tpu/ops/
 warp.py:700``, ``:737-:774``).  The engine calls it once a position in
-mode 2 under the "pallas" sampler, on K5's two directions, in mode 3
-before the HSV colours, and in mode 2 of model ``hopperx`` with the
-occlusion correction.  Per sample of the luma plane and the interleaved
-chroma plane: the fixed-point blend with 24 - (8 if scale_shift) fraction
+mode 2 under the "pallas" sampler, on K5's two directions, and in mode 2
+of model ``hopperx`` with the occlusion correction (mode 3 blends inside
+its own kernel, ``warp_views.warp_hsv``, whose plain version composes
+this one's).  Per sample of the luma plane and the interleaved chroma
+plane: the fixed-point blend with 24 - (8 if scale_shift) fraction
 bits in uint32 (the JAX arithmetic: it never wraps), for hopperx the
 occlusion correction on the two raw samples (``ops/warp.occlusion_adjust``,
 the XLA ops ``_occlusion_adjust`` at ``ops/warp.py:103``), then the

@@ -6,8 +6,8 @@ package's shift decomposition under ``warp_sampling="pallas"``: for one
 blend position and one direction, the luma plane and the interleaved
 chroma plane sampled at each output pixel's mirrored, flow-displaced
 coordinate, with no blend, no levels and no cap.  Output modes 0 and 1
-are one call; mode 3 and the "pallas" sampler of mode 2 are two, blended
-by the caller (ops/warp.py holds the pieces).
+are one call; the "pallas" sampler of mode 2 and model hopperx are two,
+blended by the caller (ops/warp.py holds the pieces).
 
 Bound on the card: bytes -- per 4K launch one plane pair written (12.4 MB
 NV12, 24.9 MB P010), as many source samples read and the ~1 MB flow:

@@ -24,11 +24,12 @@ and the output cap is 255 << scale_shift.
 The kernels that run the sampling on the card are ops/cuda/warp_pair.py
 (every blended position of a pair), ops/cuda/warp_fused.py (one blended
 position), ops/cuda/warp_sample.py (the raw samples of one direction at
-one position, which modes 0, 1, 3, hopperx and the "pallas" sampler of
-mode 2 compose) and ops/cuda/warp_bilinear.py (one bilinear blended
-position); their plain versions compose these functions.  The
-side-by-side views run as these tensor ops on the engine's device: the
-JAX package computes them with XLA gathers, not a Pallas kernel.
+one position, which modes 0, 1, hopperx and the "pallas" sampler of mode
+2 compose), ops/cuda/warp_bilinear.py (one bilinear blended position) and
+ops/cuda/warp_views.py (the side-by-side views of modes 5/6 and the HSV
+view of mode 3 at one position; the JAX package computes them with XLA
+gathers and float ops, not a Pallas kernel); their plain versions compose
+these functions.
 """
 
 from __future__ import annotations
@@ -461,8 +462,11 @@ def warp_sbs(mode: int, f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
             ly = ((cy - top) * 2).clamp(0, rows - 1)
             lx = (cx * 2 + ((cx & 1) if cz else 0)).clamp(0, W - 1)
             forced = ~in_right
+            # the lanes outside the band's left part are discarded; under
+            # an odd stride chroma's column of one of them would be W
             forced_val = torch.where(
-                in_left, fetch(src1, ly, lx),
+                in_left, src1[ly, (nv12_column(lx, cx) if cz else lx)
+                              .clamp(max=W - 1)],
                 torch.full_like(cx, (128 << scale_shift) if cz else 0))
             adj_cx = torch.where(in_right, (cx - (wa >> 1)) * 2, cx)
             adj_cy = torch.where(in_right, (cy - top) * 2, cy)

@@ -42,12 +42,14 @@ Per source pair, on the engine's device and without a host sync:
    * modes 0 / 1 (warp12 / warp21), under any sampler and model: one call
      of the one-direction sampler per position, its raw samples as they
      are;
-   * mode 3 (hsv): two calls per position, blended by the blend kernel at
-     the default levels, recoloured by the flow (``ops/warp.hsv_planes``)
-     and level-mapped as tensor ops (float colour math);
+   * mode 3 (hsv), under any sampler and model: one call of the HSV view
+     kernel (``ops/cuda/warp_views.warp_hsv``) per position -- the two
+     directions' samples, their blend, the flow's colours (float32 in the
+     JAX op order) and the level maps in one launch;
    * mode 4 (grey): the flow's magnitude as tensor ops; nothing sampled;
-   * modes 5 / 6 (side by side): ``ops/warp.warp_sbs`` per position as
-     tensor ops (the JAX package's XLA gathers; no Pallas kernel).  Mode 6
+   * modes 5 / 6 (side by side), under any sampler and model: one call of
+     the side-by-side kernel (``ops/cuda/warp_views.warp_sbs``) per
+     position (the JAX package's XLA gathers; no Pallas kernel).  Mode 6
      also interpolates on the first source frame, paired with itself.
 
    The blend kernel is the counterpart of the XLA fusion in which the JAX
@@ -122,7 +124,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import (
     blend_levels as _k_blend_levels, blur as _k_blur,
     flow_step as _k_flow_step, subpel as _k_subpel,
     warp_bilinear as _k_bilinear, warp_fused as _k_fused,
-    warp_pair as _k_pair, warp_sample as _k_sample)
+    warp_pair as _k_pair, warp_sample as _k_sample, warp_views as _k_views)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.blend_levels import (
     blend_levels)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_bilinear import (
@@ -368,8 +370,8 @@ def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
         outs = [bilinear_blend(*args, ts[i], rs, wa, scale_shift, levels,
                                model == "hopperxq", frac) for i in range(n)]
     elif blended and model == "hopperx":
-        outs = [_blended_from_samples(mode, scale_shift, levels, rs, wa,
-                                      args, ts[i], occlusion=True)
+        outs = [_blended_from_samples(scale_shift, levels, rs, wa, args,
+                                      ts[i], occlusion=True)
                 for i in range(n)]
     elif blended and sampling not in ("fused", "pallas"):
         return pair_blend(*args, ts, rs, wa, scale_shift, levels)
@@ -381,42 +383,34 @@ def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
         outs = [sample_dir(*args, ts[i], direction, rs, wa)
                 for i in range(n)]
     elif mode in (warp_ops.SIDE_BY_SIDE_1, warp_ops.SIDE_BY_SIDE_2):
-        outs = [warp_ops.warp_sbs(mode, *args, ts[i], rs, wa, scale_shift,
+        outs = [_k_views.warp_sbs(mode, *args, ts[i], rs, wa, scale_shift,
                                   levels) for i in range(n)]
+    elif mode == warp_ops.HSV_FLOW:
+        outs = [_k_views.warp_hsv(*args, ts[i], rs, wa, scale_shift, levels)
+                for i in range(n)]
     else:
-        outs = [_blended_from_samples(mode, scale_shift, levels, rs, wa,
-                                      args, ts[i]) for i in range(n)]
+        outs = [_blended_from_samples(scale_shift, levels, rs, wa, args,
+                                      ts[i]) for i in range(n)]
     return [y for y, _ in outs], [uv for _, uv in outs]
 
 
-def _blended_from_samples(mode: int, scale_shift: int, levels, rs: int,
-                          wa: int, args, t, occlusion: bool = False):
+def _blended_from_samples(scale_shift: int, levels, rs: int, wa: int, args,
+                          t, occlusion: bool = False):
     """Mode 2 under "pallas" (and of hopperx, with the occlusion
-    correction) and mode 3 at one position: the two directions' raw
-    samples (K5), then the blend and level maps (G1); mode 3 blends at the
-    default levels, recolours by the flow and level-maps the colours."""
+    correction) at one position: the two directions' raw samples (K5),
+    then the blend and level maps (G1)."""
     y12, uv12 = sample_dir(*args, t, 12, rs, wa)
     y21, uv21 = sample_dir(*args, t, 21, rs, wa)
-    if mode != warp_ops.HSV_FLOW:
-        return blend_levels(y12, uv12, y21, uv21, t, scale_shift, levels,
-                            occlusion)
-    # the default levels clip the blend to 255 << scale_shift, which the
-    # colours cannot see: they read the blend >> scale_shift
-    b_y, b_uv = blend_levels(y12, uv12, y21, uv21, t, scale_shift)
-    b_y, b_uv = warp_ops.hsv_planes(b_y.to(torch.int32),
-                                    b_uv.to(torch.int32), args[4], rs, wa,
-                                    scale_shift)
-    k, w = levels
-    dtype = y12.dtype
-    return (warp_ops.levels_y(b_y, k, w, scale_shift).to(dtype),
-            warp_ops.levels_uv(b_uv, w, scale_shift).to(dtype))
+    return blend_levels(y12, uv12, y21, uv21, t, scale_shift, levels,
+                        occlusion)
 
 
 # every kernel wrapper's launch counters: a replayed graph calls no
 # wrapper, so the engine adds each graph's captured launches per replay
 _KERNEL_COUNTS = (_k_flow_step.counts, _k_blur.counts, _k_pair.counts,
                   _k_fused.counts, _k_sample.counts, _k_blend_levels.counts,
-                  _k_bilinear.counts, _k_subpel.counts)
+                  _k_bilinear.counts, _k_subpel.counts, _k_views.sbs_counts,
+                  _k_views.hsv_counts)
 
 
 def _snapshot_counts():

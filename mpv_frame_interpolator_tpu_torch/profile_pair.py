@@ -88,7 +88,7 @@ def pinned_frames(frames):
     return out
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="profile_pair", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--trace", default="",
@@ -110,7 +110,19 @@ def main(argv=None) -> int:
     p.add_argument("--stage", action="store_true",
                    help="upload each frame (engine.stage, from page-locked "
                         "buffers) inside the profiled window")
-    args = p.parse_args(argv)
+    return p
+
+
+def profile(argv=None, opening=None) -> dict:
+    """Push the profiled pairs (see the module's docstring); returns the
+    parsed arguments ("args"), the engine ("engine"), the pairs profiled
+    ("pairs"), the wall in seconds ("wall"), the device ms of the window
+    ("device_ms"), its device rows [(name, count, device us)] longest
+    first ("rows") and, under --group, the host's launches ("group").
+    `opening`, if given, runs spin kernels (``torch.cuda._sleep``) inside
+    the trace before the pairs, and their rows are left out: a trace late
+    in a long process loses the first device records it takes."""
+    args = build_parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pair: CUDA is not available")
     from torch.profiler import ProfilerActivity, profile
@@ -152,6 +164,9 @@ def main(argv=None) -> int:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if opening is not None:
+            opening()
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         todo = frames[1 + warm:]
         for i in range(0, len(todo), group):
@@ -161,12 +176,23 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
 
     rows = sorted(((e.key, e.count, self_device_us(e))
-                   for e in prof.key_averages() if self_device_us(e) > 0),
+                   for e in prof.key_averages() if self_device_us(e) > 0
+                   and (opening is None or "spin" not in e.key)),
                   key=lambda r: -r[2])
     if not rows:
         raise SystemExit("profile_pair: the profiler recorded no device "
                          "activity")
-    device_ms = sum(r[2] for r in rows) / 1e3
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    return {"args": args, "engine": eng, "pairs": pairs, "wall": wall,
+            "device_ms": sum(r[2] for r in rows) / 1e3, "rows": rows,
+            "group": {k: eng.group_stats[k] - before[k] for k in before}}
+
+
+def main(argv=None) -> int:
+    r = profile(argv)
+    args, eng, pairs, wall = r["args"], r["engine"], r["pairs"], r["wall"]
+    device_ms, rows, group = r["device_ms"], r["rows"], max(args.group, 1)
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"{WIDTH}x{HEIGHT} {'P010' if args.p010 else 'NV12'} -> "
           f"{DISPLAY_FPS:g} fps, radius {args.search_radius}, mode "
@@ -179,15 +205,13 @@ def main(argv=None) -> int:
     print(f"device {device_ms:.3f} ms = {device_ms / pairs:.3f} ms/pair; "
           f"busy share {device_ms / (wall * 1e3):.3f}")
     if group > 1:
-        d = {k: eng.group_stats[k] - before[k] for k in before}
+        d = r["group"]
         print(f"host launches/pair: graph replays {d['replays'] / pairs:.3f}"
               f" + copies {d['copies'] / pairs:.3f}; graphs "
               f"{eng.graph_stats()}")
     print("device ms/pair  launches/pair  kernel")
     for key, count, us in rows:
         print(f"{us / 1e3 / pairs:14.4f}  {count / pairs:13.2f}  {key[:100]}")
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
     return 0
 
 

@@ -7,8 +7,9 @@ port's copy of the JAX package's), so that a fault of the hardware path
 or of the compiler shows.  The flow runs through ``ops/flow.flow`` (the
 flow-pyramid kernel with its blur phase) and each output mode through the
 engine's warp stage at its default sampler: mode 2 on the pair-blend
-kernel, modes 0 and 1 on the one-direction sampler, mode 4 and modes 5/6
-as tensor ops.  ``python -m mpv_frame_interpolator_tpu_torch.tools.
+kernel, modes 0 and 1 on the one-direction sampler, modes 5/6 on the
+side-by-side kernel (``ops/cuda/warp_views.warp_sbs``) and mode 4 as
+tensor ops.  ``python -m mpv_frame_interpolator_tpu_torch.tools.
 parity_report`` prints the full matrix.
 
 Frames are small, as the JAX package keeps them.

@@ -38,6 +38,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample as KD
+from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_views as KV
 from mpv_frame_interpolator_tpu_torch.pipeline import engine as E
 from mpv_frame_interpolator_tpu_torch.tools import dma_probe as DP
 from mpv_frame_interpolator_tpu_torch.tools import pack_probe as PP
@@ -638,7 +639,8 @@ def test_engine_modes_on_the_card_equal_the_cpu(cuda, source, pixfmt,
         warp_sampling=sampling, black_level=levels[0],
         white_level=levels[1]))
         for d in ("cpu", str(cuda))]
-    before = (KG.counts.kernel, KB.counts.kernel, KB.counts.fused)
+    before = (KG.counts.kernel, KB.counts.kernel, KB.counts.fused,
+              KV.hsv_counts.kernel, KD.counts.kernel)
     outputs = 0
     for frame in getattr(synthetic, source)(cfg, 8):
         outs = [e.push(frame) for e in engines]
@@ -654,12 +656,16 @@ def test_engine_modes_on_the_card_equal_the_cpu(cuda, source, pixfmt,
                 else:
                     np.testing.assert_array_equal(p, q)
     # the blur ran inside every pair's pyramid launch, never on its own;
-    # G1 once an output in modes 3 and 2 under "pallas" (the first frame
-    # passes through), never elsewhere
-    blends = mode == 3 or (mode == 2 and sampling == "pallas")
+    # G1 once an output in mode 2 under "pallas" (the first frame passes
+    # through), never elsewhere; mode 3 V2 once an output and no K5
+    blends = mode == 2 and sampling == "pallas"
     assert KB.counts.kernel == before[1]
     assert KB.counts.fused - before[2] == 7
     assert KG.counts.kernel - before[0] == (outputs - 1 if blends else 0)
+    assert KV.hsv_counts.kernel - before[3] == (outputs - 1 if mode == 3
+                                                else 0)
+    if mode == 3:
+        assert KD.counts.kernel == before[4]
 
 
 def test_frame_to_device_keeps_the_chroma_split(cuda):
@@ -901,7 +907,8 @@ def test_engine_models_on_the_card_equal_the_cpu(cuda, model, mode,
         warp_sampling=sampling, black_level=levels[0],
         white_level=levels[1]))
         for d in ("cpu", str(cuda))]
-    counts = (KS.counts, KD.counts, KG.counts, KQ.counts)
+    counts = (KS.counts, KD.counts, KG.counts, KQ.counts, KV.sbs_counts,
+              KV.hsv_counts)
     before = [c.kernel for c in counts]
     outputs = 0
     for frame in synthetic.scene_cut(cfg, 6):
@@ -917,7 +924,7 @@ def test_engine_models_on_the_card_equal_the_cpu(cuda, model, mode,
                                    > 2) < 0.005
                 else:
                     np.testing.assert_array_equal(p, q)
-    k1, k5, g1, q1 = (c.kernel - b for c, b in zip(counts, before))
+    k1, k5, g1, q1, v1, v2 = (c.kernel - b for c, b in zip(counts, before))
     pairs = 6 if mode == 6 else 5
     warped = outputs if mode == 6 else outputs - 1
     assert k1 == (0 if model in ("blend", "repeat") else pairs)
@@ -925,6 +932,11 @@ def test_engine_models_on_the_card_equal_the_cpu(cuda, model, mode,
         assert (k5, g1) == ((2 * warped, warped) if model == "hopperx"
                             else (0, 0))
         assert q1 == (warped if model in ("hopperq", "hopperxq") else 0)
+    else:
+        # modes 3, 5 and 6: their own kernel once an output, under any
+        # model, and no other warp kernel
+        assert (k5, g1, q1) == (0, 0, 0)
+        assert (v1, v2) == ((0, warped) if mode == 3 else (warped, 0))
 
 
 @pytest.mark.parametrize("dt,luma_shift", [(np.uint8, 0), (np.uint16, 8)])
@@ -1736,3 +1748,38 @@ def test_entry_runs_on_the_card(cuda):
     assert [tuple(p.shape) for p in (y, u, v)] == [(1080, 1920),
                                                    (540, 960), (540, 960)]
     assert all(p.dtype == torch.uint8 and p.is_cuda for p in (y, u, v))
+
+
+@pytest.mark.parametrize("scale_shift,levels", [(0, (0.0, 255.0)),
+                                                (8, (16.0, 235.0))])
+@pytest.mark.parametrize("h,w,stride", [(48, 64, 80), (118, 202, 202),
+                                        (544, 96, 96), (48, 63, 65)])
+def test_warp_views(cuda, scale_shift, levels, h, w, stride):
+    """V1 (modes 5 and 6) bit-exact and V2 (mode 3) within the HSV
+    tolerance against their plain versions, on random planes (a row of the
+    top value) and flows that push cells past every edge, t in {0, 0.4,
+    1}: res scalars 0 and 2, a stride wider than the picture and an odd
+    one; V2 on a zero flow (no colour, only its integer parts) bit-exact."""
+    geom, f1, f2, blurred = _run_case(cuda, h, w, stride, scale_shift)
+    top = (1 << (8 << (scale_shift > 0))) - 1
+    f1[0][:1].copy_(torch.full((1, stride), top, dtype=torch.int32))
+    lv = W.level_ints(*levels)
+    zero = torch.zeros_like(blurred)
+    for t in (0.0, 0.4, 1.0):
+        tt = torch.tensor(t, device=cuda)
+        args = (f1[0], f1[1], f2[0], f2[1], blurred, tt, geom.res_scalar, w,
+                scale_shift, lv)
+        for mode in (5, 6):
+            before = KV.sbs_counts.kernel
+            got = KV.warp_sbs(mode, *args)
+            assert KV.sbs_counts.kernel == before + 1
+            _equal(got, KV.warp_sbs_plain(mode, *args))
+        before = KV.hsv_counts.kernel
+        got = KV.warp_hsv(*args)
+        assert KV.hsv_counts.kernel == before + 1
+        for g, p in zip(got, KV.warp_hsv_plain(*args)):
+            assert g.dtype == p.dtype and g.shape == p.shape
+            d = (g.to(torch.int32) - p.to(torch.int32)).abs()
+            assert float((d > 2).float().mean()) < 0.005
+        args = (*args[:4], zero, *args[5:])
+        _equal(KV.warp_hsv(*args), KV.warp_hsv_plain(*args))

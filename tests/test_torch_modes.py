@@ -149,19 +149,21 @@ def test_grey_needs_no_sampler(small_cfg):
     assert (KS.counts.kernel, KS.counts.plain) == before
 
 
-@pytest.mark.parametrize("mode,calls", [(0, 1), (1, 1), (2, 2), (3, 2)])
+@pytest.mark.parametrize("mode,calls", [(0, 1), (1, 1), (2, 2), (3, 0)])
 def test_sampler_calls_per_position(small_cfg, mode, calls):
+    """K5 once a position in modes 0/1 and twice in mode 2 under "pallas";
+    mode 3 samples inside its own kernel (V2, ``warp_views.warp_hsv``)."""
     f1, f2, geom, blur = _setup(small_cfg)
     before = KS.counts.plain
     _port_warp(f1, f2, geom, blur, mode, TS, sampling="pallas")
     assert KS.counts.plain == before + calls * len(TS)
 
 
-@pytest.mark.parametrize("mode,calls", [(0, 0), (1, 0), (2, 1), (3, 1),
+@pytest.mark.parametrize("mode,calls", [(0, 0), (1, 0), (2, 1), (3, 0),
                                         (4, 0)])
 def test_blend_kernel_calls_per_position(small_cfg, mode, calls):
     """The blend of the two directions (G1) runs once a position in mode 2
-    under "pallas" and in mode 3, and nowhere else."""
+    under "pallas", and nowhere else: mode 3 blends inside V2."""
     f1, f2, geom, blur = _setup(small_cfg)
     before = (KG.counts.kernel, KG.counts.plain)
     _port_warp(f1, f2, geom, blur, mode, TS, sampling="pallas")
