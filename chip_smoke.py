@@ -47,7 +47,19 @@ Phases (any failure raises and exits non-zero):
    edge and odd flows and a stride-padded frame: V1 bit-exact, V2 within
    the JAX package's HSV tolerance with its differing samples counted
    and placed (and bit-exact on a zero flow), each timed beside its plain
-   version and its bound;
+   version and its bound; C1 (the pair's prologue: the cut score, the
+   cut, the folded blend positions and f2's probe in one launch) at 4K
+   NV12 and P010 and on a frame whose score grid and probe grid differ,
+   scene detection on and off, a cut and no cut, "nearest", "hold" and
+   "repeat", a threshold float32 cannot hold (28.1, against a score of
+   float32(28.1)): score bits, flag, count, positions and probe bytes
+   equal to its plain version's; C1 captured in a CUDA graph and
+   replayed three times, the count rising by one a cut (one scratch
+   shared by every launch, as an engine's); two engines' C1 on two
+   streams at once (a scratch a launch, then a scratch a stream); C1's
+   wrapper's host time by part; V3 (the grey view of mode 4) bit-exact at
+   4K NV12 and P010 and at an odd width; each timed (ms, device ms,
+   bound, plain ms);
 3b. the toolchain probes through their entry points: P1 (packed bytes:
    the JAX probe's five arrays and the card's own packing) every probe OK
    in one launch, each entry bit-exact at five pairs of shifts, beside
@@ -69,7 +81,9 @@ Phases (any failure raises and exits non-zero):
    twice and G1 once an output, hopperq and hopperxq Q1 once an output,
    the sub-pel flow S1's phases inside K1's launch once a pair and no
    standalone S1 or K3, mode 3 V2 once an output and no K5 or G1, modes
-   5 and 6 V1 once an output;
+   5 and 6 V1 once an output, mode 4 V3 once a pair, C1 once a pair in
+   every case (clips under "repeat" and under ``cut_policy="hold"``
+   among them);
 5. the 8-bit main path end to end through the port's CLI at 3840x2160,
    24 -> 120 fps, radius 16: the output count must match the cadence,
    the launch counters of K1 and K2 must move during that run (K1
@@ -108,7 +122,9 @@ Phases (any failure raises and exits non-zero):
 14. the grouped engine at 4K, 8-bit "pair" and P010 "fused": push and
    push_many in groups of 4 and 8, every output bit-equal to push's, with
    device ms, engine wall, busy share, host and kernel launches a pair
-   and each graph's memory;
+   and each graph's memory: C1, K1 and K2 are the NV12 pair's three
+   kernel launches and its only device rows (no tensor op between them;
+   the rows printed), C1, K1 and five K4 the P010 fused pair's seven;
 15. seek, loop and end on the card: a small y4m clip through the
    pipeline (a seek and a loop) and the CLI (--loop 1 --end 0.4), equal
    to the CPU's frames and bytes;
@@ -168,8 +184,9 @@ Phases (any failure raises and exits non-zero):
    ``embed`` and ``serving_farm`` examples at their own sizes, each
    writing or returning as many frames as the cadence gives;
 20. the views through the CLI at 4K 24 -> 120, radius 16: ``--mode
-   hsv``, ``--mode sbs1`` and ``--mode sbs2``, each with K1 once a pair,
-   V2 or V1 once an output and no other warp kernel or plain version;
+   hsv``, ``--mode sbs1``, ``--mode sbs2`` and ``--mode grey``, each with
+   K1 once a pair, V2 or V1 once an output or V3 once a pair and no
+   other warp kernel or plain version;
    each mode's device ms a pair (``profile_pair.profile``) and calc ms a
    pair against the 29.8 ms bar; then 24 frames of each with the
    auto-quality controller on, ending at radius 16 and level 0.
@@ -178,11 +195,13 @@ The 4K synthetic CLI runs of phases 5-11 and 20 pass ``--cache no``: under
 ``--cache auto`` a synthetic clip, which cannot seek, is spooled to a
 temporary file.
 
-On every path the blur runs inside K1's launch once a pair and K3's
-standalone kernel never (under the sub-pel flow S1's phases run in the
+On every path C1 runs once a pair before K1 (the score, the cut, the
+folded positions and the probe; K1's blur phase applies the cut), the
+blur runs inside K1's launch once a pair and K3's standalone kernel
+never (under the sub-pel flow S1's phases run in the
 same launch, before it), G1 runs only on the "pallas" and hopperx
 paths, Q1 only on the hopperq / hopperxq paths, V1 only in modes 5 and
-6 and V2 only in mode 3.
+6, V2 only in mode 3 and V3 only in mode 4.
 
 Each path's counters are set to 0 just before it runs and read just
 after.  The port against the NumPy oracle on the card is a test:
@@ -1064,6 +1083,7 @@ def phase_kernels(dev):
                                 p010=q1[(8, True)], nv12=q1[(0, True)])
 
     results.update(phase_views_kernels(dev, rng, frames, flows, rs))
+    results.update(phase_prologue_kernels(dev, rng, flows))
 
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms{_device(r)}, plain "
@@ -1223,6 +1243,323 @@ def phase_views_kernels(dev, rng, frames, flows, rs):
                 f"over every case (max |diff| {err}); the largest share of "
                 f"a plane more than 2 apart {share:.6f} (tolerance "
                 f"{HSV_SHARE}); first at {where}")
+    return out
+
+
+def c1_bound(geom, rows: int, cols: int, item: int, n: int, scene: bool,
+             probe: bool):
+    """(bound_ms, bound_by) of C1 on (rows, cols) luma planes: the bytes
+    the function needs, each read once -- both luma planes' samples on the
+    score's grid (which holds the probe's luma samples), f2's chroma
+    samples at the probe's cells (each distinct sample once), the
+    positions and the count -- and each written once (the probe, the
+    positions, the score, the flag, the count); ~6 operations a score cell
+    and ~3 a probe cell."""
+    rs, lh, lw = geom.res_scalar, geom.low_h, geom.low_w
+    sh, sw = -(-rows // (1 << rs)), -(-cols // (1 << rs))
+    nbytes = 4 * n * 2 + 4 + 4 + 4
+    ops = 0
+    if scene:
+        nbytes += 2 * sh * sw * item + 4
+        ops += 6 * sh * sw
+    if probe:
+        cy, cx = np.arange(lh) << rs, np.arange(lw) << rs
+        chroma = len(np.unique(cy >> 1)) * len(np.unique(cx >> 1))
+        nbytes += (0 if scene else lh * lw * item) + 2 * chroma * item
+        nbytes += 3 * lh * lw * item
+        ops += 3 * lh * lw
+    return bound(nbytes, ops)
+
+
+def c1_host_split(KC, geom, planes, ts, dev, reps: int = 400) -> dict:
+    """The host's microseconds a call of C1's wrapper, by part, on one
+    pair's planes with scene detection and the probe: the argument checks
+    (``_check``; the card's ``_require``), the outputs' allocations
+    (``_outputs``), the stream's handle, the launch (``_launch``: the
+    pointers, the ctypes call, the cooperative launch), a ctypes call the
+    entry refuses before launching (rows 0: the call's own cost), and the
+    whole wrapper with a scratch of its caller's (the engine's) and with a
+    new one a call.  Each part is timed over `reps` calls, three rounds in
+    turn, and the median round kept; the card keeps up (each launch's
+    ~0.005 ms is below its call's host time)."""
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
+    y1, y2, u2, v2 = planes
+    cuts = torch.zeros((), dtype=torch.int32, device=dev)
+    partials = KC.scratch(dev)
+    out = KC._outputs(geom, y1, ts, True, True)
+    lib = _build.load()
+    refused = ([t.data_ptr() for t in (y1, y2, u2, v2, ts, out.ts,
+                                       *out.probe, out.score, out.cut,
+                                       cuts, partials)]
+               + [ts.numel(), 0] + [1] * 11
+               + [28.0, _build.stream_of(y1)])
+    parts = {
+        "check": lambda: KC._check(geom, y1, y2, u2, v2, ts, cuts, 0,
+                                   "nearest", True),
+        "require": lambda: KC._require(geom, y1, y2, u2, v2, ts, cuts,
+                                       partials, True),
+        "allocate": lambda: KC._outputs(geom, y1, ts, True, True),
+        "stream": lambda: _build.stream_of(y1),
+        "launch": lambda: KC._launch(geom, y1, y2, u2, v2, ts, cuts,
+                                     partials, out, 0, 28.0, "nearest",
+                                     False),
+        "ctypes_refused": lambda: lib.mfi_pair_prologue(*refused),
+        "wrapper": lambda: KC.pair_prologue(geom, y1, y2, u2, v2, ts, cuts,
+                                            partials=partials),
+        "wrapper_new_scratch": lambda: KC.pair_prologue(geom, y1, y2, u2,
+                                                        v2, ts, cuts),
+    }
+    check(lib.mfi_pair_prologue(*refused) != 0,
+          "C1's entry launched with rows 0")
+    rounds = {k: [] for k in parts}
+    for _ in range(3):
+        for name, fn in parts.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            rounds[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in rounds.items()}
+
+
+def prologue_diff(got, want) -> int:
+    """The largest difference between two prologues' outputs: the score's
+    bits (as int32), the flag, the positions' bits and the probe bytes."""
+    err = 0
+    if (got.score is None) != (want.score is None) or \
+            (got.probe is None) != (want.probe is None):
+        return 1 << 31
+    if got.score is not None:
+        err = abs(got.score.view(torch.int32).item()
+                  - want.score.view(torch.int32).item())
+    err = max(err, abs(got.cut.item() - int(want.cut.item())),
+              max_abs_err(got.ts.view(torch.int32),
+                          want.ts.view(torch.int32)))
+    if got.probe is not None:
+        err = max(err, max_err(got.probe, want.probe))
+    return err
+
+
+def phase_prologue_kernels(dev, rng, flows):
+    """Phase 3, C1 and V3.  C1 against its plain version: 4K NV12 and
+    P010, scene detection on and off, threshold 0 (a cut) and 300 (none),
+    "nearest" / "hold" with and without "repeat"; a 4K pair whose score is
+    float32(28.1) against thresholds 28.1 (no cut: compared in float32)
+    and 28.0; a 1086 x 1928 frame (H off the grid, stride past the width)
+    with a probe grid three rows and five columns short of the score's
+    grid.  Every case exact in the score's bits, the flag, the count, the
+    positions and the probe bytes; the cached positions never written.
+    Then C1 captured in a CUDA graph and replayed three times (the count
+    one higher each replay) and two engines' C1 on two streams at once (8
+    launches each), each equal to the plain version.  V3 against
+    ``ops/warp.grey_planes`` at 4K NV12 and P010 on the block, edge and
+    odd flows, on a flow whose magnitudes wrap int32, and at an odd width
+    (a plane's last run written a sample at a time).  Each timed."""
+    from mpv_frame_interpolator_tpu_torch.ops import flow as F
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import prologue as KC
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_views as KV
+    geom = F.FlowGeometry.create(H4K, W4K, W4K)
+    ts = torch.tensor([0.2, 0.4, 0.6, 0.8, 1.0], device=dev)
+    keep = ts.clone()
+    err, cases = 0, 0
+
+    def compare(what, g, planes, shift, **kw):
+        nonlocal err, cases
+        cuts = [torch.zeros((), dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        got = KC.pair_prologue(g, *planes, ts, cuts[0], bit_shift=shift,
+                               **kw)
+        want = KC.pair_prologue_plain(
+            g, *planes, ts, cuts[1], shift, kw.get("scene_enabled", True),
+            kw.get("threshold", 28.0), kw.get("cut_policy", "nearest"),
+            kw.get("repeat", False), kw.get("probe", True))
+        e = max(prologue_diff(got, want), abs(cuts[0].item()
+                                              - cuts[1].item()))
+        check(e == 0 and torch.equal(ts, keep), f"C1 {what} {kw}: differs "
+              f"from its plain version (max diff {e}) or wrote the cached "
+              "positions")
+        err, cases = max(err, e), cases + 1
+        return got, cuts[0].item()
+
+    planes = {}
+    for dt in (np.uint8, np.uint16):
+        y1 = random_planes(rng, dev, dt)[0]
+        y2, _, u2, v2 = random_planes(rng, dev, dt)
+        planes[dt] = (y1, y2, u2, v2)
+        shift = 8 if dt == np.uint16 else 0
+        for scene in (True, False):
+            for threshold in (0.0, 300.0):
+                for policy, repeat in (("nearest", False), ("hold", False),
+                                       ("nearest", True), ("hold", True)):
+                    _, cut = compare("4K", geom, planes[dt], shift,
+                                     scene_enabled=scene,
+                                     threshold=threshold, cut_policy=policy,
+                                     repeat=repeat)
+                    check(cut == int(scene and threshold == 0.0),
+                          f"C1 4K: {cut} cuts at threshold {threshold}")
+        log(f"  C1 4K {np.dtype(dt).name}: 16 cases (scene on/off, a cut "
+            f"and none, nearest/hold, repeat) equal to the plain version")
+    # a score of float32(28.1): 28 on the score's grid, 29 on a tenth of it
+    grid = np.full((geom.low_h, geom.low_w), 28, np.uint8)
+    grid.reshape(-1)[:grid.size // 10] = 29
+    y2 = np.full((H4K, W4K), 28, np.uint8)
+    y2[::8, ::8] = grid
+    tenth = (torch.zeros((H4K, W4K), dtype=torch.uint8, device=dev),
+             torch.from_numpy(y2).to(dev), *planes[np.uint8][2:])
+    for threshold, want_cut in ((28.1, 0), (28.0, 1)):
+        got, cut = compare("4K score float32(28.1)", geom, tenth, 0,
+                           threshold=threshold)
+        check(got.score.item() == float(np.float32(28.1))
+              and cut == want_cut,
+              f"C1 at threshold {threshold}: score {got.score.item()!r}, "
+              f"{cut} cuts")
+    log(f"  C1 4K score {float(np.float32(28.1))!r} = float32(28.1): no cut "
+        "at threshold 28.1, a cut at 28.0")
+    # the score's grid and the probe's differ: the probe is written only
+    # inside the geometry's lh x lw
+    odd = F.FlowGeometry.create(1086, 1928, 1920)
+    short = F.FlowGeometry(odd.height, odd.stride, odd.actual_width,
+                           odd.res_scalar, odd.low_h - 3, odd.low_w - 5,
+                           odd.start_window, odd.iterations)
+    shapes = ((1086, 1928),) * 2 + ((543, 964),) * 2
+    y1s, y2s, *uvs = [torch.from_numpy(rng.integers(0, 256, shape).astype(
+        np.uint8)).to(dev) for shape in shapes]
+    for g, what in ((odd, "1086x1928"), (short, "1086x1928, probe grid "
+                                                "short of the score's")):
+        for threshold in (0.0, 300.0):
+            got, _ = compare(what, g, (y1s, y2s, *uvs), 0,
+                             threshold=threshold, cut_policy="hold")
+        check(tuple(got.probe[0].shape) == (g.low_h, g.low_w),
+              f"C1 {what}: probe {tuple(got.probe[0].shape)}")
+    log(f"  C1 1086x1928 (score grid {odd.low_h}x{odd.low_w}, probe grid "
+        f"{short.low_h}x{short.low_w} too): equal")
+    # graph capture and replay: the count rises by one a replay; every
+    # launch shares one scratch, as an engine's pairs do
+    cuts = torch.zeros((), dtype=torch.int32, device=dev)
+    shared = KC.scratch(dev)
+    eager = KC.pair_prologue(geom, *planes[np.uint8], ts, cuts,
+                             threshold=0.0, partials=shared)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        KC.pair_prologue(geom, *planes[np.uint8], ts, cuts, threshold=0.0,
+                         partials=shared)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = KC.pair_prologue(geom, *planes[np.uint8], ts, cuts,
+                                    threshold=0.0, partials=shared)
+    torch.cuda.synchronize()
+    counted = [cuts.item()]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        e = prologue_diff(captured, eager)
+        check(e == 0, f"C1 replayed differs from the eager launch ({e})")
+        counted.append(cuts.item())
+    check(counted == [2, 3, 4, 5], f"C1's count over three replays: "
+          f"{counted}")
+    log(f"  C1 in a CUDA graph, three replays: equal, the count {counted}")
+    del graph, captured
+    # two engines' prologues on two streams at once: a scratch a launch,
+    # then a scratch a stream (an engine's own, shared by its launches)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    kws = [dict(bit_shift=0, threshold=0.0, cut_policy="nearest"),
+           dict(bit_shift=8, threshold=0.0, cut_policy="hold",
+                repeat=True)]
+    for own in (False, True):
+        counts2 = [torch.zeros((), dtype=torch.int32, device=dev)
+                   for _ in range(2)]
+        scratch = [KC.scratch(dev) if own else None for _ in range(2)]
+        torch.cuda.synchronize()
+        outs = [[], []]
+        for _ in range(8):
+            for i, dt in enumerate((np.uint8, np.uint16)):
+                with torch.cuda.stream(streams[i]):
+                    outs[i].append(KC.pair_prologue(
+                        geom, *planes[dt], ts, counts2[i],
+                        partials=scratch[i], **kws[i]))
+        torch.cuda.synchronize()
+        for i, dt in enumerate((np.uint8, np.uint16)):
+            kw = kws[i]
+            want = KC.pair_prologue_plain(
+                geom, *planes[dt], ts, torch.zeros((), dtype=torch.int32,
+                                                   device=dev),
+                kw["bit_shift"], True, 0.0, kw["cut_policy"],
+                kw.get("repeat", False), True)
+            e = max(prologue_diff(g, want) for g in outs[i])
+            check(e == 0 and counts2[i].item() == 8,
+                  f"C1 on stream {i} (own scratch {own}): max diff {e}, "
+                  f"count {counts2[i].item()}")
+        log(f"  C1 on two streams at once (NV12 nearest, P010 hold + "
+            f"repeat), 8 launches each, "
+            f"{'a scratch a stream' if own else 'a scratch a launch'}: "
+            f"equal, each count 8")
+        del outs
+
+    timed = {}
+    for dt in (np.uint8, np.uint16):
+        args = (geom, *planes[dt], ts)
+        shift = 8 if dt == np.uint16 else 0
+        cuts = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def go():
+            return KC.pair_prologue(*args, cuts, bit_shift=shift)
+
+        def plain():
+            return KC.pair_prologue_plain(*args, cuts, shift, True, 28.0,
+                                          "nearest", False, True)
+
+        timed[dt] = dict(device_ms=device_ms(go), ms=cuda_ms(go, 50),
+                         plain_ms=cuda_ms(plain, 20),
+                         bound=c1_bound(geom, H4K, W4K,
+                                        np.dtype(dt).itemsize, 5, True,
+                                        True))
+    out = {"pair_prologue": dict(timed[np.uint8], max_abs_err=err,
+                                 cases=cases, p010=timed[np.uint16])}
+    split = c1_host_split(KC, geom, planes[np.uint8], ts, dev)
+    log("  C1's wrapper on the host, us a call (4K NV12, scene detection "
+        "and the probe; median of 3 rounds of 400 calls): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in split.items()))
+
+    # V3
+    err = 0
+    wrap = flows[0][1].clone()
+    wrap[0, 0, :8] = (1 << 30) + (1 << 29)
+    wrap[1, -1, -8:] = -(1 << 30)
+    gt = {}
+    for dt, ss in ((torch.uint8, 0), (torch.uint16, 8)):
+        for name, flow in (*flows, ("wrapping", wrap)):
+            args = (flow, geom.res_scalar, H4K, W4K, ss, dt)
+            e = max_err(KV.warp_grey(*args), KV.warp_grey_plain(*args))
+            log(f"  V3 {W4K}x{H4K} scale_shift={ss} {name} flow: "
+                f"max_abs_err={e}")
+            err = max(err, e)
+        args = (flows[0][1], geom.res_scalar, H4K, W4K - 2, ss, dt)
+        e = max_err(KV.warp_grey(*args), KV.warp_grey_plain(*args))
+        log(f"  V3 {W4K - 2}x{H4K} scale_shift={ss} (rows off the 16-byte "
+            f"grid): max_abs_err={e}")
+        err = max(err, e)
+        args = (flows[0][1], geom.res_scalar, H4K, W4K, ss, dt)
+        item = 2 if ss else 1
+        gt[ss] = dict(
+            device_ms=device_ms(lambda: KV.warp_grey(*args)),
+            ms=cuda_ms(lambda: KV.warp_grey(*args), 50),
+            plain_ms=cuda_ms(lambda: KV.warp_grey_plain(*args), 20),
+            bound=bound((H4K + H4K // 2) * W4K * item
+                        + 4 * flows[0][1].numel(), 8 * H4K * W4K))
+    out["warp_grey"] = dict(gt[0], max_abs_err=err, p010=gt[8])
+    for name, r in out.items():
+        log(f"  {name}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); P010 kernel "
+            f"{r['p010']['ms']:.4f} ms (device "
+            f"{r['p010']['device_ms']:.4f} ms), plain "
+            f"{r['p010']['plain_ms']:.4f} ms, bound "
+            f"{r['p010']['bound'][0]:.5f} ms")
     return out
 
 
@@ -1411,6 +1748,17 @@ def phase_reference(dev):
          {"level": 2}),
         ("moving_box", 202, 544, 5, 60.0, False, "pair", dl, 2, "hopper",
          {"level": 3})]
+    # the cut folded by C1 and K1's blur phase: the "hold" policy (modes 2
+    # and 4) and the repeat family under P010 on clips with a cut
+    cases += [
+        ("scene_cut", 202, 118, 16, 60.0, False, "pair", dl, 2, "hopper",
+         {"cut_policy": "hold"}),
+        ("scene_cut", 202, 118, 16, 60.0, True, "fused", tv, 2, "hopper",
+         {"cut_policy": "hold"}),
+        ("scene_cut", 202, 118, 16, 60.0, True, "pair", tv, 4, "hopper",
+         {"cut_policy": "hold"}),
+        ("scene_cut", 202, 118, 16, 60.0, True, "fused", tv, 2, "repeat",
+         {})]
     counts = kernel_counts()
     for case in cases:
         name, w, h, radius, display, p010, sampling, levels, mode, model = \
@@ -1485,7 +1833,13 @@ def phase_reference(dev):
         check((launches["warp_hsv"], launches["warp_sbs"]) == views,
               f"{what}: V2 and V1 launched {launches['warp_hsv']} and "
               f"{launches['warp_sbs']} times for {n} outputs")
-        if mode in (3, 5, 6):
+        # C1 once a pair, whatever the model and mode; V3 once a pair in
+        # mode 4
+        check(launches["pair_prologue"] == pairs
+              and launches["warp_grey"] == (pairs if mode == 4 else 0),
+              f"{what}: C1 and V3 launched {launches['pair_prologue']} and "
+              f"{launches['warp_grey']} times for {pairs} pairs")
+        if mode in (3, 4, 5, 6):
             check(launches["sample_dir"] == launches["blend_levels"] == 0,
                   f"{what}: K5 and G1 launched {launches['sample_dir']} "
                   f"and {launches['blend_levels']} times")
@@ -1527,6 +1881,7 @@ def kernel_counts():
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
     from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
     from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+    from mpv_frame_interpolator_tpu_torch.ops.cuda import prologue as KC
     from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as KP
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
     from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
@@ -1537,7 +1892,8 @@ def kernel_counts():
             "pair_blend": KW.counts, "fused_blend": KF.counts,
             "sample_dir": KD.counts, "blend_levels": KG.counts,
             "bilinear_blend": KQ.counts, "subpel_refine": KP.counts,
-            "warp_sbs": KV.sbs_counts, "warp_hsv": KV.hsv_counts}
+            "warp_sbs": KV.sbs_counts, "warp_hsv": KV.hsv_counts,
+            "warp_grey": KV.grey_counts, "pair_prologue": KC.counts}
 
 
 def run_cli(dev, frames: int, extra, auto_quality: bool = False,
@@ -1612,6 +1968,11 @@ def run_cli(dev, frames: int, extra, auto_quality: bool = False,
     check((launches["warp_hsv"], launches["warp_sbs"]) == views,
           f"V2 and V1 launched {launches['warp_hsv']} and "
           f"{launches['warp_sbs']} times in mode {mode}, not {views}")
+    # C1 once a pair on every path, V3 once a pair in mode 4
+    check(launches["pair_prologue"] == pairs
+          and launches["warp_grey"] == (pairs if mode == "grey" else 0),
+          f"C1 and V3 launched {launches['pair_prologue']} and "
+          f"{launches['warp_grey']} times for {pairs} pairs in mode {mode}")
     # the blur is K1's last phase; under --subpel-flow S1's two phases run
     # in the same launch before it: no standalone S1 or K3
     subpel = "--subpel-flow" in extra
@@ -1897,7 +2258,7 @@ def phase_engine_rate(dev, p010: bool = False, sampling: str = "pair",
 OUR_KERNELS = ("pyramid_kernel", "pair_blend_kernel", "fused_blend_kernel",
                "blur_kernel", "sample_dir_kernel", "blend_levels_kernel",
                "bilinear_blend_kernel", "slice_kernel", "warp_sbs_kernel",
-               "warp_hsv_kernel")
+               "warp_hsv_kernel", "warp_grey_kernel", "pair_prologue_kernel")
 
 
 def write_y4m(path: str, frames, width: int, height: int,
@@ -2050,7 +2411,11 @@ def phase_grouped_engine(dev, p010: bool = False, sampling: str = "pair"):
     torch.profiler (device ms, busy share, kernel rows).  The launches a
     pair counted by the wrappers (grouped: each graph's captured launches
     times its replays) and the profiler's rows of the port's kernels a
-    pair must equal push's.  Returns {group: numbers}."""
+    pair must equal push's.  Under push the kernel launches a pair are
+    C1, K1 and the warp's (3 on the 8-bit "pair" path: C1, K1, K2; 7 on
+    P010 "fused": C1, K1, five K4), and the pair's device rows (printed)
+    are those kernels and the read-back of the previous pair's cut score
+    alone: no tensor op.  Returns {group: numbers}."""
     from torch.profiler import ProfilerActivity, profile
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
         EngineConfig, InterpolationEngine)
@@ -2111,14 +2476,19 @@ def phase_grouped_engine(dev, p010: bool = False, sampling: str = "pair"):
                 e = make()
                 _run_engine(e, warm, group, keep=False)
                 torch.cuda.synchronize()
+            # opened with spin kernels (left out of the rows): a trace this
+            # late in the script loses its first device records
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                spin_opening()
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 _run_engine(e, windows[2], group, keep=False)
                 torch.cuda.synchronize()
                 pwall = time.perf_counter() - t0
             rows = [(ev.key, ev.count, self_device_us(ev))
-                    for ev in prof.key_averages() if self_device_us(ev) > 0]
+                    for ev in prof.key_averages()
+                    if self_device_us(ev) > 0 and "spin" not in ev.key]
             dev_ms = sum(r[2] for r in rows) / 1e3 / pairs
             kernel_rows = sum(r[1] for r in rows
                               if any(k in r[0] for k in OUR_KERNELS)) / pairs
@@ -2132,6 +2502,21 @@ def phase_grouped_engine(dev, p010: bool = False, sampling: str = "pair"):
             push_counts = (launches, kernel_rows)
             host_launches = sum(r[1] for r in rows) / pairs
             host_what = "every device op enqueued from Python"
+            device_rows = {k[:70]: [round(c / pairs, 3),
+                                    round(us / 1e3 / pairs, 5)]
+                           for k, c, us in sorted(rows, key=lambda r: -r[2])}
+            log(f"  {what} push: the device rows of a pair (count, ms) "
+                f"{json.dumps(device_rows)}")
+            other = {k: c / pairs for k, c, _ in rows
+                     if not any(n in k for n in OUR_KERNELS)}
+            want = 3 if sampling == "pair" else 7
+            check(launches / pairs == want and kernel_rows == want,
+                  f"{what} push: {launches / pairs} kernel launches and "
+                  f"{kernel_rows} kernel rows a pair, not {want}")
+            check(all("Memcpy DtoH" in k and c == 1
+                      for k, c in other.items()),
+                  f"{what} push: device rows other than the port's kernels "
+                  f"and the score's read-back: {other}")
         else:
             check((launches, kernel_rows) == push_counts,
                   f"{what} group {group}: {launches} launches and "
@@ -2146,6 +2531,8 @@ def phase_grouped_engine(dev, p010: bool = False, sampling: str = "pair"):
                               busy_profiled=dev_ms / (pwall / pairs * 1e3),
                               host_launches=host_launches,
                               kernel_launches=launches / pairs)
+        if group == 1:
+            results[group]["device_rows"] = device_rows
         graphs = [(g["key"][3], g["bytes"], round(g["capture_s"], 3))
                   for g in e.graph_stats()]
         log(f"  {what} group {group}: device {dev_ms:.4f} ms a pair "
@@ -3516,14 +3903,16 @@ def phase_last_tools(dev):
 # the real-time bar at 24 fps: a source frame's time over 1.4
 BAR_MS = 1e3 / 24.0 / 1.4
 
-VIEWS = {"hsv": "warp_hsv", "sbs1": "warp_sbs", "sbs2": "warp_sbs"}
+VIEWS = {"hsv": "warp_hsv", "sbs1": "warp_sbs", "sbs2": "warp_sbs",
+         "grey": "warp_grey"}
 
 
 def phase_views(dev):
-    """Phase 20: the views of modes 3, 5 and 6 at 4K 24 -> 120, radius 16,
-    ``--cache no``.  Each mode through the CLI (4 frames): K1 once a pair
-    (mode 6 pairs its first frame with itself), V2 (hsv) or V1 (sbs1,
-    sbs2) once an output, no other warp kernel and no plain version
+    """Phase 20: the views of modes 3, 5, 6 and 4 at 4K 24 -> 120, radius
+    16, ``--cache no``.  Each mode through the CLI (4 frames): K1 once a
+    pair (mode 6 pairs its first frame with itself), V2 (hsv) or V1 (sbs1,
+    sbs2) once an output or V3 (grey) once a pair, no other warp kernel
+    and no plain version
     (run_cli's checks and the ones here); then the mode's device ms a
     pair on the profile_pair path (10 pairs after 3 warm, the trace opened
     with spin kernels) and its calc ms a pair from the CLI run, each under
@@ -3539,7 +3928,7 @@ def phase_views(dev):
         others = {k: got[k] for k in ("pair_blend", "fused_blend",
                                       "sample_dir", "blend_levels",
                                       "bilinear_blend", "warp_sbs",
-                                      "warp_hsv") if k != view}
+                                      "warp_hsv", "warp_grey") if k != view}
         check(got[view] > 0 and not any(others.values()),
               f"mode {mode}: {view} launched {got[view]} times, the other "
               f"warp kernels {others}")
@@ -3721,9 +4110,9 @@ def main() -> int:
         "kernels against the plain versions, the degrade ladder at 4K, the "
         "embed and serving-farm examples)")
     phase_last_tools(dev)
-    log("phase 20: the views of modes 3, 5 and 6 end to end (cli --mode "
-        "hsv|sbs1|sbs2, 4K 24->120, radius 16; device and calc ms a pair "
-        "against the bar; auto-quality keeps radius 16, level 0)")
+    log("phase 20: the views of modes 3, 5, 6 and 4 end to end (cli --mode "
+        "hsv|sbs1|sbs2|grey, 4K 24->120, radius 16; device and calc ms a "
+        "pair against the bar; auto-quality keeps radius 16, level 0)")
     views_launches, views = phase_views(dev)
 
     # each kernel's launches on the path it serves: K1-K3 on the 8-bit
@@ -3791,6 +4180,16 @@ def main() -> int:
         "warp_hsv": ("warp_views.cu",
                      "mpv_frame_interpolator_tpu/ops/warp.py:785",
                      views_launches["hsv"]["warp_hsv"]),
+        # not TPU kernels: C1 replaces the XLA code of the JAX source step
+        # around the flow (the cut score, the cut, the folded positions,
+        # the f2 probe) on the 8-bit main path, V3 the XLA grey view of
+        # mode 4 (phase 20)
+        "pair_prologue": ("pair_prologue.cu",
+                          "mpv_frame_interpolator_tpu/pipeline/scene.py:19",
+                          main_launches["pair_prologue"]),
+        "warp_grey": ("warp_views.cu",
+                      "mpv_frame_interpolator_tpu/ops/warp.py:945",
+                      views_launches["grey"]["warp_grey"]),
         "pack_probe": ("pack_probe.cu", "tools/pallas_pack_probe.py:22",
                        probes["pack_probe"]["launches"]),
         "dma_probe": ("dma_probe.cu", "tools/pallas_dma_probe.py:22",
@@ -3815,7 +4214,9 @@ def main() -> int:
             # bilinear taps under mirror_edge2's clamp -- grid_sample's
             # bilinear mode weighs in float and reflects without it -- a
             # set of probes, nine windowed SAD probes and an integer
-            # quadratic fit, V1's and V2's views); P2's is the slice copy
+            # quadratic fit, V1's and V2's views, C1's strided score with
+            # its float32 reciprocal and fold, V3's clamped magnitude);
+            # P2's is the slice copy
             "library_ms": r.get("library_ms"),
             "device_ms": r.get("device_ms"),
             # K2 under P010 and at N = 1..5, the band at 1, 2 and 4

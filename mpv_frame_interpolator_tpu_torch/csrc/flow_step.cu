@@ -53,7 +53,12 @@
 //     phases (subpel_tile.cuh) between the last step and the blur: the
 //     nine probe SADs of every pixel into the sums, then per tile their
 //     8x8 windows and the quadratic fit into the 1/64-pel field, which the
-//     blur phase blurs: the sub-pel flow's three launches are one.
+//     blur phase blurs: the sub-pel flow's three launches are one;
+//   * a scene cut: the blur phase takes the pair's cut flag (C1's, written
+//     by the pair's prologue launch, pair_prologue.cu) and, where it is
+//     set, writes zeros in place of the blur -- the masked_fill of the
+//     JAX source step (pipeline/engine.py:543) -- so no tensor op sits
+//     between the prologue, this launch and the warp.
 // Window sums are unsigned additions mod 2^32, so any order of adds gives
 // the same bits: the result is exact.  Field and sums written during the
 // launch are read with ld.global.cg (L2), never through the read-only or
@@ -145,10 +150,10 @@ __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
     const T* __restrict__ f1y, const T* __restrict__ f1u,
     const T* __restrict__ f1v, const T* __restrict__ y2,
     const T* __restrict__ u2, const T* __restrict__ v2, const int* in_x,
-    const int* in_y, int* field, int* blurred, int* fine, unsigned* sums,
-    size_t sums_words,
-    Schedule sched, int radius, int ds, int nbs, int rs, int H, int W,
-    int lh, int lw, int ypitch, int cpitch, int luma_shift,
+    const int* in_y, int* field, int* blurred, int* fine, const int* cut,
+    unsigned* sums, size_t sums_words, Schedule sched, int radius, int ds,
+    int nbs, int rs, int H, int W, int lh, int lw, int ypitch, int cpitch,
+    int luma_shift,
     unsigned long long* timeline) {
   cg::grid_group grid = cg::this_grid();
   __shared__ unsigned s_sums[kSubpel ? kSubpelSharedWords : kSharedWords];
@@ -487,11 +492,26 @@ __global__ void __launch_bounds__(kThreads, 4) pyramid_kernel(
   }
 
   // the blur phase: every tile's window reads the final field (the
-  // 1/64-pel field under kSubpel)
+  // 1/64-pel field under kSubpel); under a scene cut (the flag is the same
+  // for every block, so the branch is uniform) each tile's outputs are
+  // zero.  The zeros are written in the blur's own tile loop: a loop of
+  // its own over the field kept the prologue's sizes live and cost the
+  // main path's instantiations a 16-byte spill (ptxas)
   if (blurred != nullptr) {
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
-      mfi::blur_tile(blur_in, blurred, lh, lw, (tile % ntx) << kLogTX,
-                     (tile / ntx) << kLogTY, s_sums, tid);
+    const bool zero = cut != nullptr && *cut != 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int x = ((tile % ntx) << kLogTX) + tx;
+      const int y = ((tile / ntx) << kLogTY) + ty;
+      if (zero) {
+        if (x < lw && y < lh) {
+          blurred[(size_t)y * lw + x] = 0;
+          blurred[(size_t)lh * lw + (size_t)y * lw + x] = 0;
+        }
+      } else {
+        mfi::blur_tile(blur_in, blurred, lh, lw, (tile % ntx) << kLogTX,
+                       (tile / ntx) << kLogTY, s_sums, tid);
+      }
+    }
     if (timeline != nullptr) grid.sync();
     stamp(timeline, 2 + 2 * sched.n + (kSubpel ? 2 : 0));
   }
@@ -519,10 +539,10 @@ template <typename T>
 int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
            const void* u2, const void* v2, const void* in_x,
            const void* in_y, void* field, void* blurred, void* fine,
-           void* sums, size_t sums_words, const Schedule& sched, int layers,
-           int radius, int ds, int nbs, int rs, int H, int W, int lh, int lw,
-           int ypitch, int cpitch, int luma_shift, void* timeline,
-           cudaStream_t s) {
+           const void* cut, void* sums, size_t sums_words,
+           const Schedule& sched, int layers, int radius, int ds, int nbs,
+           int rs, int H, int W, int lh, int lw, int ypitch, int cpitch,
+           int luma_shift, void* timeline, cudaStream_t s) {
   const void* kernel = pyramid_for<T>(layers, radius, fine != nullptr);
   const T* a1y = static_cast<const T*>(f1y);
   const T* a1u = static_cast<const T*>(f1u);
@@ -535,11 +555,12 @@ int launch(const void* f1y, const void* f1u, const void* f1v, const void* y2,
   int* out = static_cast<int*>(field);
   int* blur = static_cast<int*>(blurred);
   int* fn = static_cast<int*>(fine);
+  const int* ct = static_cast<const int*>(cut);
   unsigned* sm = static_cast<unsigned*>(sums);
   unsigned long long* tl = static_cast<unsigned long long*>(timeline);
   Schedule sc = sched;
   void* args[] = {&a1y, &a1u, &a1v, &a2y, &a2u, &a2v, &ix, &iy,
-                  &out, &blur, &fn, &sm, &sums_words, &sc, &radius, &ds,
+                  &out, &blur, &fn, &ct, &sm, &sums_words, &sc, &radius, &ds,
                   &nbs, &rs, &H, &W, &lh, &lw, &ypitch, &cpitch,
                   &luma_shift, &tl};
   return (int)mfi::cooperative_launch(kernel, lh, lw, args, s);
@@ -562,6 +583,8 @@ bool valid_layers(int layers, int radius) {
 // field);
 // fine: null, or (2, lh, lw) int32 out: S1's phases run after the last
 // step and write the 1/64-pel field (field << 6) + frac there;
+// cut: null, or one int32 on the device (the pair's scene-cut flag): where
+// it is non-zero the blur phase writes zeros into `blurred`;
 // sums: two buffers of sums_words uint32 each (the wrapper sizes them:
 // radius x windows for the largest step, lh x lw for a window-1 step, and
 // with `fine` 2 sums_words >= 9 lh lw, the probes' scratch);
@@ -576,7 +599,8 @@ bool valid_layers(int layers, int radius) {
 extern "C" int mfi_flow_pyramid(
     const void* f1y, const void* f1u, const void* f1v, const void* y2,
     const void* u2, const void* v2, const void* in_x, const void* in_y,
-    void* field, void* blurred, void* fine, void* sums, const int* steps,
+    void* field, void* blurred, void* fine, const void* cut, void* sums,
+    const int* steps,
     int n_steps, int sums_words, int layers, int radius, int ds, int nbs,
     int rs, int H, int W, int lh, int lw, int ypitch, int cpitch,
     int sample_bytes, int luma_shift, void* timeline, void* stream) {
@@ -590,11 +614,11 @@ extern "C" int mfi_flow_pyramid(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sample_bytes == 2)
     return launch<uint16_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field,
-                            blurred, fine, sums, (size_t)sums_words, sched,
-                            layers, radius, ds, nbs, rs, H, W, lh, lw, ypitch,
-                            cpitch, luma_shift, timeline, s);
+                            blurred, fine, cut, sums, (size_t)sums_words,
+                            sched, layers, radius, ds, nbs, rs, H, W, lh, lw,
+                            ypitch, cpitch, luma_shift, timeline, s);
   return launch<uint8_t>(f1y, f1u, f1v, y2, u2, v2, in_x, in_y, field,
-                         blurred, fine, sums, (size_t)sums_words, sched,
+                         blurred, fine, cut, sums, (size_t)sums_words, sched,
                          layers, radius, ds, nbs, rs, H, W, lh, lw, ypitch,
                          cpitch, luma_shift, timeline, s);
 }
@@ -639,11 +663,11 @@ extern "C" int mfi_subpel_refine(const void* offset, const void* f1y,
   // they are not read
   if (sample_bytes == 2)
     return launch<uint16_t>(f1y, f1u, f1v, y2, u2, v2, o, o + plane, field,
-                            nullptr, out, sums, (plane * 9 + 1) / 2, sched,
-                            5, 1, 0, 0, rs, H, W, lh, lw, ypitch, cpitch,
-                            luma_shift, nullptr, s);
+                            nullptr, out, nullptr, sums, (plane * 9 + 1) / 2,
+                            sched, 5, 1, 0, 0, rs, H, W, lh, lw, ypitch,
+                            cpitch, luma_shift, nullptr, s);
   return launch<uint8_t>(f1y, f1u, f1v, y2, u2, v2, o, o + plane, field,
-                         nullptr, out, sums, (plane * 9 + 1) / 2, sched, 5,
-                         1, 0, 0, rs, H, W, lh, lw, ypitch, cpitch,
+                         nullptr, out, nullptr, sums, (plane * 9 + 1) / 2,
+                         sched, 5, 1, 0, 0, rs, H, W, lh, lw, ypitch, cpitch,
                          luma_shift, nullptr, s);
 }

@@ -1,6 +1,7 @@
-// V1 and V2: the debug views of output modes 5/6 (side by side) and 3 (the
-// HSV flow view), each one launch a blend position covering luma and
-// interleaved chroma, for Hopper (sm_90a).
+// V1, V2 and V3: the debug views of output modes 5/6 (side by side), 3 (the
+// HSV flow view) and 4 (the grey flow view), for Hopper (sm_90a): V1 and V2
+// one launch a blend position, V3 one launch a pair, each covering luma and
+// interleaved chroma.
 //
 // Not TPU kernels: they replace XLA code of the JAX package, which the port
 // ran as tensor ops (~1,450 launches and 29-32 ms a 4K pair in modes 5/6,
@@ -43,6 +44,21 @@
 // before the colours: they read it >> ss, where the cap at 255 << ss the
 // default levels apply cannot be seen (a P010 blend of 65535 reads 255
 // either way).
+//
+// V3 (mfi_warp_grey) is mode 4, ops/warp.grey_planes of the port, JAX
+// ops/warp.py:945-951 (GREY_FLOW in _warp_sample): it samples nothing and
+// reads no blend position, so one launch serves every output of the pair
+// (the engine hands the same planes to each).  Luma is min((|ox| + |oy|)
+// << 2, 255) << ss with (ox, oy) the flow at the sample's low-res cell
+// (cy >> rs, cx >> rs), clamped to the field (upsample_y); chroma is 128
+// << ss; no level map.  The int32 arithmetic wraps as the plain version's
+// does (unsigned adds and shifts, a signed clamp, a truncating store).
+// What bounds it: its writes, a plane pair of (H + H / 2) x Wa samples
+// (12.4 MB at 4K, 8 bits) against ~1 MB of flow read: ~3.7 us at 3.35
+// TB/s.  Each thread writes one 16-byte run of the flat output (16 uint8
+// or 8 uint16 samples; the planes come from torch.empty, so their base is
+// aligned), with a streaming store; the last run of a plane, when the
+// plane's bytes are not a multiple of 16, is written a sample at a time.
 //
 // One thread an output sample: a block of 64 x 4 threads, the luma block
 // rows first and then the chroma ones, so that the branch on the plane is
@@ -283,6 +299,84 @@ int launch_hsv(const void* f1y, const void* f1uv, const void* f2y,
   return (int)cudaGetLastError();
 }
 
+constexpr int kGreyThreads = 256;
+
+// The grey value of the flow at low-res cell `at`: its magnitude, in int32
+// arithmetic as the plain version's.
+template <typename T>
+__device__ __forceinline__ T grey_at(const int* __restrict__ blurred,
+                                     size_t plane, size_t at, int ss) {
+  const int ox = __ldg(blurred + at), oy = __ldg(blurred + plane + at);
+  const unsigned ax = ox < 0 ? 0u - (unsigned)ox : (unsigned)ox;
+  const unsigned ay = oy < 0 ? 0u - (unsigned)oy : (unsigned)oy;
+  const int g = min((int)((ax + ay) << 2), 255);
+  return (T)((unsigned)g << ss);
+}
+
+// Thread j writes run j of the luma plane's (H x Wa samples, flat) runs of
+// kPer samples, then, past them, of the chroma plane's ((H / 2) x Wa).
+template <typename T>
+__global__ void __launch_bounds__(kGreyThreads) warp_grey_kernel(
+    const int* __restrict__ blurred, T* __restrict__ out_y,
+    T* __restrict__ out_uv, int H, int Wa, int lh, int lw, int rs, int ss,
+    long long luma_runs, long long runs) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long j = (long long)blockIdx.x * kGreyThreads + threadIdx.x;
+  if (j >= runs) return;
+  const bool chroma = j >= luma_runs;
+  const long long total = (long long)(chroma ? H / 2 : H) * Wa;
+  const long long first = (chroma ? j - luma_runs : j) * kPer;
+  const int count = (int)min((long long)kPer, total - first);
+  T* out = (chroma ? out_uv : out_y) + first;
+  __align__(16) T vals[kPer];
+  if (chroma) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) vals[k] = (T)(128u << ss);
+  } else {
+    // a run spans a few cells (2 at 4K, 8 bits): each cell's flow is read
+    // once
+    const size_t plane = (size_t)lh * lw;
+    int cy = (int)(first / Wa), cx = (int)(first - (long long)cy * Wa);
+    size_t last = ~(size_t)0;
+    T g = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const size_t at =
+          (size_t)min(cy >> rs, lh - 1) * lw + min(cx >> rs, lw - 1);
+      if (at != last) {
+        g = grey_at<T>(blurred, plane, at, ss);
+        last = at;
+      }
+      vals[k] = g;
+      if (++cx == Wa) {
+        cx = 0;
+        ++cy;
+      }
+    }
+  }
+  if (count == kPer) {
+    __stcs(reinterpret_cast<uint4*>(out),
+           *reinterpret_cast<const uint4*>(vals));
+  } else {
+    for (int k = 0; k < count; ++k) out[k] = vals[k];
+  }
+}
+
+template <typename T>
+int launch_grey(const void* blurred, void* out_y, void* out_uv, int H,
+                int Wa, int lh, int lw, int rs, int ss, cudaStream_t s) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long luma_runs = ((long long)H * Wa + kPer - 1) / kPer;
+  const long long runs =
+      luma_runs + ((long long)(H / 2) * Wa + kPer - 1) / kPer;
+  const long long blocks = (runs + kGreyThreads - 1) / kGreyThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  warp_grey_kernel<T><<<(unsigned)blocks, kGreyThreads, 0, s>>>(
+      static_cast<const int*>(blurred), static_cast<T*>(out_y),
+      static_cast<T*>(out_uv), H, Wa, lh, lw, rs, ss, luma_runs, runs);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int H, int Wa, int pitch, int lh, int lw, int ss) {
   return H < 2 || Wa < 3 || pitch < Wa || lh < 1 || lw < 1 ||
          (ss != 0 && ss != 8);
@@ -320,4 +414,20 @@ extern "C" int mfi_warp_hsv(const void* f1y, const void* f1uv,
   const auto go = ss ? &launch_hsv<uint16_t> : &launch_hsv<uint8_t>;
   return go(f1y, f1uv, f2y, f2uv, blurred, t, out_y, out_uv, H, Wa, pitch,
             lh, lw, rs, ss, k, w, s);
+}
+
+// blurred (2, lh, lw) int32; out_y (H, Wa) and out_uv (H/2, Wa), uint8 when
+// ss == 0 and uint16 when ss == 8, each 16-byte aligned (torch.empty); rs
+// the res scalar.
+extern "C" int mfi_warp_grey(const void* blurred, void* out_y, void* out_uv,
+                             int H, int Wa, int lh, int lw, int rs, int ss,
+                             void* stream) {
+  if (H < 2 || Wa < 1 || lh < 1 || lw < 1 || rs < 0 || rs > 30 ||
+      (ss != 0 && ss != 8) ||
+      (reinterpret_cast<uintptr_t>(out_y) |
+       reinterpret_cast<uintptr_t>(out_uv)) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto go = ss ? &launch_grey<uint16_t> : &launch_grey<uint8_t>;
+  return go(blurred, out_y, out_uv, H, Wa, lh, lw, rs, ss, s);
 }

@@ -72,9 +72,9 @@ class HopperModel:
         ts = torch.as_tensor(ts, dtype=torch.float32).to(self.device)
         planes = (f1y, _interleave(f1u, f1v), f2y, _interleave(f2u, f2v))
         y, uv = _warp_stage(self.geom, self.scale_shift,
-                            warp_ops.level_ints(black, white), "nearest",
-                            self.mode, "pair", "hopper", planes,
-                            blurred.to(torch.int32), None, ts)
+                            warp_ops.level_ints(black, white), self.mode,
+                            "pair", "hopper", planes,
+                            blurred.to(torch.int32), ts)
         y = torch.stack([y[i] for i in range(len(ts))])
         uv = torch.stack([uv[i] for i in range(len(ts))])
         return y, uv[..., 0::2], uv[..., 1::2]

@@ -31,8 +31,8 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "mfi_torch_kernels"
 LIB_NAME = "libmfi_torch_kernels.so"
 SOURCES = ("flow_step.cu", "flow_slice.cu", "blur.cu", "warp_pair.cu",
            "warp_fused.cu", "warp_sample.cu", "blend_levels.cu",
-           "warp_bilinear.cu", "warp_views.cu", "pack_probe.cu",
-           "dma_probe.cu")
+           "warp_bilinear.cu", "warp_views.cu", "pair_prologue.cu",
+           "pack_probe.cu", "dma_probe.cu")
 HEADERS = ("warp_common.cuh", "warp_runs.cuh", "blur_tile.cuh",
            "flow_tile.cuh", "subpel_tile.cuh")
 
@@ -47,10 +47,10 @@ I = ctypes.c_int
 
 # C signature of every entry point: (argtypes); restype is int
 _SIGNATURES = {
-    # f1y f1u f1v y2 u2 v2 in_x in_y field blurred fine sums | steps (host
-    # ints) | n_steps sums_words layers radius ds nbs rs H W lh lw
+    # f1y f1u f1v y2 u2 v2 in_x in_y field blurred fine cut sums | steps
+    # (host ints) | n_steps sums_words layers radius ds nbs rs H W lh lw
     # f1y_pitch f1c_pitch sample_bytes luma_shift | timeline stream
-    "mfi_flow_pyramid": (P,) * 12 + (ctypes.POINTER(I),) + (I,) * 15
+    "mfi_flow_pyramid": (P,) * 13 + (ctypes.POINTER(I),) + (I,) * 15
     + (P, P),
     # f1y f1u f1v y2 u2 v2 field gathered pairs sums next_sums |
     # next_words ranks prev_code code z0 n radius ds nbs rs H W lh lw
@@ -87,6 +87,12 @@ _SIGNATURES = {
     # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
     # scale_shift black white | stream
     "mfi_warp_hsv": (P,) * 8 + (I,) * 9 + (P,),
+    # blurred out_y out_uv | H Wa lh lw rs scale_shift | stream
+    "mfi_warp_grey": (P,) * 3 + (I,) * 6 + (P,),
+    # y1 y2 f2u f2v ts_in ts_out py pu pv score cut cuts partials | n rows
+    # cols ypitch cpitch rs lh lw sample_bytes bit_shift scene nearest
+    # repeat | threshold (float32) | stream
+    "mfi_pair_prologue": (P,) * 13 + (I,) * 13 + (ctypes.c_float, P),
     # a idx val acc lo | outs (a table of pointers, one a probe) | mask
     # col_shift row_shift | stream
     "mfi_probe_run": (P,) * 5 + (ctypes.POINTER(P), I, I, I, P),
@@ -182,9 +188,12 @@ def check(name: str, rc: int):
 
 
 def stream_of(t) -> int:
-    """The raw handle of PyTorch's current stream on t's device."""
+    """The raw handle of PyTorch's current stream on t's device, read as
+    PyTorch's own generated launchers read it (``torch.cuda.
+    current_stream`` builds a Stream object first, which costs the host
+    more than some launches)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t, name: str, dtype, shape=None, device=None):

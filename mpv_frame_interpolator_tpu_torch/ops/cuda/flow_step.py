@@ -246,14 +246,17 @@ def _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs: int,
 def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
             ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
             timeline=None, blur: bool = False, layers=None,
-            subpel: bool = False):
+            subpel: bool = False, cut=None):
     """One cooperative launch of the pyramid kernel over `steps`, from
     (off_x, off_y), or from zero when both are None, on the instantiation
     ``kernel_layers(radius, layers)``.  Returns the (2, lh, lw) int32
     field it wrote, or (field, its blur) with `blur`; with `subpel` (which
     implies `blur`), (field, the blur of its 1/64-pel field) from S1's
-    phases after the last step."""
+    phases after the last step.  `cut`, with `blur`: a one-element int32
+    flag on the card; where it is set the blur phase writes zeros."""
     blur = blur or subpel
+    if cut is not None:
+        _build.require(cut, "cut", torch.int32, (), y2.device)
     if timeline is not None:
         _build.require(timeline, "timeline", torch.int64,
                        (2 + 2 * len(steps) + 2 * int(subpel) + int(blur),),
@@ -284,7 +287,8 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
         f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
         u2.data_ptr(), v2.data_ptr(), *start, field.data_ptr(),
         None if blurred is None else blurred.data_ptr(),
-        None if fine is None else fine.data_ptr(), sums.data_ptr(),
+        None if fine is None else fine.data_ptr(),
+        None if cut is None else cut.data_ptr(), sums.data_ptr(),
         codes, len(steps), words, kernel_layers(radius, layers), radius,
         ds, nbs, rs, H, W, lh, lw,
         f1y.shape[1], f1u.shape[1], f1y.element_size(), luma_shift,
@@ -303,7 +307,7 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
 def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
                  windows, first_nb_iteration: int, rs: int, H: int, W: int,
                  luma_shift: int = 0, timeline=None, blur: bool = False,
-                 layers=None, subpel: bool = False):
+                 layers=None, subpel: bool = False, cut=None):
     """Every step of one pair's pyramid, from a zero field: the x axis then
     the y axis at each window of `windows`, the neighbour bias from
     iteration `first_nb_iteration` on.  Planes as for ``flow_step``;
@@ -319,6 +323,12 @@ def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
     and ``blur.counts.fused``), on the CPU ``subpel.subpel_refine`` then
     ``blur.blur_flow``.
 
+    `cut` (with `blur` or `subpel`): None, or the pair's scene-cut flag, a
+    0-dim int32 tensor on the planes' device (``prologue.pair_prologue``'s):
+    where it is non-zero the returned blur is zero -- on the card the
+    launch's blur phase writes zeros, on the CPU the plain blur is
+    masked after it (the JAX source step's masked_fill).
+
     `timeline`, for measurement on the card only: an int64 tensor of 2 + 4
     x len(windows) entries (two more with `subpel`, one more with `blur`)
     that receives the card's clock in ns at the launch's start, after its
@@ -328,17 +338,26 @@ def flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius: int, ds: int, nbs: int,
     steps = pyramid_steps(windows, first_nb_iteration)
     _check_scalars(radius, ds, nbs, luma_shift, steps)
     kernel_layers(radius, layers)
+    if cut is not None and not (blur or subpel):
+        raise ValueError("the cut flag zeroes the blur: it needs `blur`")
     if y2.device.type == "cpu":
         counts.plain += 1
         field = flow_pyramid_plain(f1y, f1u, f1v, y2, u2, v2, radius, ds,
                                    nbs, windows, first_nb_iteration, rs, H,
                                    W, luma_shift)
         if subpel:
-            return field, _blur.blur_flow(_subpel.subpel_refine(
+            blurred = _blur.blur_flow(_subpel.subpel_refine(
                 field, f1y, f1u, f1v, y2, u2, v2, rs, H, W, luma_shift))
-        return (field, _blur.blur_flow(field)) if blur else field
+        elif blur:
+            blurred = _blur.blur_flow(field)
+        else:
+            return field
+        if cut is not None:
+            blurred = blurred.masked_fill(cut != 0, 0)
+        return field, blurred
     return _launch(f1y, f1u, f1v, y2, u2, v2, None, None, steps, radius, ds,
-                   nbs, rs, H, W, luma_shift, timeline, blur, layers, subpel)
+                   nbs, rs, H, W, luma_shift, timeline, blur, layers, subpel,
+                   cut)
 
 
 def blocks_per_sm(sample_bytes: int, layers: int = 16,

@@ -1,5 +1,6 @@
-"""V1 and V2: the side-by-side views (modes 5/6) and the HSV flow view
-(mode 3) at one blend position (csrc/warp_views.cu).
+"""V1, V2 and V3: the side-by-side views (modes 5/6) and the HSV flow view
+(mode 3) at one blend position, and the grey flow view (mode 4) of a pair
+(csrc/warp_views.cu).
 
 Not TPU kernels: they replace XLA code of the JAX package that the port
 ran as tensor ops.  V1 (``warp_sbs``) is ``ops/warp.warp_sbs``, the
@@ -10,13 +11,17 @@ then the level maps.  V2 (``warp_hsv``) is all of mode 3, the counterpart
 of JAX ``ops/warp.py:785 _visualize_flow`` in the HSV branches of
 ``_warp_sample``: the two directions' raw samples, their fixed-point blend,
 the colours of the flow at each sample's cell on the blend's 8-bit value
-(float32, the JAX op order), then the level maps.
+(float32, the JAX op order), then the level maps.  V3 (``warp_grey``) is
+``ops/warp.grey_planes``, JAX ``ops/warp.py:945-951``: the flow's magnitude
+on the luma grid and a mid-grey chroma plane; it reads no blend position,
+so one launch serves every output of a pair.
 
 Bound on the card: bytes -- one 4K position writes a plane pair (12.4 MB
 at 8 bits, twice that under P010) and reads up to two source samples a
 sample and the ~1 MB flow.  One launch covers luma and interleaved
 chroma, one thread an output sample; t is read on the device, so the
-launches can be captured in the grouped path's CUDA graphs.
+launches can be captured in the grouped path's CUDA graphs.  V3 is bound
+by its writes alone (12.4 MB at 4K, 8 bits), one thread a 16-byte run.
 
 The plain versions: ``ops/warp.warp_sbs`` for V1, and for V2
 ``warp_hsv_plain``, the composition the engine ran before V2 (K5's plain
@@ -24,9 +29,10 @@ version for both directions, G1's at the default levels, ``ops/warp.
 hsv_planes``, then ``levels_y`` / ``levels_uv``).  V1 is bit-exact with its
 plain version; V2 is within DEVIATIONS #11's HSV tolerance of it (its
 colours call atan2, whose last bit differs between libraries), and its
-integer parts are exact.  ``warp_sbs`` and ``warp_hsv`` dispatch on the
-device: CPU tensors take the plain versions, CUDA tensors launch the
-kernel (or raise).
+integer parts are exact.  V3's plain version is ``ops/warp.grey_planes``,
+and V3 is bit-exact with it.  ``warp_sbs``, ``warp_hsv`` and
+``warp_grey`` dispatch on the device: CPU tensors take the plain
+versions, CUDA tensors launch the kernel (or raise).
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_sample
 
 sbs_counts = _build.LaunchCounts()
 hsv_counts = _build.LaunchCounts()
+grey_counts = _build.LaunchCounts()
 
 warp_sbs_plain = W.warp_sbs
+warp_grey_plain = W.grey_planes
 
 
 def warp_hsv_plain(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
@@ -135,3 +143,33 @@ def warp_hsv(f1y, f1uv, f2y, f2uv, blurred, t, rs: int, actual_width: int,
                   sample, rs, actual_width, scale_shift, levels)
     hsv_counts.kernel += 1
     return out
+
+
+def warp_grey(blurred, rs: int, rows: int, actual_width: int,
+              scale_shift: int = 0, dtype=torch.uint8):
+    """Mode 4, the grey flow view of a pair (V3): blurred (2, lh, lw) int32
+    at res scalar `rs`; returns (y (rows, Wa), uv (rows/2, Wa)) of `dtype`
+    (uint8 for scale_shift 0, uint16 for 8), as ``ops/warp.grey_planes``."""
+    if scale_shift not in (0, 8):
+        raise ValueError(f"scale_shift {scale_shift} is not 0 or 8")
+    if blurred.dim() != 3 or blurred.shape[0] != 2:
+        raise ValueError(f"blurred must be (2, lh, lw), got "
+                         f"{tuple(blurred.shape)}")
+    if blurred.device.type == "cpu":
+        grey_counts.plain += 1
+        return warp_grey_plain(blurred, rs, rows, actual_width, scale_shift,
+                               dtype)
+    if dtype != (torch.uint16 if scale_shift else torch.uint8):
+        raise ValueError(f"{dtype} planes do not go with scale_shift "
+                         f"{scale_shift}")
+    dev = blurred.device
+    _build.require(blurred, "blurred", torch.int32, None, dev)
+    _, lh, lw = blurred.shape
+    y = torch.empty((rows, actual_width), dtype=dtype, device=dev)
+    uv = torch.empty((rows // 2, actual_width), dtype=dtype, device=dev)
+    rc = _build.load().mfi_warp_grey(
+        blurred.data_ptr(), y.data_ptr(), uv.data_ptr(), rows, actual_width,
+        lh, lw, rs, scale_shift, _build.stream_of(blurred))
+    _build.check("warp_grey", rc)
+    grey_counts.kernel += 1
+    return y, uv

@@ -156,7 +156,7 @@ def subsampled_f2(geom: FlowGeometry, f2y: torch.Tensor, f2u: torch.Tensor,
 def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
          delta_scalar: int = 8, neighbor_bias_scalar: int = 6,
          luma_shift: int = 0, layers=None, blur: bool = True,
-         subpel: bool = False):
+         subpel: bool = False, probe=None, cut=None):
     """The whole pyramid, and with `blur` its blur in the same launch.  f1
     is the OLDER frame, f2 the newer; `luma_shift` is 8 for P010 and 0 for
     NV12; `layers` (>= radius; default the radius) is the layer count the
@@ -164,18 +164,25 @@ def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
     output as it is.  Returns (offset (2, lh, lw) int32, blurred (2, lh,
     lw) int32), plane 0 the x offsets and plane 1 the y offsets, or the
     offset alone without `blur`.  With `subpel`, (offset, the blur of the
-    1/64-pel field (offset << 6) + frac), from the same launch."""
+    1/64-pel field (offset << 6) + frac), from the same launch.
+
+    `probe`: None, or f2's probe planes (y2, u2, v2) as ``subsampled_f2``
+    gives them, already taken (the pair's prologue launch writes them,
+    ops/cuda/prologue.py).  `cut`: None, or the pair's scene-cut flag (a
+    0-dim int32 tensor): where it is set the returned blur is zero, on the
+    card written by the launch's blur phase."""
     from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
         flow_pyramid)
     if not MIN_RADIUS <= radius <= MAX_RADIUS:
         raise ValueError(f"search radius {radius} is outside "
                          f"[{MIN_RADIUS}, {MAX_RADIUS}]")
-    y2, u2, v2 = subsampled_f2(geom, f2y, f2u, f2v)
+    y2, u2, v2 = (subsampled_f2(geom, f2y, f2u, f2v) if probe is None
+                  else probe)
     return flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius, delta_scalar,
                         neighbor_bias_scalar, geom.window_schedule(),
                         FIRST_NEIGHBOR_ITERATION, geom.res_scalar,
                         geom.height, geom.stride, luma_shift, blur=blur,
-                        layers=layers, subpel=subpel)
+                        layers=layers, subpel=subpel, cut=cut)
 
 
 def blur_flow(offset: torch.Tensor) -> torch.Tensor:

@@ -99,9 +99,9 @@ def _sharded_job(rank: int, world: int, dev: torch.device, spec: dict):
     for mode in spec["modes"]:
         warp_fn = sharding.row_sharded_warp(geom, mode, None, 0, dev)
         y, u, v = warp_fn(*planes, blurred, t)
-        ry, ruv = _warp_stage(geom, 0, (0, 255), "nearest", mode, "pair",
-                              "hopper", (planes[0], f1uv, planes[3], f2uv),
-                              ref_blur, None, ts)
+        ry, ruv = _warp_stage(geom, 0, (0, 255), mode, "pair", "hopper",
+                              (planes[0], f1uv, planes[3], f2uv), ref_blur,
+                              ts)
         equal = equal and bool(
             torch.equal(y, ry[0]) and torch.equal(u, ruv[0][:, 0::2])
             and torch.equal(v, ruv[0][:, 1::2]))

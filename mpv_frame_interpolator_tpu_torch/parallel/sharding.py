@@ -176,8 +176,8 @@ def row_sharded_warp(geom: FlowGeometry, mode: int, group=None,
                                     wa, r0, r1, scale_shift, levels)
             y, uv = y[0], uv[0]
         else:
-            y, uv = _warp_stage(geom, scale_shift, levels, "nearest", mode,
-                                "pair", "hopper", planes, blurred, None, ts)
+            y, uv = _warp_stage(geom, scale_shift, levels, mode, "pair",
+                                "hopper", planes, blurred, ts)
             y, uv = y[0][r0:r1], uv[0][r0 // 2:r1 // 2]
         # one gather: each rank's band, luma rows then chroma rows, padded
         # to the widest band

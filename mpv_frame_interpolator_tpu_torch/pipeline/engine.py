@@ -4,11 +4,17 @@ modes 0-6, 8-bit NV12 or 10-bit P010, any black/white levels.
 
 Per source pair, on the engine's device and without a host sync:
 
-1. the scene-cut score (``pipeline/scene.cut_score``);
+1. the pair's prologue (``ops/cuda/prologue.pair_prologue``, one launch of
+   C1): the scene-cut score (``pipeline/scene.cut_score``), the cut flag
+   (added to the device count of cuts), the blend positions with the cut
+   folded in (where the score exceeds the threshold they snap to the
+   nearer source, or to 0 under ``cut_policy="hold"``; model ``repeat``
+   then snaps every position to 0 or 1: a new tensor, the cached
+   positions are never written) and f2's probe for the flow;
 2. the flow pyramid and its blur (``ops/flow.flow``: one launch of the
-   flow-pyramid kernel, whose last phase is the blur) for the flow
-   families (hopper, hopperx, hopperq, hopperxq), on the kernel's
-   instantiation for the layer count of the live radius
+   flow-pyramid kernel, whose last phase is the blur, zero under a cut)
+   for the flow families (hopper, hopperx, hopperq, hopperxq), on the
+   kernel's instantiation for the layer count of the live radius
    (``layer_buckets``); ``blend`` and ``repeat`` search no flow and take
    a zero field.  Under ``subpel_flow`` the same launch turns the
    unblurred offset into the 1/64-pel field (offset << 6) + frac after
@@ -16,11 +22,7 @@ Per source pair, on the engine's device and without a host sync:
    its blur phase; hopperq and hopperxq take the floor of the blur and
    its 1/64-pel remainder, hopper and hopperx the blur rounded to the
    nearest pel;
-3. the cut folded in on the device: where the score exceeds the
-   threshold the flow is zeroed and the blend positions snap to the
-   nearer source (``torch.where``, no host branch); model ``repeat`` then
-   snaps every position to 0 or 1;
-4. the outputs, luma and interleaved chroma, by output mode and model:
+3. the outputs, luma and interleaved chroma, by output mode and model:
 
    * mode 2 (blended), models hopper, blend and repeat, under
      ``warp_sampling`` "pair" (the default), "shift" or "gather": every
@@ -46,7 +48,9 @@ Per source pair, on the engine's device and without a host sync:
      kernel (``ops/cuda/warp_views.warp_hsv``) per position -- the two
      directions' samples, their blend, the flow's colours (float32 in the
      JAX op order) and the level maps in one launch;
-   * mode 4 (grey): the flow's magnitude as tensor ops; nothing sampled;
+   * mode 4 (grey): the flow's magnitude, one call of the grey view kernel
+     (``ops/cuda/warp_views.warp_grey``) a pair, its planes shared by every
+     output; nothing sampled;
    * modes 5 / 6 (side by side), under any sampler and model: one call of
      the side-by-side kernel (``ops/cuda/warp_views.warp_sbs``) per
      position (the JAX package's XLA gathers; no Pallas kernel).  Mode 6
@@ -91,13 +95,16 @@ buffers where the source reads into them (``io/pinned.PinnedPool``), on
 the caller's thread -- the pipeline's prefetcher; the compute stream
 waits for each frame's copies on the device before first use.
 
+The main path's pair (mode 2, model hopper, the "pair" sampler) is three
+kernel launches and no tensor op: C1, K1, K2.
+
 ``push_many`` is the grouped encode path (JAX ``push_many``): the same
 outputs as ``push``, with the pairs of a group run from static input
 slots by one replay of a CUDA graph captured from the same pair body
-(``_pair_outputs``), which replaces the ~20 launches a pair enqueues
-from Python with one graph launch a group plus the slot and output
-copies.  On the CPU the body runs eagerly over the same slots.  Nothing
-compiles per shape, rung or batch size, so ``batch_shapes``, background
+(``_pair_outputs``), which replaces the launches a pair enqueues from
+Python with one graph launch a group plus the slot and output copies.
+On the CPU the body runs eagerly over the same slots.  Nothing compiles
+per shape, rung or batch size, so ``batch_shapes``, background
 precompile and the compile cache have nothing to do here
 (``convert.NO_OP_KNOBS``).
 """
@@ -122,11 +129,13 @@ from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
 from mpv_frame_interpolator_tpu_torch.ops.cuda import (
     blend_levels as _k_blend_levels, blur as _k_blur,
-    flow_step as _k_flow_step, subpel as _k_subpel,
+    flow_step as _k_flow_step, prologue as _k_prologue, subpel as _k_subpel,
     warp_bilinear as _k_bilinear, warp_fused as _k_fused,
     warp_pair as _k_pair, warp_sample as _k_sample, warp_views as _k_views)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.blend_levels import (
     blend_levels)
+from mpv_frame_interpolator_tpu_torch.ops.cuda.prologue import (
+    pair_prologue)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_bilinear import (
     bilinear_blend)
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_fused import fused_blend
@@ -167,8 +176,8 @@ class EngineConfig:
     # mode 2 of hopper, blend and repeat: "pair", "shift", "gather":
     # every position of a pair in one K2 call; "fused": one K4 call per
     # position; "pallas": two K5 calls per position.  hopperx takes the
-    # "pallas" route and hopperq/hopperxq Q1 under any sampler; modes 0,
-    # 1 and 3 always run on K5, modes 4-6 on none
+    # "pallas" route and hopperq/hopperxq Q1 under any sampler; modes 0
+    # and 1 always run on K5, mode 3 on V2, mode 4 on V3, modes 5/6 on V1
     warp_sampling: str = "pair"
     # the flow kernel's layer count for a radius: the smallest bucket >=
     # the radius, else the radius (at least 16); () runs 16 layers up to
@@ -313,58 +322,49 @@ class PairKnobs(NamedTuple):
     scene_threshold: float
 
 
-def _flow_stage(geom, scale_shift: int, scene_enabled: bool, model: str,
-                f1: DeviceFrame, f2: DeviceFrame, radius: int, ds: int,
-                nbs: int, layers: int, subpel: bool = False):
-    """Scene score + hierarchical flow of one pair: (blurred flow, frac or
-    None, cut_score or None).  `layers` is the kernel's layer count for
-    the radius.  The blend and repeat families search no flow: their field
-    is zero (the score still runs).  Under `subpel` the unblurred offset
-    is refined to 1/64 pel and that field blurred (JAX engine.py:486-515):
-    hopperq and hopperxq take its floor and the 1/64-pel remainder `frac`,
-    hopper and hopperx its rounding to the nearest pel."""
-    score = (scene_mod.cut_score(f1.y, f2.y, geom.res_scalar, scale_shift)
-             if scene_enabled else None)
+def _flow_stage(geom, scale_shift: int, model: str, f1: DeviceFrame,
+                f2: DeviceFrame, probe, cut, radius: int, ds: int, nbs: int,
+                layers: int, subpel: bool = False):
+    """Hierarchical flow of one pair on the prologue's probe: (blurred
+    flow, frac or None), zero where the pair's cut flag `cut` is set (K1's
+    blur phase writes the zeros).  `layers` is the kernel's layer count
+    for the radius.  The blend and repeat families search no flow: their
+    field is zero.  Under `subpel` the unblurred offset is refined to 1/64
+    pel and that field blurred (JAX engine.py:486-515): hopperq and
+    hopperxq take its floor and the 1/64-pel remainder `frac`, hopper and
+    hopperx its rounding to the nearest pel (a zeroed field gives a zero
+    flow and a zero frac)."""
     if model not in FLOW_MODELS:
         return torch.zeros((2, geom.low_h, geom.low_w), dtype=torch.int32,
-                           device=f1.y.device), None, score
+                           device=f1.y.device), None
     args = (geom, f1.y, f1.u, f1.v, f2.y, f2.u, f2.v)
+    kw = dict(layers=layers, probe=probe, cut=cut)
     if not subpel:
-        _, blurred = flow_ops.flow(*args, radius, ds, nbs, scale_shift,
-                                   layers=layers)
-        return blurred, None, score
-    _, b64 = flow_ops.flow(*args, radius, ds, nbs, scale_shift,
-                           layers=layers, subpel=True)
+        _, blurred = flow_ops.flow(*args, radius, ds, nbs, scale_shift, **kw)
+        return blurred, None
+    _, b64 = flow_ops.flow(*args, radius, ds, nbs, scale_shift, subpel=True,
+                           **kw)
     if model in ("hopperq", "hopperxq"):
         blurred = b64 >> 6
-        return blurred, b64 - (blurred << 6), score
-    return (b64 + 32) >> 6, None, score
+        return blurred, b64 - (blurred << 6)
+    return (b64 + 32) >> 6, None
 
 
-def _warp_stage(geom, scale_shift: int, levels, cut_policy: str,
-                mode: int, sampling: str, model: str, planes, blurred, cut,
-                ts, frac=None):
-    """Cut folding + every output of the pair: (y, uv), each indexable by
-    position -- (N, H, Wa) and (N, H/2, Wa) tensors from one pair-blend
-    call, or lists of N planes.  `planes` is (f1y, f1uv, f2y, f2uv);
-    `cut` is a 0-dim bool tensor or None; `frac` the sub-pel field of the
+def _warp_stage(geom, scale_shift: int, levels, mode: int, sampling: str,
+                model: str, planes, blurred, ts, frac=None):
+    """Every output of the pair: (y, uv), each indexable by position --
+    (N, H, Wa) and (N, H/2, Wa) tensors from one pair-blend call, or lists
+    of N planes.  `planes` is (f1y, f1uv, f2y, f2uv); `ts` the blend
+    positions as the outputs take them (in the engine, the prologue's, with
+    the cut and model "repeat" folded in); `frac` the sub-pel field of the
     bilinear families (their blended mode reads it) or None."""
-    if cut is not None:
-        blurred = blurred.masked_fill(cut, 0)
-        if frac is not None:
-            frac = frac.masked_fill(cut, 0)
-        ts_cut = ((ts >= 0.5).to(torch.float32) if cut_policy == "nearest"
-                  else torch.zeros_like(ts))
-        ts = torch.where(cut, ts_cut, ts)
-    if model == "repeat":
-        ts = (ts >= 0.5).to(torch.float32)
     rs, wa = geom.res_scalar, geom.actual_width
     args = (*planes, blurred)
     n = ts.shape[0]
     blended = mode == warp_ops.BLENDED_FRAME
     if mode == warp_ops.GREY_FLOW:
-        y, uv = warp_ops.grey_planes(blurred, rs, geom.height, wa,
-                                     scale_shift, planes[0].dtype)
+        y, uv = _k_views.warp_grey(blurred, rs, geom.height, wa, scale_shift,
+                                   planes[0].dtype)
         return [y] * n, [uv] * n
     if blended and model in ("hopperq", "hopperxq"):
         outs = [bilinear_blend(*args, ts[i], rs, wa, scale_shift, levels,
@@ -410,7 +410,8 @@ def _blended_from_samples(scale_shift: int, levels, rs: int, wa: int, args,
 _KERNEL_COUNTS = (_k_flow_step.counts, _k_blur.counts, _k_pair.counts,
                   _k_fused.counts, _k_sample.counts, _k_blend_levels.counts,
                   _k_bilinear.counts, _k_subpel.counts, _k_views.sbs_counts,
-                  _k_views.hsv_counts)
+                  _k_views.hsv_counts, _k_views.grey_counts,
+                  _k_prologue.counts)
 
 
 def _snapshot_counts():
@@ -575,6 +576,9 @@ class InterpolationEngine:
         # device count of folded scene cuts, added to in place (a captured
         # graph adds to this tensor at every replay)
         self._cuts = torch.zeros((), dtype=torch.int32, device=self.device)
+        # C1's partial sums: the pairs of one engine run in one stream's
+        # order, eager or replayed, so they share it
+        self._partials = _k_prologue.scratch(self.device)
         self._ts_cache = {}
         # the stream uploads run on (stage), off the compute stream
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -865,28 +869,30 @@ class InterpolationEngine:
                       f2: DeviceFrame, ts: torch.Tensor, cuts: torch.Tensor,
                       knobs: PairKnobs, flow_done=None):
         """The body of one pair at the given level, radius and runtime
-        state: the flow stage, the cut folded in (added in place to
-        `cuts`, so a captured graph adds at every replay), then every
-        output of `ts`.  Returns (y, uv, cut score or None); `flow_done`
-        is called between the stages (split timing).  push runs it once a
-        pair, push_many k times a group."""
+        state: the prologue (the score, the cut -- added in place to
+        `cuts`, so a captured graph adds at every replay -- the folded
+        positions and the probe), the flow stage (zero under a cut), then
+        every output of the folded positions.  `ts` is never written (the
+        engine caches it).  Returns (y, uv, cut score or None);
+        `flow_done` is called between the stages (split timing).  push
+        runs it once a pair, push_many k times a group."""
         geom, model = self._geoms[level], self._model_for(level, knobs)
-        blurred, frac, score = _flow_stage(
-            geom, self._scale_shift, knobs.scene_enabled, model,
-            f1, f2, radius, knobs.delta_scalar, knobs.neighbor_bias_scalar,
+        pro = pair_prologue(
+            geom, f1.y, f2.y, f2.u, f2.v, ts, cuts, self._scale_shift,
+            knobs.scene_enabled, knobs.scene_threshold,
+            self.config.cut_policy, model == "repeat",
+            probe=model in FLOW_MODELS, partials=self._partials)
+        blurred, frac = _flow_stage(
+            geom, self._scale_shift, model, f1, f2, pro.probe, pro.cut,
+            radius, knobs.delta_scalar, knobs.neighbor_bias_scalar,
             self._layers_for(radius), self.config.subpel_flow)
         if flow_done is not None:
             flow_done()
-        cut = None
-        if score is not None:
-            cut = score > knobs.scene_threshold
-            cuts.add_(cut)
         y, uv = _warp_stage(geom, self._scale_shift, knobs.levels,
-                            self.config.cut_policy, knobs.mode,
-                            self.config.warp_sampling, model,
-                            (f1.y, f1.uv, f2.y, f2.uv), blurred, cut, ts,
+                            knobs.mode, self.config.warp_sampling, model,
+                            (f1.y, f1.uv, f2.y, f2.uv), blurred, pro.ts,
                             frac)
-        return y, uv, score
+        return y, uv, pro.score
 
     # -- grouped dispatch (the encode path) ------------------------------
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -22,16 +23,23 @@ def cut_score(y1: torch.Tensor, y2: torch.Tensor, res_scalar: int,
     float32 tensor on their device (no host sync).
 
     Each difference is shifted before the sum, as the JAX package does;
-    the sum is taken exactly in int64 and divided once in float32.  The
-    JAX package reduces in float32 in XLA's order, so the two agree
-    exactly while the sum stays below 2**24 and within an ulp or so
-    above it; the cut decision is the same wherever the score is not
-    within an ulp of the threshold."""
+    the sum is taken exactly in int64, rounded to float32 and multiplied
+    by the float32 reciprocal of the element count: XLA compiles the JAX
+    package's mean (a float32 sum divided by the count) into that
+    multiply, which can differ from a true division in the last bit.  The
+    JAX package sums in float32 in XLA's order, so the two agree exactly
+    while the sum stays below 2**24 and within an ulp or so above it; the
+    cut decision is the same wherever the score is not within an ulp of
+    the threshold.  On the card the pair's prologue kernel computes the
+    same bits (ops/cuda/prologue.py)."""
     s = 1 << res_scalar
     a = y1[::s, ::s].to(torch.int32)
     b = y2[::s, ::s].to(torch.int32)
     total = ((a - b).abs_() >> bit_shift).sum(dtype=torch.int64)
-    return total.to(torch.float32) / a.numel()
+    # the reciprocal is a float32 value, so the product with a float32
+    # tensor is one float32 multiply on any device
+    recip = np.float32(1.0) / np.float32(a.numel())
+    return total.to(torch.float32) * float(recip)
 
 
 

@@ -159,9 +159,9 @@ def render(geom, model: str, planes, field, frac, t: float) -> np.ndarray:
     (mode 2, levels 0 / 255, the default sampler), on the planes'
     device, as a host array."""
     ts = torch.tensor([t], dtype=torch.float32, device=planes[0].device)
-    y, _ = _warp_stage(geom, 0, warp_ops.level_ints(0.0, 255.0), "nearest",
+    y, _ = _warp_stage(geom, 0, warp_ops.level_ints(0.0, 255.0),
                        warp_ops.BLENDED_FRAME, "pair", model, planes, field,
-                       None, ts, frac)
+                       ts, frac)
     return y[0].cpu().numpy()
 
 

@@ -79,9 +79,8 @@ def run_parity(cases: Iterable[tuple] = SMOKE_CASES,
             ry, ruv = oracle.warp_frame(
                 f1.y, f1.uv, f2.y, f2.uv, blur_ref, t, mode,
                 geom.res_scalar, geom.actual_width)
-            y, uv = _warp_stage(geom, 0, (0, 255), "nearest", mode,
-                                sampling, "hopper", (y1, f1uv, y2, f2uv),
-                                blurred, None, ts)
+            y, uv = _warp_stage(geom, 0, (0, 255), mode, sampling,
+                                "hopper", (y1, f1uv, y2, f2uv), blurred, ts)
             ok = (np.array_equal(ry, y[0].cpu().numpy())
                   and np.array_equal(ruv, uv[0].cpu().numpy()))
             rows.append((f"warp {w}x{h} {MODE_NAMES.get(mode, mode)} t={t}",

@@ -10,8 +10,11 @@ whose 16-bit weight is exact); Q1 (the 1/64-pel bilinear blend) against
 its plain version and ``q1_model``, a NumPy model of its arithmetic
 sample by sample (which ``tests/test_torch_bilinear.py`` holds against
 the JAX package on the CPU), and G1's occlusion variant; the toolchain
-probes; and the whole engine on the card against the engine on the CPU,
-output modes 0-6 and every model family.  Bit-exact, except mode 3's
+probes; C1 (the pair's prologue: score, cut, folded positions, probe)
+eagerly, under graph capture and replay and on two streams at once, and
+V3 (the grey view); and the whole engine on the card against the engine
+on the CPU, output modes 0-6 and every model family, with the main path's
+three kernel launches a pair.  Bit-exact, except mode 3's
 float colours (the JAX package's tolerance).
 
 These tests need an NVIDIA card (marker ``gpu``) and skip without one.
@@ -34,6 +37,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import blend_levels as KG
 from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as KB
 from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import flow_step as KS
+from mpv_frame_interpolator_tpu_torch.ops.cuda import prologue as KC
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_fused as KF
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_bilinear as KQ
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair as KW
@@ -1783,3 +1787,202 @@ def test_warp_views(cuda, scale_shift, levels, h, w, stride):
             assert float((d > 2).float().mean()) < 0.005
         args = (*args[:4], zero, *args[5:])
         _equal(KV.warp_hsv(*args), KV.warp_hsv_plain(*args))
+
+
+def _prologue_case(cuda, h, stride, w, mcr, p010, seed):
+    rng = np.random.default_rng(seed)
+    dt = np.uint16 if p010 else np.uint8
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    y1, _ = _frames(rng, h, stride, cuda, dt)
+    y2, uv2 = _frames(rng, h, stride, cuda, dt)
+    return geom, y1, y2, uv2[:, 0::2].contiguous(), uv2[:, 1::2].contiguous()
+
+
+def _same_prologue(got, want):
+    """Score bits, flag, positions and probe bytes equal."""
+    assert (got.score is None) == (want.score is None)
+    if got.score is not None:
+        assert got.score.view(torch.int32).item() == \
+            want.score.view(torch.int32).item()
+    assert got.cut.dtype == torch.int32 and got.cut.item() == \
+        int(want.cut.item())
+    assert torch.equal(got.ts.view(torch.int32), want.ts.view(torch.int32))
+    assert (got.probe is None) == (want.probe is None)
+    if got.probe is not None:
+        _equal(got.probe, want.probe)
+
+
+@pytest.mark.parametrize("h,stride,w,mcr,p010", [
+    (48, 80, 64, 270, False), (50, 80, 66, 16, True),
+    (60, 88, 70, 8, False), (544, 96, 96, 270, True)])
+@pytest.mark.parametrize("scene,policy,repeat", [
+    (True, "nearest", False), (True, "hold", False), (True, "hold", True),
+    (False, "nearest", True), (False, "nearest", False)])
+def test_pair_prologue(cuda, h, stride, w, mcr, p010, scene, policy, repeat):
+    """C1 against its plain version on the card: score bits, the flag, the
+    count, the folded positions and the probe bytes, at res scalars 0-3,
+    strides wider than the picture and heights off the grid, with a cut
+    (threshold 0), without one (threshold 300) and at a threshold float32
+    cannot hold (28.1), scene detection on and off, each policy and
+    repeat; the cached positions never written."""
+    geom, y1, y2, u2, v2 = _prologue_case(cuda, h, stride, w, mcr, p010,
+                                          h + stride)
+    ts = torch.tensor([0.0, 0.2, 0.5, 0.7, 1.0], device=cuda)
+    keep = ts.clone()
+    for threshold in (0.0, 300.0, 28.1):
+        cuts = [torch.zeros((), dtype=torch.int32, device=cuda)
+                for _ in range(2)]
+        kw = dict(bit_shift=8 if p010 else 0, scene_enabled=scene,
+                  threshold=threshold, cut_policy=policy, repeat=repeat)
+        before = (KC.counts.kernel, KC.counts.plain)
+        got = KC.pair_prologue(geom, y1, y2, u2, v2, ts, cuts[0], **kw)
+        assert (KC.counts.kernel, KC.counts.plain) == (before[0] + 1,
+                                                       before[1])
+        want = KC.pair_prologue_plain(geom, y1, y2, u2, v2, ts, cuts[1],
+                                      probe=True, **kw)
+        torch.cuda.synchronize()
+        _same_prologue(got, want)
+        assert cuts[0].item() == cuts[1].item()
+        if threshold != 28.1:
+            assert cuts[0].item() == int(scene and threshold == 0.0)
+        assert torch.equal(ts, keep)
+
+
+def test_pair_prologue_score_at_28_1(cuda):
+    """A score equal to float32(28.1), above its float64 value: no cut
+    against a threshold of 28.1, a cut against 28.09."""
+    y1 = torch.zeros((40, 64), dtype=torch.uint8, device=cuda)
+    y2 = torch.full((40, 64), 28, dtype=torch.uint8, device=cuda)
+    y2.view(-1)[:256] = 29
+    geom = F.FlowGeometry.create(40, 64, 64)
+    uv = torch.zeros((20, 32), dtype=torch.uint8, device=cuda)
+    ts = torch.tensor([0.3, 0.6], device=cuda)
+    for threshold, cut in ((28.1, 0), (28.09, 1)):
+        cuts = torch.zeros((), dtype=torch.int32, device=cuda)
+        got = KC.pair_prologue(geom, y1, y2, uv, uv, ts, cuts,
+                               threshold=threshold)
+        assert got.score.item() == float(np.float32(28.1))
+        assert (got.cut.item(), cuts.item()) == (cut, cut)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_pair_prologue_graph_replay(cuda, shared):
+    """C1 captured in a CUDA graph and replayed three times on a cut pair:
+    each replay equals the eager launch and adds one to the count.  With
+    `shared`, every launch takes one scratch, as an engine's pairs do."""
+    geom, y1, y2, u2, v2 = _prologue_case(cuda, 60, 88, 70, 8, False, 3)
+    ts = torch.tensor([0.25, 0.5, 0.75], device=cuda)
+    cuts = torch.zeros((), dtype=torch.int32, device=cuda)
+    kw = dict(threshold=1.0,
+              partials=KC.scratch(cuda) if shared else None)
+    eager = KC.pair_prologue(geom, y1, y2, u2, v2, ts, cuts, **kw)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        KC.pair_prologue(geom, y1, y2, u2, v2, ts, cuts, **kw)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert cuts.item() == 2
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = KC.pair_prologue(geom, y1, y2, u2, v2, ts, cuts, **kw)
+    for n in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        _same_prologue(captured, eager)
+        assert cuts.item() == 3 + n
+
+
+@pytest.mark.parametrize("own_scratch", [False, True])
+def test_pair_prologue_on_two_streams(cuda, own_scratch):
+    """Two engines' prologues at once on two streams, each against its
+    plain version: no state is shared between launches.  With
+    `own_scratch`, each stream's eight launches share that stream's
+    scratch, as an engine's pairs do."""
+    cases = [_prologue_case(cuda, 544, 96, 96, 270, p010, 9 + p010)
+             for p010 in (False, True)]
+    ts = torch.tensor([0.2, 0.4, 0.6, 0.8], device=cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    cuts = [torch.zeros((), dtype=torch.int32, device=cuda) for _ in cases]
+    scratch = [KC.scratch(cuda) if own_scratch else None for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(8):
+        for i, (case, stream) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(stream):
+                outs[i].append(KC.pair_prologue(
+                    *case, ts, cuts[i], bit_shift=8 * i, threshold=1.0,
+                    cut_policy=("nearest", "hold")[i],
+                    partials=scratch[i]))
+    torch.cuda.synchronize()
+    for i, case in enumerate(cases):
+        want = KC.pair_prologue_plain(
+            *case, ts, torch.zeros((), dtype=torch.int32, device=cuda),
+            8 * i, True, 1.0, ("nearest", "hold")[i], False, True)
+        for got in outs[i]:
+            _same_prologue(got, want)
+        assert cuts[i].item() == 8
+
+
+def test_pair_prologue_nothing_to_compute(cuda):
+    """No scene detection, no probe and no "repeat": no launch, the
+    positions as given; a scratch of the wrong shape is refused."""
+    geom, y1, y2, u2, v2 = _prologue_case(cuda, 48, 80, 64, 270, False, 4)
+    ts = torch.tensor([0.25, 0.75], device=cuda)
+    cuts = torch.zeros((), dtype=torch.int32, device=cuda)
+    before = (KC.counts.kernel, KC.counts.plain)
+    got = KC.pair_prologue(geom, y1, y2, u2, v2, ts, cuts,
+                           scene_enabled=False, probe=False)
+    assert (KC.counts.kernel, KC.counts.plain) == before
+    assert got.score is None and got.cut is None and got.probe is None
+    assert got.ts is ts
+    with pytest.raises(ValueError):
+        KC.pair_prologue(geom, y1, y2, u2, v2, ts, cuts,
+                         partials=KC.scratch(cuda)[1:])
+
+
+@pytest.mark.parametrize("h,w,stride,mcr,p010", [
+    (48, 64, 80, 270, False), (118, 202, 202, 270, True),
+    (544, 96, 96, 270, False), (48, 63, 65, 24, True)])
+def test_warp_grey(cuda, h, w, stride, mcr, p010):
+    """V3 bit-exact against ``ops/warp.grey_planes`` on flows with wide
+    and wrapping magnitudes, at widths whose planes end off the 16-byte
+    grid."""
+    rng = np.random.default_rng(h + w)
+    geom = F.FlowGeometry.create(h, stride, w, mcr)
+    blurred = rng.integers(-90, 91, (2, geom.low_h, geom.low_w))
+    blurred[0, 0, 0] = (1 << 30) + (1 << 29)
+    blurred = torch.from_numpy(blurred.astype(np.int32)).to(cuda)
+    ss = 8 if p010 else 0
+    dt = torch.uint16 if p010 else torch.uint8
+    before = KV.grey_counts.kernel
+    got = KV.warp_grey(blurred, geom.res_scalar, h, w, ss, dt)
+    assert KV.grey_counts.kernel == before + 1
+    _equal(got, KV.warp_grey_plain(blurred, geom.res_scalar, h, w, ss, dt))
+
+
+@pytest.mark.parametrize("pixfmt,sampling,per_pair", [
+    ("nv12", "pair", 3), ("p010", "fused", 2)])
+def test_main_path_kernel_launches_a_pair(cuda, pixfmt, sampling, per_pair):
+    """The engine's pair is C1, K1 and the warp's launches and nothing
+    else that a kernel wrapper counts: 3 a pair on the 8-bit main path
+    (K2 once a pair), C1 + K1 + one K4 a position under P010 "fused"."""
+    cfg = synthetic.SyntheticConfig(width=96, height=64, fps=24.0,
+                                    pixfmt=pixfmt)
+    e, cpu = (E.InterpolationEngine(E.EngineConfig(
+        device=dev, display_fps=60.0, auto_quality=False,
+        initial_search_radius=8, warp_sampling=sampling))
+        for dev in (str(cuda), "cpu"))
+    frames = list(synthetic.scene_cut(cfg, 7, cut_at=4))
+    for f in frames:
+        cpu.push(f)
+    e.push(frames[0])
+    before = [c.kernel for c in E._KERNEL_COUNTS]
+    outputs = sum(len(e.push(f)) for f in frames[1:])
+    torch.cuda.synchronize()
+    launched = sum(c.kernel for c in E._KERNEL_COUNTS) - sum(before)
+    # the card folds the cuts the CPU engine folds on the same clip
+    assert e.scene_cuts() == cpu.scene_cuts() >= 1
+    pairs = len(frames) - 1
+    assert launched == (3 * pairs if sampling == "pair"
+                        else per_pair * pairs + outputs)

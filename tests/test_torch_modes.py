@@ -52,9 +52,9 @@ def _port_warp(f1, f2, geom, blur, mode, ts, scale_shift=0,
                levels=(0, 255), sampling="pair"):
     d1, d2 = frame_to_device(f1, "cpu"), frame_to_device(f2, "cpu")
     y, uv = port_engine._warp_stage(
-        geom, scale_shift, levels, "nearest", mode, sampling, "hopper",
+        geom, scale_shift, levels, mode, sampling, "hopper",
         (d1.y, d1.uv, d2.y, d2.uv), torch.from_numpy(blur.astype(np.int32)),
-        None, torch.tensor(ts, dtype=torch.float32))
+        torch.tensor(ts, dtype=torch.float32))
     return ([np.asarray(y[i]) for i in range(len(ts))],
             [np.asarray(uv[i]) for i in range(len(ts))])
 

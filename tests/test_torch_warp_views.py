@@ -282,9 +282,9 @@ def test_engine_calls_a_view_once_a_position(mode):
     counts = [KV.sbs_counts, KV.hsv_counts, KD.counts, KG.counts]
     before = [(c.kernel, c.plain) for c in counts]
     port_engine._warp_stage(
-        geom, ss, (0, 255), "nearest", mode, "pallas", "hopper",
+        geom, ss, (0, 255), mode, "pallas", "hopper",
         [torch.from_numpy(p) for p in (*f1, *f2)], torch.from_numpy(blur),
-        None, torch.tensor(TS, dtype=torch.float32))
+        torch.tensor(TS, dtype=torch.float32))
     moved = [(c.kernel - k, c.plain - p) for c, (k, p) in zip(counts, before)]
     hsv = mode == TW.HSV_FLOW
     assert moved == [(0, 0 if hsv else len(TS)), (0, len(TS) if hsv else 0),
