@@ -263,7 +263,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of the run (host "
                         "ops, and every kernel with its device time on a "
-                        "card) to DIR/trace.json")
+                        "card) to DIR/trace.json, with the engine's mfi.* "
+                        "spans (listed in utils/trace.py) on the same "
+                        "clock")
     p.add_argument("--no-stage-uploads", action="store_true",
                    help="upload each frame on the engine's thread instead "
                         "of the prefetch thread")

@@ -54,6 +54,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import blur as _blur
 from mpv_frame_interpolator_tpu_torch.ops.cuda import subpel as _subpel
 from mpv_frame_interpolator_tpu_torch.ops.flow import (
     MAX_RADIUS, mirror_inside, signed_square)
+from mpv_frame_interpolator_tpu_torch.utils.trace import annotate
 
 counts = _build.LaunchCounts()
 slice_counts = _build.LaunchCounts()     # the layer slice's
@@ -254,48 +255,50 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
     implies `blur`), (field, the blur of its 1/64-pel field) from S1's
     phases after the last step.  `cut`, with `blur`: a one-element int32
     flag on the card; where it is set the blur phase writes zeros."""
-    blur = blur or subpel
-    if cut is not None:
-        _build.require(cut, "cut", torch.int32, (), y2.device)
-    if timeline is not None:
-        _build.require(timeline, "timeline", torch.int64,
-                       (2 + 2 * len(steps) + 2 * int(subpel) + int(blur),),
-                       y2.device)
-    _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs, H, W)
-    lh, lw = y2.shape
-    dev = y2.device
-    # one sums buffer holds the largest step's window sums, or a window-1
-    # step's per-pixel winners; the kernel ping-pongs between two, and S1's
-    # phases take both for the nine probe planes
-    words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
-                 if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
-                              else 1])
-    if subpel:
-        words = max(words, -(-9 * lh * lw // 2))
-    if words >= 1 << 31:
-        raise ValueError(f"{words} sums words do not fit the kernel's int")
-    field = torch.empty((2, lh, lw), dtype=torch.int32, device=dev)
-    blurred = torch.empty_like(field) if blur else None
-    fine = torch.empty_like(field) if subpel else None
-    sums = torch.empty((2, words), dtype=torch.int32, device=dev)
-    codes = (ctypes.c_int * max(len(steps), 1))(*(
-        (w.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
-        for w, is_y, nb in steps))
-    start = (None, None) if off_x is None else (off_x.data_ptr(),
-                                                off_y.data_ptr())
-    rc = _build.load().mfi_flow_pyramid(
-        f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
-        u2.data_ptr(), v2.data_ptr(), *start, field.data_ptr(),
-        None if blurred is None else blurred.data_ptr(),
-        None if fine is None else fine.data_ptr(),
-        None if cut is None else cut.data_ptr(), sums.data_ptr(),
-        codes, len(steps), words, kernel_layers(radius, layers), radius,
-        ds, nbs, rs, H, W, lh, lw,
-        f1y.shape[1], f1u.shape[1], f1y.element_size(), luma_shift,
-        None if timeline is None else timeline.data_ptr(),
-        _build.stream_of(y2))
-    _build.check("flow_pyramid", rc)
-    counts.kernel += 1
+    with annotate("mfi.k1"):
+        blur = blur or subpel
+        if cut is not None:
+            _build.require(cut, "cut", torch.int32, (), y2.device)
+        if timeline is not None:
+            _build.require(timeline, "timeline", torch.int64,
+                           (2 + 2 * len(steps) + 2 * int(subpel) + int(blur),),
+                           y2.device)
+        _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs, H, W)
+        lh, lw = y2.shape
+        dev = y2.device
+        # one sums buffer holds the largest step's window sums, or a window-1
+        # step's per-pixel winners; the kernel ping-pongs between two, and S1's
+        # phases take both for the nine probe planes
+        words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
+                     if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
+                                  else 1])
+        if subpel:
+            words = max(words, -(-9 * lh * lw // 2))
+        if words >= 1 << 31:
+            raise ValueError(f"{words} sums words do not fit the kernel's int")
+        with annotate("mfi.k1.alloc"):
+            field = torch.empty((2, lh, lw), dtype=torch.int32, device=dev)
+            blurred = torch.empty_like(field) if blur else None
+            fine = torch.empty_like(field) if subpel else None
+            sums = torch.empty((2, words), dtype=torch.int32, device=dev)
+        codes = (ctypes.c_int * max(len(steps), 1))(*(
+            (w.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
+            for w, is_y, nb in steps))
+        start = (None, None) if off_x is None else (off_x.data_ptr(),
+                                                    off_y.data_ptr())
+        rc = _build.load().mfi_flow_pyramid(
+            f1y.data_ptr(), f1u.data_ptr(), f1v.data_ptr(), y2.data_ptr(),
+            u2.data_ptr(), v2.data_ptr(), *start, field.data_ptr(),
+            None if blurred is None else blurred.data_ptr(),
+            None if fine is None else fine.data_ptr(),
+            None if cut is None else cut.data_ptr(), sums.data_ptr(),
+            codes, len(steps), words, kernel_layers(radius, layers), radius,
+            ds, nbs, rs, H, W, lh, lw,
+            f1y.shape[1], f1u.shape[1], f1y.element_size(), luma_shift,
+            None if timeline is None else timeline.data_ptr(),
+            _build.stream_of(y2))
+        _build.check("flow_pyramid", rc)
+        counts.kernel += 1
     if blurred is None:
         return field
     _blur.counts.fused += 1

@@ -40,6 +40,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.flow import (
     FlowGeometry, subsampled_f2)
 from mpv_frame_interpolator_tpu_torch.pipeline.scene import cut_score
+from mpv_frame_interpolator_tpu_torch.utils.trace import annotate
 
 counts = _build.LaunchCounts()
 MAX_BLOCKS = 1024       # csrc/pair_prologue.cu kMaxBlocks: the partials
@@ -197,9 +198,12 @@ def pair_prologue(geom: FlowGeometry, y1, y2, f2u, f2v, ts, cuts,
         return pair_prologue_plain(geom, y1, y2, f2u, f2v, ts, cuts,
                                    bit_shift, scene_enabled, threshold,
                                    cut_policy, repeat, probe)
-    _require(geom, y1, y2, f2u, f2v, ts, cuts, partials, probe)
-    out = _outputs(geom, y1, ts, scene_enabled, probe)
-    _launch(geom, y1, y2, f2u, f2v, ts, cuts,
-            scratch(y1.device) if partials is None else partials, out,
-            bit_shift, threshold, cut_policy, repeat)
+    with annotate("mfi.c1"):
+        _require(geom, y1, y2, f2u, f2v, ts, cuts, partials, probe)
+        with annotate("mfi.c1.alloc"):
+            out = _outputs(geom, y1, ts, scene_enabled, probe)
+            if partials is None:
+                partials = scratch(y1.device)
+        _launch(geom, y1, y2, f2u, f2v, ts, cuts, partials, out, bit_shift,
+                threshold, cut_policy, repeat)
     return out

@@ -30,6 +30,7 @@ import torch
 
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair
+from mpv_frame_interpolator_tpu_torch.utils.trace import annotate
 
 counts = _build.LaunchCounts()
 
@@ -62,23 +63,26 @@ def fused_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
         counts.plain += 1
         return fused_blend_plain(f1y, f1uv, f2y, f2uv, blurred, t, rs,
                                  actual_width, scale_shift, levels)
-    dev = f1y.device
-    hc = H // 2
-    _build.require(f1y, "f1y", sample, (H, pitch), dev)
-    _build.require(f2y, "f2y", sample, (H, pitch), dev)
-    _build.require(f1uv, "f1uv", sample, (hc, pitch), dev)
-    _build.require(f2uv, "f2uv", sample, (hc, pitch), dev)
-    _build.require(blurred, "blurred", torch.int32, None, dev)
-    _build.require(t, "t", torch.float32, None, dev)
-    _, lh, lw = blurred.shape
-    y = torch.empty((H, actual_width), dtype=sample, device=dev)
-    uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
-    vec = warp_pair.vector_path((f1y, f1uv, f2y, f2uv, y, uv), actual_width)
-    rc = _build.load().mfi_fused_blend(
-        f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
-        blurred.data_ptr(), t.data_ptr(), y.data_ptr(), uv.data_ptr(),
-        H, actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(vec),
-        _build.stream_of(f1y))
-    _build.check("fused_blend", rc)
-    counts.kernel += 1
+    with annotate("mfi.k4"):
+        dev = f1y.device
+        hc = H // 2
+        _build.require(f1y, "f1y", sample, (H, pitch), dev)
+        _build.require(f2y, "f2y", sample, (H, pitch), dev)
+        _build.require(f1uv, "f1uv", sample, (hc, pitch), dev)
+        _build.require(f2uv, "f2uv", sample, (hc, pitch), dev)
+        _build.require(blurred, "blurred", torch.int32, None, dev)
+        _build.require(t, "t", torch.float32, None, dev)
+        _, lh, lw = blurred.shape
+        with annotate("mfi.k4.alloc"):
+            y = torch.empty((H, actual_width), dtype=sample, device=dev)
+            uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
+        vec = warp_pair.vector_path((f1y, f1uv, f2y, f2uv, y, uv),
+                                    actual_width)
+        rc = _build.load().mfi_fused_blend(
+            f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
+            blurred.data_ptr(), t.data_ptr(), y.data_ptr(), uv.data_ptr(),
+            H, actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(vec),
+            _build.stream_of(f1y))
+        _build.check("fused_blend", rc)
+        counts.kernel += 1
     return y, uv

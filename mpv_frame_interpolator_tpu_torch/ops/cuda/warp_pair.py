@@ -34,6 +34,7 @@ import torch
 
 from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
+from mpv_frame_interpolator_tpu_torch.utils.trace import annotate
 
 counts = _build.LaunchCounts()
 rows_counts = _build.LaunchCounts()      # the row band's
@@ -144,21 +145,23 @@ def pair_blend(f1y, f1uv, f2y, f2uv, blurred, ts, rs: int,
         counts.plain += 1
         return pair_blend_plain(f1y, f1uv, f2y, f2uv, blurred, ts, rs,
                                 actual_width, scale_shift, levels)
-    dev = f1y.device
-    hc = H // 2
-    _require_planes(f1y, f1uv, f2y, f2uv, blurred, ts, sample, H, pitch)
-    n = ts.shape[0]
-    _, lh, lw = blurred.shape
-    y = torch.empty((n, H, actual_width), dtype=sample, device=dev)
-    uv = torch.empty((n, hc, actual_width), dtype=sample, device=dev)
-    vec = vector_path((f1y, f1uv, f2y, f2uv, y, uv), actual_width)
-    rc = _build.load().mfi_pair_blend(
-        f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
-        blurred.data_ptr(), ts.data_ptr(), y.data_ptr(), uv.data_ptr(),
-        n, H, actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(vec),
-        _build.stream_of(f1y))
-    _build.check("pair_blend", rc)
-    counts.kernel += 1
+    with annotate("mfi.k2"):
+        dev = f1y.device
+        hc = H // 2
+        _require_planes(f1y, f1uv, f2y, f2uv, blurred, ts, sample, H, pitch)
+        n = ts.shape[0]
+        _, lh, lw = blurred.shape
+        with annotate("mfi.k2.alloc"):
+            y = torch.empty((n, H, actual_width), dtype=sample, device=dev)
+            uv = torch.empty((n, hc, actual_width), dtype=sample, device=dev)
+        vec = vector_path((f1y, f1uv, f2y, f2uv, y, uv), actual_width)
+        rc = _build.load().mfi_pair_blend(
+            f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
+            blurred.data_ptr(), ts.data_ptr(), y.data_ptr(), uv.data_ptr(),
+            n, H, actual_width, pitch, lh, lw, rs, scale_shift, k, w,
+            int(vec), _build.stream_of(f1y))
+        _build.check("pair_blend", rc)
+        counts.kernel += 1
     return y, uv
 
 

@@ -147,6 +147,7 @@ from mpv_frame_interpolator_tpu_torch.pipeline.cadence import (
 from mpv_frame_interpolator_tpu_torch.pipeline.quality import (
     QualityController)
 from mpv_frame_interpolator_tpu_torch.utils import StatsRegistry, get_logger
+from mpv_frame_interpolator_tpu_torch.utils.trace import annotate
 
 log = get_logger("engine")
 
@@ -755,13 +756,14 @@ class InterpolationEngine:
             return
         start, mid, end, n_outputs, pairs, score = self._pending_timing
         self._pending_timing = None
-        end.synchronize()
-        self._record_duration(start.elapsed_time(end) * 1e-3 / pairs)
-        if mid is not None:
-            self._record_split(start.elapsed_time(mid) * 1e-3,
-                               mid.elapsed_time(end) * 1e-3, n_outputs)
-        if score is not None:
-            self._host_cut_score = self.scene.last_score = float(score)
+        with annotate("mfi.engine.wait"):
+            end.synchronize()
+            self._record_duration(start.elapsed_time(end) * 1e-3 / pairs)
+            if mid is not None:
+                self._record_split(start.elapsed_time(mid) * 1e-3,
+                                   mid.elapsed_time(end) * 1e-3, n_outputs)
+            if score is not None:
+                self._host_cut_score = self.scene.last_score = float(score)
 
     def _record_duration(self, dur: float):
         self._last_calc_duration = dur
@@ -779,63 +781,64 @@ class InterpolationEngine:
 
     def push(self, frame: Union[VideoFrame, DeviceFrame]) -> List[OutputFrame]:
         """Process one source frame; returns the output frames due."""
-        self._ensure_geometry(frame.fmt)
-        knobs = self._knobs()
-        plan = self._plan(frame, knobs.mode)
-        if plan.passthrough:
-            return [self._passthrough(frame)]
+        with annotate("mfi.push"):
+            self._ensure_geometry(frame.fmt)
+            knobs = self._knobs()
+            plan = self._plan(frame, knobs.mode)
+            if plan.passthrough:
+                return [self._passthrough(frame)]
 
-        # the controller reads the previous pair's duration
-        self._collect_timing()
-        self.quality.update(self._last_calc_duration, self.cadence)
+            # the controller reads the previous pair's duration
+            self._collect_timing()
+            self.quality.update(self._last_calc_duration, self.cadence)
 
-        self._prev = self._cur
-        self._cur = self._use(frame)
-        f1, f2 = self._prev, self._cur
-        if f1 is None:
-            f1 = f2
-        radius = self.quality.search_radius
-        level = self._active_level()
-        n_out = len(plan.outputs)
-        ts = self._ts_for(tuple(slot.blend for slot in plan.outputs))
-        # the first pair of a geometry carries the kernel build: its
-        # duration is no measurement (0.0, as the JAX engine's cold pair)
-        timed = self.config.measure_timing and self._warm
-        split = timed and self._split()
-        on_cuda = self.device.type == "cuda"
-        if timed and on_cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            mid = torch.cuda.Event(enable_timing=True) if split else None
-            start.record()
-        t0 = time.perf_counter()
-        t_mid = [t0]
+            self._prev = self._cur
+            self._cur = self._use(frame)
+            f1, f2 = self._prev, self._cur
+            if f1 is None:
+                f1 = f2
+            radius = self.quality.search_radius
+            level = self._active_level()
+            n_out = len(plan.outputs)
+            ts = self._ts_for(tuple(slot.blend for slot in plan.outputs))
+            # the first pair of a geometry carries the kernel build: its
+            # duration is no measurement (0.0, as the JAX engine's cold pair)
+            timed = self.config.measure_timing and self._warm
+            split = timed and self._split()
+            on_cuda = self.device.type == "cuda"
+            if timed and on_cuda:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                mid = torch.cuda.Event(enable_timing=True) if split else None
+                start.record()
+            t0 = time.perf_counter()
+            t_mid = [t0]
 
-        def flow_done():
-            if split and on_cuda:
-                mid.record()
-            t_mid[0] = time.perf_counter()
+            def flow_done():
+                if split and on_cuda:
+                    mid.record()
+                t_mid[0] = time.perf_counter()
 
-        y, uv, score = self._pair_outputs(level, radius, f1, f2, ts,
-                                          self._cuts, knobs, flow_done)
-        if not timed:
-            self._last_calc_duration = 0.0
-        elif on_cuda:
-            end.record()
-            self._pending_timing = (start, mid, end, n_out, 1, score)
-        else:
-            t_end = time.perf_counter()
-            self._record_duration(t_end - t0)
-            if split:
-                self._record_split(t_mid[0] - t0, t_end - t_mid[0], n_out)
-        if self.config.measure_timing:
-            self.stats.add("outputs", n_out)
-        self._warm = True
-        self._last_cut_score = score
-        out_fmt = self._out_fmt()
-        ready = ready_event(self.device)
-        return [OutputFrame(slot.pts, out_fmt, y, uv, index=i, ready=ready)
-                for i, slot in enumerate(plan.outputs)]
+            y, uv, score = self._pair_outputs(level, radius, f1, f2, ts,
+                                              self._cuts, knobs, flow_done)
+            if not timed:
+                self._last_calc_duration = 0.0
+            elif on_cuda:
+                end.record()
+                self._pending_timing = (start, mid, end, n_out, 1, score)
+            else:
+                t_end = time.perf_counter()
+                self._record_duration(t_end - t0)
+                if split:
+                    self._record_split(t_mid[0] - t0, t_end - t_mid[0], n_out)
+            if self.config.measure_timing:
+                self.stats.add("outputs", n_out)
+            self._warm = True
+            self._last_cut_score = score
+            out_fmt = self._out_fmt()
+            ready = ready_event(self.device)
+            return [OutputFrame(slot.pts, out_fmt, y, uv, index=i, ready=ready)
+                    for i, slot in enumerate(plan.outputs)]
 
     def _plan(self, frame, mode: int):
         # SideBySide2 interpolates on the first source frame as well (its
@@ -877,21 +880,22 @@ class InterpolationEngine:
         `flow_done` is called between the stages (split timing).  push
         runs it once a pair, push_many k times a group."""
         geom, model = self._geoms[level], self._model_for(level, knobs)
-        pro = pair_prologue(
-            geom, f1.y, f2.y, f2.u, f2.v, ts, cuts, self._scale_shift,
-            knobs.scene_enabled, knobs.scene_threshold,
-            self.config.cut_policy, model == "repeat",
-            probe=model in FLOW_MODELS, partials=self._partials)
-        blurred, frac = _flow_stage(
-            geom, self._scale_shift, model, f1, f2, pro.probe, pro.cut,
-            radius, knobs.delta_scalar, knobs.neighbor_bias_scalar,
-            self._layers_for(radius), self.config.subpel_flow)
-        if flow_done is not None:
-            flow_done()
-        y, uv = _warp_stage(geom, self._scale_shift, knobs.levels,
-                            knobs.mode, self.config.warp_sampling, model,
-                            (f1.y, f1.uv, f2.y, f2.uv), blurred, pro.ts,
-                            frac)
+        with annotate("mfi.pair"):
+            pro = pair_prologue(
+                geom, f1.y, f2.y, f2.u, f2.v, ts, cuts, self._scale_shift,
+                knobs.scene_enabled, knobs.scene_threshold,
+                self.config.cut_policy, model == "repeat",
+                probe=model in FLOW_MODELS, partials=self._partials)
+            blurred, frac = _flow_stage(
+                geom, self._scale_shift, model, f1, f2, pro.probe, pro.cut,
+                radius, knobs.delta_scalar, knobs.neighbor_bias_scalar,
+                self._layers_for(radius), self.config.subpel_flow)
+            if flow_done is not None:
+                flow_done()
+            y, uv = _warp_stage(geom, self._scale_shift, knobs.levels,
+                                knobs.mode, self.config.warp_sampling, model,
+                                (f1.y, f1.uv, f2.y, f2.uv), blurred, pro.ts,
+                                frac)
         return y, uv, pro.score
 
     # -- grouped dispatch (the encode path) ------------------------------
@@ -922,35 +926,36 @@ class InterpolationEngine:
         around it, read one group later) is divided by its pair count.
         Adds up to `group_size` source intervals of latency: an encode
         path; playback keeps push()."""
-        outputs: List[OutputFrame] = []
-        pending = []    # (f1, f2, blends, slots, knobs) awaiting a group
-        for frame in frames:
-            if pending and self._needs_geometry(frame.fmt):
-                # a geometry switch resets engine state: drain the old
-                # geometry's pairs first
-                self._flush_group(pending, outputs, group_size)
-            self._ensure_geometry(frame.fmt)
-            knobs = self._knobs()
-            if pending and pending[-1][4] != knobs:
-                # a property changed: the pairs before it run as they were
-                # set, the pairs after it start a group of their own
-                self._flush_group(pending, outputs, group_size)
-            plan = self._plan(frame, knobs.mode)
-            if plan.passthrough:
-                # emit in stream order: queued pairs precede this frame
-                self._flush_group(pending, outputs, group_size)
-                outputs.append(self._passthrough(frame))
-                continue
-            self._prev = self._cur
-            self._cur = self._use(frame)
-            f1 = self._prev if self._prev is not None else self._cur
-            pending.append((f1, self._cur,
-                            tuple(slot.blend for slot in plan.outputs),
-                            plan.outputs, knobs))
-            if len(pending) >= group_size:
-                self._flush_group(pending, outputs, group_size)
-        self._flush_group(pending, outputs, group_size)
-        return outputs
+        with annotate("mfi.push_many"):
+            outputs: List[OutputFrame] = []
+            pending = []    # (f1, f2, blends, slots, knobs) awaiting a group
+            for frame in frames:
+                if pending and self._needs_geometry(frame.fmt):
+                    # a geometry switch resets engine state: drain the old
+                    # geometry's pairs first
+                    self._flush_group(pending, outputs, group_size)
+                self._ensure_geometry(frame.fmt)
+                knobs = self._knobs()
+                if pending and pending[-1][4] != knobs:
+                    # a property changed: the pairs before it run as they were
+                    # set, the pairs after it start a group of their own
+                    self._flush_group(pending, outputs, group_size)
+                plan = self._plan(frame, knobs.mode)
+                if plan.passthrough:
+                    # emit in stream order: queued pairs precede this frame
+                    self._flush_group(pending, outputs, group_size)
+                    outputs.append(self._passthrough(frame))
+                    continue
+                self._prev = self._cur
+                self._cur = self._use(frame)
+                f1 = self._prev if self._prev is not None else self._cur
+                pending.append((f1, self._cur,
+                                tuple(slot.blend for slot in plan.outputs),
+                                plan.outputs, knobs))
+                if len(pending) >= group_size:
+                    self._flush_group(pending, outputs, group_size)
+            self._flush_group(pending, outputs, group_size)
+            return outputs
 
     def _flush_group(self, pending, outputs, group_size: int):
         while pending:
@@ -999,10 +1004,13 @@ class InterpolationEngine:
 
         if on_cuda:
             graph = self._graphs.pop(key, None)
-            if graph is None:
-                slots = _GroupSlots(fmt, k, n_batch, self.device)
+            slots = (_GroupSlots(fmt, k, n_batch, self.device)
+                     if graph is None else graph.slots)
+            with annotate("mfi.group.fill"):
                 self.group_stats["copies"] += slots.fill(chunk, ts)
-                graph = _GroupGraph(slots, body, self._cuts)
+            if graph is None:
+                with annotate("mfi.group.capture"):
+                    graph = _GroupGraph(slots, body, self._cuts)
                 self.group_stats["captures"] += 1
                 log.info("captured a group graph %s: %d kernel launches a "
                          "replay, %.1f MB", key, graph.kernel_launches(),
@@ -1011,15 +1019,16 @@ class InterpolationEngine:
                     # a key captured again carries a capture: untimed
                     self._group_warm.discard(
                         self._graphs.popitem(last=False)[0])
-            else:
-                self.group_stats["copies"] += graph.slots.fill(chunk, ts)
             self._graphs[key] = graph
-            graph.replay()
+            with annotate("mfi.group.replay"):
+                graph.replay()
             self.group_stats["replays"] += 1
-            results = self._copy_out(graph.outs)
+            with annotate("mfi.group.copy_out"):
+                results = self._copy_out(graph.outs)
         else:
             slots = _GroupSlots(fmt, k, n_batch, self.device)
-            slots.fill(chunk, ts)
+            with annotate("mfi.group.fill"):
+                slots.fill(chunk, ts)
             results = body(slots, self._cuts)
         self.group_stats["groups"] += 1
         self.group_stats["pairs"] += k

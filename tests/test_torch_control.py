@@ -35,7 +35,7 @@ from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 from mpv_frame_interpolator_tpu_torch.pipeline.player import Pipeline
 from mpv_frame_interpolator_tpu_torch.utils.trace import (
-    annotate, device_trace, timed_block)
+    annotate, device_trace)
 
 torch.set_num_threads(1)
 
@@ -342,11 +342,10 @@ class TestClientRoundTrip:
 # --- the profiler hooks ----------------------------------------------------------
 
 def test_annotate_and_timed_block():
+    """A span with no profiler is a no-op around the work."""
     with annotate("test-region"):
         x = torch.arange(16) * 2
-    out, secs = timed_block(lambda a: a + 1, x)
-    assert secs >= 0.0
-    assert int(out[0]) == 1
+    assert int(x[1]) == 2
 
 
 def test_device_trace_writes_a_trace(tmp_path):

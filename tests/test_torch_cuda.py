@@ -1986,3 +1986,77 @@ def test_main_path_kernel_launches_a_pair(cuda, pixfmt, sampling, per_pair):
     pairs = len(frames) - 1
     assert launched == (3 * pairs if sampling == "pair"
                         else per_pair * pairs + outputs)
+
+
+def _host_spans(prof):
+    """(name, start, end) of the main thread's ``mfi.`` host spans, and
+    the names of device rows that carry such a name."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    host = [(e.name, e.time_range.start, e.time_range.end) for e in events
+            if e.name.startswith("mfi.") and e.device_type == DeviceType.CPU]
+    device = {e.name for e in events
+              if e.name.startswith("mfi.") and e.device_type != DeviceType.CPU}
+    return host, device
+
+
+def _parent(span, spans):
+    """The innermost other span that holds `span` (None: none does)."""
+    holders = [s for s in spans if s is not span and s[1] <= span[1]
+               and span[2] <= s[2]]
+    return max(holders, key=lambda s: s[1])[0] if holders else None
+
+
+@pytest.mark.parametrize("api,pixfmt,sampling", [
+    ("push", "nv12", "pair"), ("push", "p010", "fused"),
+    ("push_many", "nv12", "pair")])
+def test_engine_spans_on_the_card(cuda, api, pixfmt, sampling):
+    """One 4K ``push`` (C1, K1, K2 or K4 x5) or ``push_many`` call of 8
+    pairs under the profiler opens every documented span of its path,
+    each inside its parent: 9 a push pair (5 positions of K4: 17), 5 a
+    group; no span leaves a copy of itself among the device rows."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch.utils import trace
+    cfg = synthetic.SyntheticConfig(width=3840, height=2160, fps=24.0,
+                                    pixfmt=pixfmt)
+    ring = [frame_to_device(f, cuda)
+            for f in synthetic.moving_box(cfg, 3)]
+    frames = [dataclasses.replace(ring[i % 3], pts=i / 24.0)
+              for i in range(26)]
+    e = E.InterpolationEngine(E.EngineConfig(
+        device=str(cuda), display_fps=120.0, auto_quality=False,
+        warp_sampling=sampling))
+    if api == "push":
+        for f in frames[:3]:        # the anchor, an untimed and a timed pair
+            e.push(f)
+    else:                           # the capture, then a timed replay
+        e.push_many(frames[:9], group_size=8)
+        e.push_many(frames[9:17], group_size=8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if api == "push":
+            assert len(e.push(frames[3])) == 5
+        else:
+            assert len(e.push_many(frames[17:25], group_size=8)) == 40
+        torch.cuda.synchronize()
+    spans, on_device = _host_spans(prof)
+    assert not on_device
+    got = sorted((name, _parent(s, spans)) for s in spans
+                 for name in [s[0]])
+    assert {name for name, _ in got} <= set(trace.SPANS)
+    if api == "push_many":
+        assert got == sorted([("mfi.push_many", None)] + [
+            (n, "mfi.push_many") for n in (
+                "mfi.engine.wait", "mfi.group.fill", "mfi.group.replay",
+                "mfi.group.copy_out")])
+        return
+    warp = "mfi.k2" if sampling == "pair" else "mfi.k4"
+    launches = 1 if sampling == "pair" else 5
+    assert got == sorted(
+        [("mfi.push", None), ("mfi.engine.wait", "mfi.push"),
+         ("mfi.pair", "mfi.push")]
+        + [(k, "mfi.pair") for k in ("mfi.c1", "mfi.k1")]
+        + [(k + ".alloc", k) for k in ("mfi.c1", "mfi.k1")]
+        + [(warp, "mfi.pair"), (warp + ".alloc", warp)] * launches)
