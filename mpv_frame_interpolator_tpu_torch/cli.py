@@ -796,6 +796,7 @@ def main(argv=None) -> int:
                        "seeks": pipe.seeks,
                        "group": group,
                        "group_stats": engine.group_stats,
+                       "plan_stats": engine.plan_stats,
                        "graphs": [dict(g, key=list(g["key"]))
                                   for g in engine.graph_stats()],
                        # seconds over the run: the reader thread's in the

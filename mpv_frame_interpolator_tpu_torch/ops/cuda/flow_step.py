@@ -244,6 +244,30 @@ def _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs: int,
         raise ValueError("low-res field does not fit the frame")
 
 
+def sums_words(steps, radius: int, lh: int, lw: int,
+               subpel: bool = False) -> int:
+    """The int32 words of each of the launch's two sums buffers: the
+    largest step's window sums, or a window-1 step's per-pixel winners
+    (the kernel ping-pongs between the two), and with `subpel` half the
+    nine probe planes of S1's phases, which take both."""
+    words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
+                 if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
+                              else 1])
+    if subpel:
+        words = max(words, -(-9 * lh * lw // 2))
+    if words >= 1 << 31:
+        raise ValueError(f"{words} sums words do not fit the kernel's int")
+    return words
+
+
+def step_codes(steps):
+    """The steps as the C entry takes them: a host int array of
+    log2(window) | is_y << 8 | nb_enabled << 9 (at least one entry)."""
+    return (ctypes.c_int * max(len(steps), 1))(*(
+        (w.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
+        for w, is_y, nb in steps))
+
+
 def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
             ds: int, nbs: int, rs: int, H: int, W: int, luma_shift: int,
             timeline=None, blur: bool = False, layers=None,
@@ -266,24 +290,13 @@ def _launch(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, steps, radius: int,
         _require_planes(f1y, f1u, f1v, y2, u2, v2, off_x, off_y, rs, H, W)
         lh, lw = y2.shape
         dev = y2.device
-        # one sums buffer holds the largest step's window sums, or a window-1
-        # step's per-pixel winners; the kernel ping-pongs between two, and S1's
-        # phases take both for the nine probe planes
-        words = max([radius * -(-lh // w) * -(-lw // w) for w, _, _ in steps
-                     if w > 1] + [lh * lw if any(w == 1 for w, _, _ in steps)
-                                  else 1])
-        if subpel:
-            words = max(words, -(-9 * lh * lw // 2))
-        if words >= 1 << 31:
-            raise ValueError(f"{words} sums words do not fit the kernel's int")
+        words = sums_words(steps, radius, lh, lw, subpel)
         with annotate("mfi.k1.alloc"):
             field = torch.empty((2, lh, lw), dtype=torch.int32, device=dev)
             blurred = torch.empty_like(field) if blur else None
             fine = torch.empty_like(field) if subpel else None
             sums = torch.empty((2, words), dtype=torch.int32, device=dev)
-        codes = (ctypes.c_int * max(len(steps), 1))(*(
-            (w.bit_length() - 1) | (is_y << 8) | (int(bool(nb)) << 9)
-            for w, is_y, nb in steps))
+        codes = step_codes(steps)
         start = (None, None) if off_x is None else (off_x.data_ptr(),
                                                     off_y.data_ptr())
         rc = _build.load().mfi_flow_pyramid(

@@ -153,6 +153,13 @@ def subsampled_f2(geom: FlowGeometry, f2y: torch.Tensor, f2u: torch.Tensor,
     return y2.contiguous(), u2.contiguous(), v2.contiguous()
 
 
+def check_radius(radius: int):
+    """Refuse a search radius outside the engine's range."""
+    if not MIN_RADIUS <= radius <= MAX_RADIUS:
+        raise ValueError(f"search radius {radius} is outside "
+                         f"[{MIN_RADIUS}, {MAX_RADIUS}]")
+
+
 def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
          delta_scalar: int = 8, neighbor_bias_scalar: int = 6,
          luma_shift: int = 0, layers=None, blur: bool = True,
@@ -173,9 +180,7 @@ def flow(geom: FlowGeometry, f1y, f1u, f1v, f2y, f2u, f2v, radius: int,
     card written by the launch's blur phase."""
     from mpv_frame_interpolator_tpu_torch.ops.cuda.flow_step import (
         flow_pyramid)
-    if not MIN_RADIUS <= radius <= MAX_RADIUS:
-        raise ValueError(f"search radius {radius} is outside "
-                         f"[{MIN_RADIUS}, {MAX_RADIUS}]")
+    check_radius(radius)
     y2, u2, v2 = (subsampled_f2(geom, f2y, f2u, f2v) if probe is None
                   else probe)
     return flow_pyramid(f1y, f1u, f1v, y2, u2, v2, radius, delta_scalar,

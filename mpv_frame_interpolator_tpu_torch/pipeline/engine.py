@@ -96,7 +96,12 @@ the caller's thread -- the pipeline's prefetcher; the compute stream
 waits for each frame's copies on the device before first use.
 
 The main path's pair (mode 2, model hopper, the "pair" sampler) is three
-kernel launches and no tensor op: C1, K1, K2.
+kernel launches and no tensor op: C1, K1, K2.  On a card ``push`` runs
+it on a launch plan (``pipeline/push_plan.py``): the wrappers' checks,
+launch constants and intermediates once per key, so that a pair checks
+its frames, allocates its two outputs and launches.  Every other pair
+(other modes, samplers and models, ``subpel_flow``, the CPU) calls the
+wrappers (``_pair_outputs``).
 
 ``push_many`` is the grouped encode path (JAX ``push_many``): the same
 outputs as ``push``, with the pairs of a group run from static input
@@ -128,7 +133,7 @@ from mpv_frame_interpolator_tpu_torch.frame import (
 from mpv_frame_interpolator_tpu_torch.ops import flow as flow_ops
 from mpv_frame_interpolator_tpu_torch.ops import warp as warp_ops
 from mpv_frame_interpolator_tpu_torch.ops.cuda import (
-    blend_levels as _k_blend_levels, blur as _k_blur,
+    _build, blend_levels as _k_blend_levels, blur as _k_blur,
     flow_step as _k_flow_step, prologue as _k_prologue, subpel as _k_subpel,
     warp_bilinear as _k_bilinear, warp_fused as _k_fused,
     warp_pair as _k_pair, warp_sample as _k_sample, warp_views as _k_views)
@@ -141,6 +146,7 @@ from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_bilinear import (
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_fused import fused_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_pair import pair_blend
 from mpv_frame_interpolator_tpu_torch.ops.cuda.warp_sample import sample_dir
+from mpv_frame_interpolator_tpu_torch.pipeline import push_plan
 from mpv_frame_interpolator_tpu_torch.pipeline import scene as scene_mod
 from mpv_frame_interpolator_tpu_torch.pipeline.cadence import (
     CadenceEngine, InterpolationState)
@@ -593,6 +599,13 @@ class InterpolationEngine:
         # enqueued around them (slot fills and output copy-outs), pairs
         self.group_stats = {"captures": 0, "replays": 0, "copies": 0,
                             "pairs": 0, "groups": 0}
+        # push's launch plan (`_push_pair`), the latest key's only; off on
+        # the CPU (a test turns it off on a card to hold it against the
+        # wrappers).  plan_stats: plans built, push pairs run on a plan,
+        # push pairs that called the wrappers
+        self._plan_enabled = self.device.type == "cuda"
+        self._push_plan: Optional[push_plan.PushPlan] = None
+        self.plan_stats = {"builds": 0, "pairs": 0, "fallbacks": 0}
 
     # ------------------------------------------------------------------ #
 
@@ -696,6 +709,7 @@ class InterpolationEngine:
         self._warm = False
         self._graphs.clear()
         self._group_warm.clear()
+        self._push_plan = None
         self.cadence.reset()
         log.info("flow geometry: %s (pixfmt=%s, device %s)", self.geom,
                  fmt.pixfmt, self.device)
@@ -819,8 +833,8 @@ class InterpolationEngine:
                     mid.record()
                 t_mid[0] = time.perf_counter()
 
-            y, uv, score = self._pair_outputs(level, radius, f1, f2, ts,
-                                              self._cuts, knobs, flow_done)
+            y, uv, score = self._push_pair(level, radius, f1, f2, ts, knobs,
+                                           flow_done)
             if not timed:
                 self._last_calc_duration = 0.0
             elif on_cuda:
@@ -867,6 +881,58 @@ class InterpolationEngine:
         the pair read it (a switch of `config.model` reaches level 0 and
         every rung without a model of its own at the next pair)."""
         return self._rung_models[level] or knobs.model
+
+    def _plan_serves(self, model: str, knobs: PairKnobs) -> bool:
+        """Whether a push pair takes the launch plan: its route is C1, K1
+        with the blur phase and K2 (mode 2, model hopper, a sampler of
+        K2's -- "pair", "shift" or "gather" -- and no ``subpel_flow``),
+        on a card."""
+        return (self._plan_enabled
+                and knobs.mode == warp_ops.BLENDED_FRAME
+                and model == "hopper"
+                and self.config.warp_sampling not in ("fused", "pallas")
+                and not self.config.subpel_flow)
+
+    def _push_pair(self, level: int, radius: int, f1: DeviceFrame,
+                   f2: DeviceFrame, ts: torch.Tensor, knobs: PairKnobs,
+                   flow_done):
+        """push's pair: on the launch plan of its key where the plan
+        serves it and both frames fit it (a plan is built at the first
+        pair of a new key, and replaces the one before), else through the
+        wrappers (``_pair_outputs``).  Returns what ``_pair_outputs``
+        does."""
+        model = self._model_for(level, knobs)
+        plan = None
+        if self._plan_serves(model, knobs):
+            fmt = self._fmt
+            # on the engine's own device (`_cuts` is on it): frames
+            # elsewhere take the wrappers
+            stream = _build.stream_of(self._cuts)
+            layers = self._layers_for(radius)
+            key = (level, self._geoms[level], layers, radius, knobs, model,
+                   self.config.warp_sampling, self.config.cut_policy,
+                   fmt.pixfmt, (fmt.height, fmt.stride, fmt.width), stream)
+            plan = self._push_plan
+            if plan is None or plan.key != key:
+                self._push_plan = plan = None       # its scratch freed
+                if push_plan.frames_fit(
+                        f1, f2, self._cuts.device,
+                        torch.uint8 if fmt.pixfmt == NV12 else torch.uint16,
+                        push_plan.plane_shapes(fmt.height, fmt.stride)):
+                    plan = push_plan.PushPlan(
+                        key, self._geoms[level], f1, f2, ts, self._cuts,
+                        self._partials, knobs, radius, layers,
+                        self._scale_shift, self.config.cut_policy, stream)
+                    self._push_plan = plan
+                    self.plan_stats["builds"] += 1
+            elif not plan.fits(f1, f2):
+                plan = None
+        if plan is None:
+            self.plan_stats["fallbacks"] += 1
+            return self._pair_outputs(level, radius, f1, f2, ts, self._cuts,
+                                      knobs, flow_done)
+        self.plan_stats["pairs"] += 1
+        return plan.run(f1, f2, ts, flow_done)
 
     def _pair_outputs(self, level: int, radius: int, f1: DeviceFrame,
                       f2: DeviceFrame, ts: torch.Tensor, cuts: torch.Tensor,

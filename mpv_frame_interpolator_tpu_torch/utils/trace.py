@@ -12,20 +12,25 @@
   records, it returns one shared object that does nothing, so a span
   costs the engine a check of the profiler's state and no more.
 
-The spans (a main-path ``push`` pair opens 9, a ``push_many`` call of
-one group 5):
+The spans (a main-path ``push`` pair on the card opens 7, a ``push_many``
+call of one group 5):
 
 * ``mfi.push`` / ``mfi.push_many``: all of ``InterpolationEngine.push`` /
   ``push_many``;
 * ``mfi.engine.wait``: the host waiting on the card for the pair (or
   group) before, from its end event's synchronize to its cut score's
   read-back (``_collect_timing``);
-* ``mfi.pair``: the pair body (``_pair_outputs``);
+* ``mfi.pair``: the pair body (``_pair_outputs``, or ``push``'s launch
+  plan, ``pipeline/push_plan.PushPlan.run``);
 * ``mfi.c1``, ``mfi.k1``, ``mfi.k2``, ``mfi.k4``: the card path of the
   wrappers of C1 (``prologue.pair_prologue``), K1 (``flow_step``'s
   launch), K2 (``warp_pair.pair_blend``) and K4 (``warp_fused.fused_blend``);
   each holds ``mfi.<k>.alloc``, its output allocations, so the span less
-  that child is the card path's checks and its launch;
+  that child is the card path's checks and its launch.  On ``push``'s
+  launch plan, ``mfi.c1``, ``mfi.k1`` and ``mfi.k2`` hold the plan's
+  launches and ``mfi.k2.alloc`` K2's outputs; ``mfi.c1.alloc`` and
+  ``mfi.k1.alloc`` do not open there (the plan allocates those
+  intermediates once per key);
 * ``mfi.group.fill``, ``mfi.group.replay``, ``mfi.group.copy_out``: a
   group's slot fills, its graph's replay, its copies out;
   ``mfi.group.capture``: a group graph's warm-up and capture (set-up).

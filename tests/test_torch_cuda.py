@@ -2013,8 +2013,10 @@ def _parent(span, spans):
 def test_engine_spans_on_the_card(cuda, api, pixfmt, sampling):
     """One 4K ``push`` (C1, K1, K2 or K4 x5) or ``push_many`` call of 8
     pairs under the profiler opens every documented span of its path,
-    each inside its parent: 9 a push pair (5 positions of K4: 17), 5 a
-    group; no span leaves a copy of itself among the device rows."""
+    each inside its parent: 7 a push pair on the launch plan (C1's and
+    K1's intermediates allocated once per key, so no ``mfi.c1.alloc`` or
+    ``mfi.k1.alloc``), 17 through the wrappers with 5 positions of K4, 5
+    a group; no span leaves a copy of itself among the device rows."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from mpv_frame_interpolator_tpu_torch.utils import trace
@@ -2054,9 +2056,11 @@ def test_engine_spans_on_the_card(cuda, api, pixfmt, sampling):
         return
     warp = "mfi.k2" if sampling == "pair" else "mfi.k4"
     launches = 1 if sampling == "pair" else 5
+    allocated = () if sampling == "pair" else ("mfi.c1", "mfi.k1")
+    assert e.plan_stats["pairs"] == (3 if sampling == "pair" else 0)
     assert got == sorted(
         [("mfi.push", None), ("mfi.engine.wait", "mfi.push"),
          ("mfi.pair", "mfi.push")]
         + [(k, "mfi.pair") for k in ("mfi.c1", "mfi.k1")]
-        + [(k + ".alloc", k) for k in ("mfi.c1", "mfi.k1")]
+        + [(k + ".alloc", k) for k in allocated]
         + [(warp, "mfi.pair"), (warp + ".alloc", warp)] * launches)
