@@ -14,7 +14,10 @@ against the plain reference (``reference/``), after the window.
   counts all its samples (``outputs_missing``, limit 0).  At least
   ``MIN_PAIRS`` pairs, one of them across a cut, have to be compared.
 
-The reference reads only the source planes the benchmark made.
+The reference reads only the source planes the benchmark made.  Which
+reference makes a configuration's outputs is ``reference.models``'s
+choice, by the configuration; the cut, the fold and the cadence are
+shared.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from portbench.reference import cadence as ref_cadence
+from portbench.reference import models as ref_models
 from portbench.reference import pair as ref
 
 MIN_PAIRS = 3
@@ -104,23 +108,24 @@ def compare_outputs(ring, cfg: dict, geom: ref.Geometry, plan,
                     outputs: Dict[int, list], cuts: Sequence[bool],
                     scale_shift: int, levels) -> PixelResult:
     """Each sampled frame's outputs (objects with ``pts`` and
-    ``device_planes()``) against the reference's outputs of its pair."""
+    ``device_planes()``) against the outputs of its pair that the
+    configuration's reference (``reference.models.for_config``) makes;
+    `cfg` has every field of the engine's configuration."""
+    reference = ref_models.for_config(cfg)
     n = len(ring)
     res = PixelResult()
     for frame in sorted(outputs):
         want = plan[frame] or []
         got = {o.pts: o for o in outputs[frame]}
-        r1, r2 = (frame - 1) % n, frame % n
-        pr = ref.pair(ring[r1], ring[r2], geom, [b for _, b in want],
-                      int(cfg["initial_search_radius"]),
-                      int(cfg["delta_scalar"]),
-                      int(cfg["neighbor_bias_scalar"]), scale_shift,
-                      bool(cfg["scene_detection"]),
-                      float(cfg["scene_threshold"]))
+        f1, f2 = ring[(frame - 1) % n], ring[frame % n]
+        folded = ref.prologue(f1, f2, geom, [b for _, b in want],
+                              scale_shift, bool(cfg["scene_detection"]),
+                              float(cfg["scene_threshold"]))
+        made = iter(reference.outputs(f1, f2, geom, folded, cfg,
+                                      scale_shift, levels))
         wrong = 0
-        for k, (pts, _) in enumerate(want):
-            ry, ruv = ref.output(ring[r1], ring[r2], pr, k, geom,
-                                 scale_shift, levels)
+        for pts, _ in want:
+            ry, ruv = next(made)
             o = got.get(pts)
             if o is None:
                 res.missing_outputs += 1
@@ -135,7 +140,7 @@ def compare_outputs(ring, cfg: dict, geom: ref.Geometry, plan,
         res.differing += wrong
         res.wrong_pairs += wrong > 0
         res.pairs += 1
-        res.cut_pairs += cuts[r2]
+        res.cut_pairs += cuts[frame % n]
     return res
 
 

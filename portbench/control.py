@@ -1,10 +1,13 @@
 """The control of the check: the plain reference put in the program's place,
-with its blend computed in the nearest lower precision than the
-configuration states -- bfloat16 in place of the exact fixed-point blend
-of the float32 positions -- on the pairs a run of the cell samples, at
-the cell's own sizes.  The check (``check.compare_outputs``) has to find
-it wrong: its ``samples_differing`` is the upper reading that the limit
-(0) sits below.
+in the nearest lower precision than the configuration states, on the
+pairs a run of the cell samples, at the cell's own sizes.  The reference
+is the one that judges the configuration (``reference.models``), and the
+lower precision its ``outputs_lower`` -- for hopper's blend, bfloat16 in
+place of the exact fixed-point blend of the float32 positions; a
+reference without one has no control here, and the command says so and
+stops.  The check (``check.compare_outputs``) has to find the control
+wrong: its ``samples_differing`` is the upper reading that the limit (0)
+sits below.
 
     python3 -m portbench.control --workload <name> --seeds <n> [<n> ...]
 
@@ -42,11 +45,17 @@ def first_window_frame(traffic: dict) -> int:
 
 def readings(cell_name: str, seed: int, device: str = "cuda",
              overrides: Optional[dict] = None) -> dict:
-    from portbench import check, content
+    from portbench import check, content, run
+    from portbench.reference import models
     from portbench.reference import pair as ref
 
     _, cfg, traffic, ring_params, sample = spec.settings(cell_name,
                                                          overrides)
+    _, cfg = run.engine_config(cfg, device)
+    reference = models.for_config(cfg)
+    if reference.lower is None:
+        raise spec.SetupError(f"reference {reference.name!r} has no "
+                              f"lower-precision variant: no control")
     scale_shift = 0 if cfg["pixfmt"] == "nv12" else 8
     geom = ref.geometry(cfg["height"], cfg["width"], cfg["width"],
                         cfg["max_calc_res"], cfg["num_iterations"])
@@ -62,16 +71,13 @@ def readings(cell_name: str, seed: int, device: str = "cuda",
     for f in frames:
         want = plan[f] or []
         f1, f2 = ring[(f - 1) % n], ring[f % n]
-        pr = ref.pair(f1, f2, geom, [b for _, b in want],
-                      int(cfg["initial_search_radius"]),
-                      int(cfg["delta_scalar"]),
-                      int(cfg["neighbor_bias_scalar"]), scale_shift,
-                      bool(cfg["scene_detection"]),
-                      float(cfg["scene_threshold"]))
-        outputs[f] = [_Output(pts, *ref.output(f1, f2, pr, k, geom,
-                                               scale_shift, levels,
-                                               blend="bfloat16"))
-                      for k, (pts, _) in enumerate(want)]
+        folded = ref.prologue(f1, f2, geom, [b for _, b in want],
+                              scale_shift, bool(cfg["scene_detection"]),
+                              float(cfg["scene_threshold"]))
+        made = reference.lower(f1, f2, geom, folded, cfg, scale_shift,
+                               levels)
+        outputs[f] = [_Output(pts, *planes)
+                      for (pts, _), planes in zip(want, made)]
     cuts = check.transition_cuts(ring, geom, scale_shift,
                                  float(cfg["scene_threshold"]),
                                  bool(cfg["scene_detection"]))
@@ -95,7 +101,11 @@ def main(argv=None) -> int:
             return 3
     out = []
     for seed in args.seeds:
-        r = readings(args.workload, seed, args.device)
+        try:
+            r = readings(args.workload, seed, args.device)
+        except spec.SetupError as e:
+            print(f"portbench.control: {e}", file=sys.stderr)
+            return 2
         print(f"control {args.workload} seed {seed}: samples_differing "
               f"{r['samples_differing']} over {r['pairs']} pairs "
               f"({r['wrong_pairs']} wrong, {r['cut_pairs']} across a cut)",

@@ -279,6 +279,15 @@ def warp_plane(src1, src2, blurred, t: np.float32, geom: Geometry,
 # -- a pair -----------------------------------------------------------------
 
 @dataclasses.dataclass
+class Folded:
+    """The pair's prologue, shared by every flow model (C1 serves them
+    all): the cut score, the cut decision and the folded positions."""
+    score: np.float32
+    cut: bool
+    ts: np.ndarray                  # (N,) float32 folded positions
+
+
+@dataclasses.dataclass
 class PairResult:
     score: np.float32
     cut: bool
@@ -286,20 +295,35 @@ class PairResult:
     blurred: torch.Tensor           # (2, lh, lw) int64
 
 
+def prologue(f1, f2, geom: Geometry, ts: List[float], scale_shift: int,
+             scene_detection: bool, threshold: float) -> Folded:
+    """The cut and the folded positions of the pair f1 -> f2, each a (y,
+    uv) pair of planes."""
+    score = cut_score(f1[0], f2[0], geom.rs, scale_shift)
+    cut = scene_detection and is_cut(score, threshold)
+    return Folded(score, cut, fold(ts, cut))
+
+
+def _blurred(f1, f2, folded: Folded, geom: Geometry, radius: int,
+             delta_scalar: int, neighbor_bias_scalar: int,
+             scale_shift: int) -> torch.Tensor:
+    """The blurred flow; zero under a cut."""
+    if folded.cut:
+        return torch.zeros((2, geom.lh, geom.lw), dtype=I64,
+                           device=f1[0].device)
+    return blur(flow(f1[0], f1[1], f2[0], f2[1], geom, radius, delta_scalar,
+                     neighbor_bias_scalar, scale_shift))
+
+
 def pair(f1, f2, geom: Geometry, ts: List[float], radius: int,
          delta_scalar: int, neighbor_bias_scalar: int, scale_shift: int,
          scene_detection: bool, threshold: float) -> PairResult:
     """The cut, the folded positions and the blurred flow of the pair f1
     -> f2, each a (y, uv) pair of planes."""
-    score = cut_score(f1[0], f2[0], geom.rs, scale_shift)
-    cut = scene_detection and is_cut(score, threshold)
-    if cut:
-        blurred = torch.zeros((2, geom.lh, geom.lw), dtype=I64,
-                              device=f1[0].device)
-    else:
-        blurred = blur(flow(f1[0], f1[1], f2[0], f2[1], geom, radius,
-                            delta_scalar, neighbor_bias_scalar, scale_shift))
-    return PairResult(score, cut, fold(ts, cut), blurred)
+    p = prologue(f1, f2, geom, ts, scale_shift, scene_detection, threshold)
+    return PairResult(p.score, p.cut, p.ts, _blurred(
+        f1, f2, p, geom, radius, delta_scalar, neighbor_bias_scalar,
+        scale_shift))
 
 
 def output(f1, f2, result: PairResult, k: int, geom: Geometry,
@@ -308,6 +332,36 @@ def output(f1, f2, result: PairResult, k: int, geom: Geometry,
     t = result.ts[k]
     return tuple(warp_plane(f1[c], f2[c], result.blurred, t, geom, bool(c),
                             scale_shift, levels, blend) for c in (0, 1))
+
+
+# -- hopper's pair reference (``models.for_config``) -------------------------
+
+# what this reference judges; any sampler, since every sampler's outputs
+# are the same samples
+COVERS = {"model": ("hopper",), "frame_output_mode": (2,),
+          "subpel_flow": (False,)}
+
+
+def outputs(f1, f2, geom: Geometry, folded: Folded, cfg: dict,
+            scale_shift: int, levels, blend: str = "fixed"):
+    """hopper's blended outputs of the pair in mode 2: (y, uv) int64
+    planes, one for each folded position, in order, each made as it is
+    taken."""
+    result = PairResult(folded.score, folded.cut, folded.ts, _blurred(
+        f1, f2, folded, geom, int(cfg["initial_search_radius"]),
+        int(cfg["delta_scalar"]), int(cfg["neighbor_bias_scalar"]),
+        scale_shift))
+    for k in range(len(folded.ts)):
+        yield output(f1, f2, result, k, geom, scale_shift, levels, blend)
+
+
+def outputs_lower(f1, f2, geom: Geometry, folded: Folded, cfg: dict,
+                  scale_shift: int, levels):
+    """The control's: ``outputs`` with the blend in bfloat16, the nearest
+    lower precision than the exact fixed-point blend of float32
+    positions."""
+    return outputs(f1, f2, geom, folded, cfg, scale_shift, levels,
+                   blend="bfloat16")
 
 
 def level_ints(black: float, white: float) -> Tuple[int, int]:

@@ -16,6 +16,14 @@ result: the last line of standard output is one JSON object with
 ``breakdown`` when traced), and last the numbers compared (``checks``),
 which also end standard error.
 
+The configuration file reaches the engine whole (``engine_config``): each
+key is the benchmark's own (``BENCH_KEYS``) or a field of the engine's
+``EngineConfig``, and the reference that judges the outputs is the one
+the configuration chooses (``reference/models.py``).  A key of neither
+kind, or a configuration that its reference does not cover, stops the
+run at set-up, before the ring is made, with a message that names it and
+no result.
+
 Without CUDA, or with fewer cards than the cell asks for, the run fails
 and prints no result; it never falls back to the CPU.  It fails as well
 if ``jax``, ``jaxlib``, ``flax`` or the JAX package is loaded once the
@@ -38,11 +46,10 @@ from typing import Callable, Dict, List, Optional
 from portbench import spec
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mpv_frame_interpolator_tpu")
-ENGINE_KEYS = ("display_fps", "frame_output_mode", "auto_quality",
-               "initial_search_radius", "scene_detection", "scene_threshold",
-               "cut_policy", "delta_scalar", "neighbor_bias_scalar",
-               "black_level", "white_level", "max_calc_res", "num_iterations",
-               "measure_timing", "model", "warp_sampling", "layer_buckets")
+# the configuration file's own keys; every other key is a field of the
+# engine's EngineConfig
+BENCH_KEYS = ("source", "assumed", "reduced", "width", "height", "pixfmt",
+              "source_fps", "device", "reference")
 
 
 def forbidden_modules() -> List[str]:
@@ -109,6 +116,35 @@ class RunView:
         return sum(c.t1 - c.t0 for c in self.calls) / self.pairs * 1e3
 
 
+def _tuples(value):
+    """Lists, nested too, as tuples (JSON has no tuple)."""
+    if isinstance(value, (list, tuple)):
+        return tuple(_tuples(v) for v in value)
+    return value
+
+
+def engine_config(cfg: dict, device: str):
+    """(EngineConfig, settings): the engine's configuration that the
+    configuration file `cfg` states, each of its keys that is a field of
+    EngineConfig passed as it stands (lists as tuples where the field is
+    a tuple), on `device`; and `cfg` with every field of that
+    EngineConfig but ``device`` filled in, as the reference reads it.  A
+    key that is neither the benchmark's (``BENCH_KEYS``) nor a field is a
+    ``spec.SetupError`` that names it."""
+    from mpv_frame_interpolator_tpu_torch.pipeline.engine import EngineConfig
+    fields = {f.name: f for f in dataclasses.fields(EngineConfig)
+              if f.name != "device"}
+    unknown = sorted(set(cfg) - set(BENCH_KEYS) - set(fields))
+    if unknown:
+        raise spec.SetupError(
+            f"configuration keys {unknown} are neither the benchmark's "
+            f"{list(BENCH_KEYS)} nor fields of EngineConfig")
+    given = {k: _tuples(cfg[k]) if isinstance(fields[k].default, tuple)
+             else cfg[k] for k in fields if k in cfg}
+    engine_cfg = EngineConfig(**given, device=device)
+    return engine_cfg, {**cfg, **{k: getattr(engine_cfg, k) for k in fields}}
+
+
 def _note(msg: str):
     print(f"portbench: {msg}", file=sys.stderr, flush=True)
 
@@ -150,9 +186,10 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     import mpv_frame_interpolator_tpu_torch as port
     from mpv_frame_interpolator_tpu_torch.frame import FrameFormat
     from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
-        EngineConfig, InterpolationEngine)
+        InterpolationEngine)
     from portbench import check, content, driver, work
     from portbench import trace as tracing
+    from portbench.reference import models
     from portbench.reference import pair as ref
 
     if spec.ROOT not in Path(port.__file__).resolve().parents:
@@ -162,6 +199,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     cell, cfg, traffic, ring_params, sample = spec.settings(cell_name,
                                                             overrides)
     on_cuda = device == "cuda"
+    engine_cfg, cfg = engine_config(cfg, device)
+    models.for_config(cfg)      # a configuration it does not cover stops here
 
     fmt = FrameFormat(cfg["width"], cfg["height"], cfg["pixfmt"])
     scale_shift = 0 if cfg["pixfmt"] == "nv12" else 8
@@ -170,9 +209,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     levels = ref.level_ints(cfg["black_level"], cfg["white_level"])
     ring = content.make_ring(cfg["width"], cfg["height"], cfg["pixfmt"],
                              content.RingParams(**ring_params), seed, device)
-    engine_cfg = {k: cfg[k] for k in ENGINE_KEYS}
-    engine_cfg["layer_buckets"] = tuple(engine_cfg["layer_buckets"])
-    engine = InterpolationEngine(EngineConfig(**engine_cfg, device=device))
+    engine = InterpolationEngine(engine_cfg)
     if engine_hook is not None:
         engine = engine_hook(engine)
     stream = driver.Stream(ring, fmt, float(cfg["source_fps"]))
@@ -294,8 +331,12 @@ def main(argv=None, t_start: Optional[float] = None) -> int:
               file=sys.stderr)
         return 3
     print(f"portbench: {_card_name_and_limit()}", file=sys.stderr)
-    result = run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace), t_start)
+    try:
+        result = run_cell(args.workload, args.seed, args.seconds,
+                          bool(args.trace), t_start)
+    except spec.SetupError as e:
+        print(f"portbench: set-up: {e}; no result", file=sys.stderr)
+        return 2
     found = forbidden_modules()
     if found:
         print(f"portbench: forbidden modules loaded: {found}; no result",

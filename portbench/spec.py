@@ -15,6 +15,11 @@ BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 
 
+class SetupError(ValueError):
+    """A cell that cannot be run as its files state it: found at set-up,
+    before the ring is made and before any call of the engine."""
+
+
 def benchmark(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 

@@ -82,7 +82,7 @@ def test_nothing_of_jax_is_loaded():
     code = ("import sys\n"
             "from portbench import run, check, control, content, driver, "
             "spec, trace, work\n"
-            "from portbench.reference import cadence, pair\n"
+            "from portbench.reference import cadence, models, pair\n"
             "bench = spec.benchmark()\n"
             "for m in bench['end_to_end'] + bench['per_layer']:\n"
             "    spec.reader(m['name'])\n"
@@ -96,7 +96,7 @@ def test_nothing_of_jax_is_loaded():
 
 def test_the_reference_imports_nothing_of_the_program():
     code = ("import sys\n"
-            "from portbench.reference import cadence, pair\n"
+            "from portbench.reference import cadence, models, pair\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'mpv_frame_interpolator_tpu_torch', "
             "'mpv_frame_interpolator_tpu', 'jax'}))\n")
@@ -146,6 +146,77 @@ def test_trace_reading_busy_idle_and_breakdown():
     b = v.breakdown()
     assert b["device_ops"][0][0].startswith("void pyramid_kernel")
     assert len(b["device_ops"]) == 3
+
+
+def _span_events():
+    """A 100-us stretch of two push calls and a wait outside them, with
+    the card busy over [10, 50] and [70, 80]."""
+    host = [("mfi.push", 0, 45), ("mfi.engine.wait", 2, 12),
+            ("mfi.pair", 15, 40), ("mfi.k1", 20, 30),
+            ("mfi.push", 48, 95), ("mfi.engine.wait", 50, 60),
+            ("cudaEventSynchronize", 50, 70), ("mfi.pair", 62, 90),
+            ("mfi.k2", 75, 85), ("mfi.engine.wait", 96, 99),
+            # not inside the stretch, or not on its thread
+            ("mfi.push", -20, -10), ("mfi.push", 98, 105)]
+    return ([_Ev(trace.MARK, True, 0.0, 99.0),
+             _Ev(trace.MARK, False, 0.0, 100.0),
+             _Ev("void pyramid_kernel<unsigned char, 16>", True, 10.0, 40.0),
+             _Ev("Memcpy DtoD (Device -> Device)", True, 30.0, 50.0),
+             _Ev("void pair_blend_kernel<unsigned char>", True, 70.0, 80.0),
+             _Ev("mfi.pair", False, 20.0, 60.0, thread=2)]
+            + [_Ev(n, False, float(s), float(e)) for n, s, e in host])
+
+
+def test_trace_reading_spans():
+    v = trace.read(_span_events(), pairs=2)
+    # the old fields, as before
+    assert v.window_us == 100.0 and v.busy_us == 50.0
+    assert [r[1:] for r in v.rows] == [(10.0, 40.0), (30.0, 50.0),
+                                       (70.0, 80.0)]
+    assert dict(v.idle_by_host) == {"mfi.engine.wait": 10.0,
+                                    "cudaEventSynchronize": 20.0,
+                                    "mfi.pair": 20.0}
+    assert v.breakdown()["idle_gaps"][0] == ["cudaEventSynchronize", 20e-6]
+    # the marker thread's spans inside the stretch, by start
+    assert [s[0] for s in v.spans] == [
+        "mfi.push", "mfi.engine.wait", "mfi.pair", "mfi.k1", "mfi.push",
+        "mfi.engine.wait", "mfi.pair", "mfi.k2", "mfi.engine.wait"]
+    assert v.start_us == 0.0
+    # inclusive host ms a pair
+    assert v.span_ms_per_pair(("mfi.engine.wait",)) == pytest.approx(0.0115)
+    assert v.span_ms_per_pair(("mfi.engine.wait",), ("mfi.push",)) == \
+        pytest.approx(0.010)
+    assert v.span_ms_per_pair(("mfi.pair",)) == pytest.approx(0.0265)
+    assert v.span_ms_per_pair(("mfi.push",)) == pytest.approx(0.046)
+    assert v.span_ms_per_pair(("mfi.group.fill",)) is None
+    assert v.span_ms_per_pair(("mfi.engine.wait",),
+                              ("mfi.push_many",)) is None
+    # the card idle, by the innermost span open: 50 us of idle in all
+    idle = {n: v.idle_within((n,)) for n in (
+        "mfi.engine.wait", "mfi.push", "mfi.pair", "mfi.k1", "mfi.k2")}
+    assert idle == pytest.approx({"mfi.engine.wait": 21.0, "mfi.push": 9.0,
+                                  "mfi.pair": 13.0, "mfi.k1": 0.0,
+                                  "mfi.k2": 5.0})
+    assert v.idle_within(("mfi.pair", "mfi.k2")) == pytest.approx(18.0)
+    assert v.idle_within(("mfi.group.fill",)) is None
+
+
+def test_a_trace_without_spans_reads_none():
+    v = trace.TraceView([("pair_blend_kernel", 0.0, 50.0)], 100.0, 50.0, 2,
+                        [], [])
+    assert v.spans == [] and v.span_ms_per_pair(("mfi.pair",)) is None
+    assert v.idle_within(("mfi.pair",)) is None
+
+
+@pytest.mark.parametrize("name,want", [
+    ("engine.wait_ms_per_pair", 0.010), ("engine.body_ms_per_pair", 0.0265),
+    ("group.wait_ms_per_pair", None), ("group.fill_ms_per_pair", None)])
+def test_the_span_readers(name, want):
+    view = type("View", (), {"trace": trace.read(_span_events(), pairs=2)})
+    got = spec.reader(name).read(view)
+    assert got == (pytest.approx(want) if want is not None else None)
+    view.trace = None
+    assert spec.reader(name).read(view) is None
 
 
 def test_a_roofline_counts_the_pairs_work_once():
