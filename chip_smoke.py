@@ -690,22 +690,24 @@ def warp_bound(n: int, item: int, rs: int):
     return bound(nbytes, 6 * out + 30 * cells)
 
 
-def q1_bound(item: int, occlusion: bool, frac: bool, rs: int,
+def q1_bound(item: int, occlusion: bool, subpel: bool, rs: int,
              flow_ints: int):
     """Bytes and operations of one bilinear blended 4K position (Q1): the
-    two source frames and the flow (and the sub-pel field) read once, the
-    output written once; per output sample ~28 scalar operations (for each
-    direction the three products and two sums of a row of taps twice and
-    once more across the rows, the float blend's two conversions, three
-    products, two sums, floor and conversion, the level map) and ~21 more
-    with the occlusion correction (both samples rounded, the ramp, the
-    mix); per flow cell ~40 (four flow loads, the back-projection, four
-    products and roundings, the tap offsets and weights) and ~8 more with
-    the sub-pel field -- the cell's work is shared by its samples."""
+    two source frames and the one field (the flow, or the sub-pel flow's
+    1/64-pel field) read once, the output written once; per output sample
+    ~28 scalar operations (for each direction the three products and two
+    sums of a row of taps twice and once more across the rows, the float
+    blend's two conversions, three products, two sums, floor and
+    conversion, the level map) and ~21 more with the occlusion correction
+    (both samples rounded, the ramp, the mix); per flow cell ~40 (four
+    flow loads, the back-projection, four products and roundings, the tap
+    offsets and weights) and 2 more with the 1/64-pel field (the floor of
+    each component for the back-projection) -- the cell's work is shared
+    by its samples."""
     out = (H4K + H4K // 2) * W4K
     cells = ((H4K >> rs) * (W4K >> rs)
              + ((H4K // 2) >> rs) * (W4K >> (rs + 1)))
-    ops = (28 + 21 * occlusion) * out + (40 + 8 * frac) * cells
+    ops = (28 + 21 * occlusion) * out + (40 + 2 * subpel) * cells
     return bound(3 * out * item + 4 * flow_ints, ops)
 
 
@@ -1009,26 +1011,30 @@ def phase_kernels(dev):
     # (16, 235), t in {0.2, 0.5, 0.8}, on the random planes (rows of the
     # top value) and the block field within +-96 and the one within +-400
     # (negative displacements, cells pushed past every edge), then the
-    # same with a random sub-pel field (subpel_flow: the kFrac
-    # instantiation); each launch on the 16-byte runs held against the
-    # plain version and against the per-sample launch (vector=False), and
-    # the per-sample step alone on planes whose pitch is off the 16-byte
-    # grid
+    # same as the engine hands them over under subpel_flow: each field in
+    # 1/64 pel, (flow << 6) + frac with a random frac in [0, 63] (the
+    # kFrac instantiation); each launch on the 16-byte runs held against
+    # the plain version and against the per-sample launch (vector=False),
+    # and the per-sample step alone on planes whose pitch is off the
+    # 16-byte grid
     frac = torch.from_numpy(rng.integers(0, 64, (2, lh, lw)).astype(
         np.int32)).to(dev)
-    for fr, key in ((None, "bilinear_blend"), (frac, "bilinear_blend_frac")):
+    for subpel, key in ((False, "bilinear_blend"),
+                        (True, "bilinear_blend_frac")):
         q1 = {}
         err = 0
-        what = "Q1" if fr is None else "Q1 with frac"
+        what = "Q1 with the 1/64-pel field" if subpel else "Q1"
+        block, edge = ((blurred << 6) + frac, (far << 6) + frac) if subpel \
+            else (blurred, far)
         for dt, ss, levels in ((np.uint8, 0, (0, 255)),
                                (np.uint16, 8, W.level_ints(16, 235))):
             for occlusion in (False, True):
                 e = e_ps = 0
-                for name, flow in (("block", blurred), ("edge", far)):
+                for flow in (block, edge):
                     for t in (0.2, 0.8, 0.5):
                         tt = torch.tensor(t, dtype=torch.float32, device=dev)
                         args = (*warp_args(dt)[:4], flow, tt, rs, W4K, ss,
-                                levels, occlusion, fr)
+                                levels, occlusion, subpel)
                         got = KQ.bilinear_blend(*args)
                         check(KW.vector_path((*args[:4], *got), W4K),
                               "the 4K planes do not take Q1's 16-byte path")
@@ -1041,8 +1047,8 @@ def phase_kernels(dev):
                     f"(0.2, 0.8, 0.5): max_abs_err={e} against the plain "
                     f"version, {e_ps} against the per-sample launch")
                 err = max(err, e, e_ps)
-                args = (*warp_args(dt), tt, rs, W4K, ss, levels, occlusion,
-                        fr)
+                args = (*warp_args(dt)[:4], block, tt, rs, W4K, ss, levels,
+                        occlusion, subpel)
                 item = np.dtype(dt).itemsize
                 q1[(ss, occlusion)] = dict(
                     device_ms=device_ms(lambda: KQ.bilinear_blend(*args)),
@@ -1051,9 +1057,8 @@ def phase_kernels(dev):
                     ms=cuda_ms(lambda: KQ.bilinear_blend(*args), 20),
                     plain_ms=cuda_ms(lambda: KQ.bilinear_blend_plain(*args),
                                      3),
-                    bound=q1_bound(item, occlusion, fr is not None, rs,
-                                   blurred.numel() * (1 if fr is None
-                                                      else 2)))
+                    bound=q1_bound(item, occlusion, subpel, rs,
+                                   block.numel()))
         # sources whose pitch (3848 samples, 8-bit) is off the 16-byte
         # grid: every run of the launch takes the per-sample step
         pitch = W4K + 8
@@ -1063,7 +1068,8 @@ def phase_kernels(dev):
               "the 16-byte path")
         for occlusion in (False, True):
             tt = torch.tensor(0.3, dtype=torch.float32, device=dev)
-            args = (*odd, blurred, tt, rs, W4K, 0, (0, 255), occlusion, fr)
+            args = (*odd, block, tt, rs, W4K, 0, (0, 255), occlusion,
+                    subpel)
             e = max_err(KQ.bilinear_blend(*args),
                         KQ.bilinear_blend_plain(*args))
             log(f"  {what} pitch {pitch} occlusion={occlusion} (per-sample "
@@ -1075,7 +1081,7 @@ def phase_kernels(dev):
                 f"per-sample launch {r['per_sample_device_ms']:.4f} ms), "
                 f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
                 f"ms ({r['bound'][1]})")
-        if fr is None:
+        if not subpel:
             results[key] = dict(q1[(0, True)], max_abs_err=err,
                                 p010=q1[(8, True)], nv12=q1[(0, False)])
         else:

@@ -30,12 +30,15 @@
 //   * the level maps levels_y / levels_uv (warp_common.cuh).
 // With the measured sub-pel flow (kFrac, the subpel_flow option: the
 // bilinear branch of _warp_sample with its FX fields, :1021-1032 luma,
-// :1113-1126 chroma) a (2, lh, lw) int32 field frac in 1/64 pel comes
-// with the flow: the positions are (p << 6) + iround(float((flow12 << 6) +
-// frac12) * fs12) and (p << 6) - iround(float((flow21 << 6) + frac21) *
-// fs21), fs halved for chroma, with frac21 read at the SAME back-projected
-// low-res cell as flow21.  At frac = 0 these are the positions above (the
-// products differ from flow * (fs * 64) by an exact power of two).
+// :1113-1126 chroma) the field is K1's blur of the 1/64-pel field b =
+// (offset << 6) + frac, which the JAX engine splits into its floor flow =
+// b >> 6 and frac = b - (flow << 6) and puts back together as (flow << 6)
+// + frac, b exactly.  So the kernel takes b whole: the positions are (p <<
+// 6) + iround(float(b12) * fs12) and (p << 6) - iround(float(b21) * fs21),
+// fs halved for chroma, with b21 read at the cell back-projected by b12 >>
+// 6 (arithmetic), and the pair runs no tensor op between K1 and Q1.  At b
+// = flow << 6 these are the positions above (the products differ from
+// flow * (fs * 64) by an exact power of two).
 //
 // The design: K5's 16-byte runs (warp_runs.cuh).  A thread owns one
 // 16-byte output run of one row, cut into flow-cell segments as K5 cuts
@@ -125,11 +128,12 @@ __device__ __forceinline__ unsigned bilinear_mix(int q12, int q21, float t,
 // The 1/64-pel displacements d = {x12, y12, x21, y21} of the segment whose
 // first output sample is (xs, cy): the flow at its low-res cell and the
 // reverse flow at the back-projected cell, each product rounded once.
-// With kFrac each flow is (flow << 6) + frac at the same cell, scaled by t
-// (chroma t * 0.5); without, flow * (t * 64) (chroma t * 32).
+// With kFrac the field is in 1/64 pel, its floor >> 6 the pel the
+// back-projection reads, and each value is scaled by t (chroma t * 0.5);
+// without, the field is in pels, scaled by t * 64 (chroma t * 32): the
+// same products, since the units are powers of two.
 template <bool kChroma, bool kFrac>
 __device__ __forceinline__ void displacements(const int* __restrict__ blurred,
-                                              const int* __restrict__ frac,
                                               int xs, int cy, int lh, int lw,
                                               int rs, float t, float fs21,
                                               int d[4]) {
@@ -138,28 +142,18 @@ __device__ __forceinline__ void displacements(const int* __restrict__ blurred,
   const size_t plane = (size_t)lh * lw;
   const int c = scy * lw + scx;
   const int ox12 = blurred[c], oy12 = blurred[plane + c];
-  const int bscy = min(max(scy - (oy12 >> rs), 0), lh - 1);
-  const int bscx = min(max(scx - (ox12 >> rs), 0), lw - 1);
+  constexpr int pel = kFrac ? 6 : 0;
+  const int bscy = min(max(scy - ((oy12 >> pel) >> rs), 0), lh - 1);
+  const int bscx = min(max(scx - ((ox12 >> pel) >> rs), 0), lw - 1);
   const int r = bscy * lw + bscx;
   const int ox21 = blurred[r], oy21 = blurred[plane + r];
-  if constexpr (kFrac) {
-    const float s12 = kChroma ? __fmul_rn(t, 0.5f) : t;
-    const float s21 = kChroma ? __fmul_rn(fs21, 0.5f) : fs21;
-    d[0] = mfi::iround(__fmul_rn(__int2float_rn(ox12 * 64 + frac[c]), s12));
-    d[1] = mfi::iround(
-        __fmul_rn(__int2float_rn(oy12 * 64 + frac[plane + c]), s12));
-    d[2] = -mfi::iround(
-        __fmul_rn(__int2float_rn(ox21 * 64 + frac[r]), s21));
-    d[3] = -mfi::iround(
-        __fmul_rn(__int2float_rn(oy21 * 64 + frac[plane + r]), s21));
-  } else {
-    const float unit = kChroma ? 32.0f : 64.0f;
-    const float s12 = __fmul_rn(t, unit), s21 = __fmul_rn(fs21, unit);
-    d[0] = mfi::iround(__fmul_rn(__int2float_rn(ox12), s12));
-    d[1] = mfi::iround(__fmul_rn(__int2float_rn(oy12), s12));
-    d[2] = -mfi::iround(__fmul_rn(__int2float_rn(ox21), s21));
-    d[3] = -mfi::iround(__fmul_rn(__int2float_rn(oy21), s21));
-  }
+  const float unit = kFrac ? (kChroma ? 0.5f : 1.0f)
+                          : (kChroma ? 32.0f : 64.0f);
+  const float s12 = __fmul_rn(t, unit), s21 = __fmul_rn(fs21, unit);
+  d[0] = mfi::iround(__fmul_rn(__int2float_rn(ox12), s12));
+  d[1] = mfi::iround(__fmul_rn(__int2float_rn(oy12), s12));
+  d[2] = -mfi::iround(__fmul_rn(__int2float_rn(ox21), s21));
+  d[3] = -mfi::iround(__fmul_rn(__int2float_rn(oy21), s21));
 }
 
 // The bilinear sample of window position j, its taps at j and j + kStep of
@@ -180,9 +174,9 @@ __device__ __forceinline__ int window_tap(const unsigned* r0,
 template <typename T, bool kChroma, bool kOcclusion, bool kFrac, int kLogSeg>
 __device__ __forceinline__ void bilinear_run(
     const T* __restrict__ f1, const T* __restrict__ f2,
-    const int* __restrict__ blurred, const int* __restrict__ frac, float t,
-    T* __restrict__ o, int x0, int cy, int rows, int Wa, int pitch, int lh,
-    int lw, int rs, int ss, const mfi::Levels& lv, int vec) {
+    const int* __restrict__ blurred, float t, T* __restrict__ o, int x0,
+    int cy, int rows, int Wa, int pitch, int lh, int lw, int rs, int ss,
+    const mfi::Levels& lv, int vec) {
   constexpr int item = sizeof(T);
   constexpr int kE = 16 / item;          // samples a run
   constexpr int kSeg = 1 << kLogSeg;
@@ -199,7 +193,7 @@ __device__ __forceinline__ void bilinear_run(
 #pragma unroll
   for (int g = 0; g < kNSeg; ++g) {
     const int xs = x0 + g * kSeg;
-    displacements<kChroma, kFrac>(blurred, frac, xs, cy, lh, lw, rs, t, fs21,
+    displacements<kChroma, kFrac>(blurred, xs, cy, lh, lw, rs, t, fs21,
                                   d[g]);
     // both taps of every sample, in rows y0 and y0 + 1: the planar
     // segment widened by one column and one row
@@ -266,10 +260,10 @@ template <typename T, bool kOcclusion, bool kFrac, int kLogSegY,
 __global__ void __launch_bounds__(kBX * kBY) bilinear_blend_kernel(
     const T* __restrict__ f1y, const T* __restrict__ f1uv,
     const T* __restrict__ f2y, const T* __restrict__ f2uv,
-    const int* __restrict__ blurred, const int* __restrict__ frac,
-    const float* __restrict__ t, T* __restrict__ out_y,
-    T* __restrict__ out_uv, int H, int Wa, int pitch, int lh, int lw, int rs,
-    int luma_blocks, int ss, mfi::Levels lv, int vec) {
+    const int* __restrict__ blurred, const float* __restrict__ t,
+    T* __restrict__ out_y, T* __restrict__ out_uv, int H, int Wa, int pitch,
+    int lh, int lw, int rs, int luma_blocks, int ss, mfi::Levels lv,
+    int vec) {
   constexpr int kE = 16 / sizeof(T);
   const bool chroma = (int)blockIdx.y >= luma_blocks;
   const int x0 = (blockIdx.x * kBX + threadIdx.x) * kE;
@@ -280,11 +274,11 @@ __global__ void __launch_bounds__(kBX * kBY) bilinear_blend_kernel(
   const float t12 = *t;
   if (chroma)
     bilinear_run<T, true, kOcclusion, kFrac, kLogSegC>(
-        f1uv, f2uv, blurred, frac, t12, out_uv + (size_t)cy * Wa + x0, x0, cy,
+        f1uv, f2uv, blurred, t12, out_uv + (size_t)cy * Wa + x0, x0, cy,
         rows, Wa, pitch, lh, lw, rs, ss, lv, vec);
   else
     bilinear_run<T, false, kOcclusion, kFrac, kLogSegY>(
-        f1y, f2y, blurred, frac, t12, out_y + (size_t)cy * Wa + x0, x0, cy,
+        f1y, f2y, blurred, t12, out_y + (size_t)cy * Wa + x0, x0, cy,
         rows, Wa, pitch, lh, lw, rs, ss, lv, vec);
 }
 
@@ -293,20 +287,19 @@ struct Variant {
   template <typename T, int kLogSegY, int kLogSegC>
   struct Launch {
     static int run(const void* f1y, const void* f1uv, const void* f2y,
-                   const void* f2uv, const void* blurred, const void* frac,
-                   const void* t, void* out_y, void* out_uv, int H, int Wa,
-                   int pitch, int lh, int lw, int rs, int ss, int k, int w,
-                   int vec, cudaStream_t s) {
+                   const void* f2uv, const void* blurred, const void* t,
+                   void* out_y, void* out_uv, int H, int Wa, int pitch,
+                   int lh, int lw, int rs, int ss, int k, int w, int vec,
+                   cudaStream_t s) {
       int luma_blocks;
       const dim3 grid = mfi::two_plane_grid<T>(H, Wa, &luma_blocks);
       bilinear_blend_kernel<T, kOcclusion, kFrac, kLogSegY, kLogSegC>
           <<<grid, dim3(kBX, kBY), 0, s>>>(
               static_cast<const T*>(f1y), static_cast<const T*>(f1uv),
               static_cast<const T*>(f2y), static_cast<const T*>(f2uv),
-              static_cast<const int*>(blurred), static_cast<const int*>(frac),
-              static_cast<const float*>(t), static_cast<T*>(out_y),
-              static_cast<T*>(out_uv), H, Wa, pitch, lh, lw, rs, luma_blocks,
-              ss, mfi::levels(k, w), vec);
+              static_cast<const int*>(blurred), static_cast<const float*>(t),
+              static_cast<T*>(out_y), static_cast<T*>(out_uv), H, Wa, pitch,
+              lh, lw, rs, luma_blocks, ss, mfi::levels(k, w), vec);
       return (int)cudaGetLastError();
     }
   };
@@ -314,29 +307,28 @@ struct Variant {
 
 template <typename T, bool kOcclusion, bool kFrac>
 int launch(const void* f1y, const void* f1uv, const void* f2y,
-           const void* f2uv, const void* blurred, const void* frac,
-           const void* t, void* out_y, void* out_uv, int H, int Wa, int pitch,
-           int lh, int lw, int rs, int ss, int k, int w, int vec,
-           cudaStream_t s) {
+           const void* f2uv, const void* blurred, const void* t, void* out_y,
+           void* out_uv, int H, int Wa, int pitch, int lh, int lw, int rs,
+           int ss, int k, int w, int vec, cudaStream_t s) {
   const int item = (int)sizeof(T);
   const void* planes[] = {f1y, f1uv, f2y, f2uv, out_y, out_uv};
   if (vec && !mfi::vector_ok(planes, 6, pitch * item, Wa * item))
     return (int)cudaErrorMisalignedAddress;
   return mfi::dispatch_segments<T,
                                 Variant<kOcclusion, kFrac>::template Launch>(
-      rs, f1y, f1uv, f2y, f2uv, blurred, frac, t, out_y, out_uv, H, Wa, pitch,
-      lh, lw, rs, ss, k, w, vec, s);
+      rs, f1y, f1uv, f2y, f2uv, blurred, t, out_y, out_uv, H, Wa, pitch, lh,
+      lw, rs, ss, k, w, vec, s);
 }
 
 template <typename T>
 using LaunchFn = int (*)(const void*, const void*, const void*, const void*,
-                         const void*, const void*, const void*, void*, void*,
-                         int, int, int, int, int, int, int, int, int, int,
+                         const void*, const void*, void*, void*, int, int,
+                         int, int, int, int, int, int, int, int,
                          cudaStream_t);
 
 template <typename T>
-LaunchFn<T> launch_for(bool occlusion, bool frac) {
-  if (frac)
+LaunchFn<T> launch_for(bool occlusion, bool subpel) {
+  if (subpel)
     return occlusion ? &launch<T, true, true> : &launch<T, false, true>;
   return occlusion ? &launch<T, true, false> : &launch<T, false, false>;
 }
@@ -344,29 +336,29 @@ LaunchFn<T> launch_for(bool occlusion, bool frac) {
 }  // namespace
 
 // f1y, f2y (H, pitch) and f1uv, f2uv (H/2, pitch) interleaved sources;
-// blurred (2, lh, lw) int32; frac null, or (2, lh, lw) int32 the sub-pel
-// field in 1/64 pel; t one float on the device; out_y (H, Wa) and out_uv
-// (H/2, Wa) interleaved; all contiguous, uint8 when ss == 0 and uint16
-// when ss == 8; (k, w) the levels; occlusion 1 for hopperxq; vec: 1 for
-// the 16-byte runs (refused unless every plane pointer is 16-byte aligned
-// and pitch and Wa are rows of a multiple of 16 bytes), 0 for the
-// per-sample step in every run.
+// blurred (2, lh, lw) int32, the flow in pels, or with subpel 1 the
+// sub-pel flow's 1/64-pel field (K1's blur of it, whole); t one float on
+// the device; out_y (H, Wa) and out_uv (H/2, Wa) interleaved; all
+// contiguous, uint8 when ss == 0 and uint16 when ss == 8; (k, w) the
+// levels; occlusion 1 for hopperxq; vec: 1 for the 16-byte runs (refused
+// unless every plane pointer is 16-byte aligned and pitch and Wa are rows
+// of a multiple of 16 bytes), 0 for the per-sample step in every run.
 extern "C" int mfi_bilinear_blend(const void* f1y, const void* f1uv,
                                   const void* f2y, const void* f2uv,
-                                  const void* blurred, const void* frac,
-                                  const void* t, void* out_y, void* out_uv,
-                                  int H, int Wa, int pitch, int lh, int lw,
-                                  int rs, int ss, int k, int w, int occlusion,
+                                  const void* blurred, const void* t,
+                                  void* out_y, void* out_uv, int H, int Wa,
+                                  int pitch, int lh, int lw, int rs, int ss,
+                                  int k, int w, int occlusion, int subpel,
                                   int vec, void* stream) {
   if (H < 6 || Wa < 6 || (Wa & 1) || pitch < Wa || lh < 1 || lw < 1 ||
       (ss != 0 && ss != 8))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ss)
-    return launch_for<uint16_t>(occlusion, frac != nullptr)(
-        f1y, f1uv, f2y, f2uv, blurred, frac, t, out_y, out_uv, H, Wa, pitch,
-        lh, lw, rs, ss, k, w, vec, s);
-  return launch_for<uint8_t>(occlusion, frac != nullptr)(
-      f1y, f1uv, f2y, f2uv, blurred, frac, t, out_y, out_uv, H, Wa, pitch, lh,
-      lw, rs, ss, k, w, vec, s);
+    return launch_for<uint16_t>(occlusion, subpel)(
+        f1y, f1uv, f2y, f2uv, blurred, t, out_y, out_uv, H, Wa, pitch, lh,
+        lw, rs, ss, k, w, vec, s);
+  return launch_for<uint8_t>(occlusion, subpel)(
+      f1y, f1uv, f2y, f2uv, blurred, t, out_y, out_uv, H, Wa, pitch, lh, lw,
+      rs, ss, k, w, vec, s);
 }

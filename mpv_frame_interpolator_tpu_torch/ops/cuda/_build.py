@@ -78,9 +78,9 @@ _SIGNATURES = {
     # s12y s12uv s21y s21uv t out_y out_uv | H Wa scale_shift black white
     # vec occlusion | stream
     "mfi_blend_levels": (P,) * 7 + (I,) * 7 + (P,),
-    # f1y f1uv f2y f2uv blurred frac t out_y out_uv | H Wa pitch lh lw rs
-    # scale_shift black white occlusion vec | stream
-    "mfi_bilinear_blend": (P,) * 9 + (I,) * 11 + (P,),
+    # f1y f1uv f2y f2uv blurred t out_y out_uv | H Wa pitch lh lw rs
+    # scale_shift black white occlusion subpel vec | stream
+    "mfi_bilinear_blend": (P,) * 8 + (I,) * 12 + (P,),
     # f1y f1uv f2y f2uv blurred t out_y out_uv | mode H Wa pitch lh lw rs
     # scale_shift black white | stream
     "mfi_warp_sbs": (P,) * 8 + (I,) * 10 + (P,),

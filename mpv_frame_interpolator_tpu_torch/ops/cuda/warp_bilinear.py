@@ -21,10 +21,17 @@ and the flow once and writes one (3 x 12.4 MB at 8 bits, ~11.5 us at
 3.35 TB/s); with the cell's work shared a sample needs ~28 operations
 (~49 with the occlusion correction), ~5-9 us at 67 TOP/s.
 
-With the measured sub-pel flow (the ``subpel_flow`` option) a (2, lh,
-lw) int32 field ``frac`` in 1/64 pel comes with the flow, and the
-positions are taken from (flow << 6) + frac (the kernel's ``kFrac``
-instantiation).
+With the measured sub-pel flow (the ``subpel_flow`` option) the field is
+K1's blur of the 1/64-pel field (offset << 6) + frac, handed over whole
+(``subpel=True``, the kernel's ``kFrac`` instantiation): the positions
+are taken from it directly and the back-projected cell from its floor
+>> 6, which is what the JAX engine's split into flow = b >> 6 and frac =
+b - (flow << 6), put back together as (flow << 6) + frac, gives.  So no
+tensor op splits the field between K1 and Q1.
+
+The card path opens the spans ``mfi.q1`` (its checks, allocations and
+launch) and ``mfi.q1.alloc`` (the outputs' allocations) while a profiler
+records (``utils/trace``).
 
 ``ops/warp.bilinear_blend`` (with ``bilinear_sample``) is the plain
 version and the specification.  ``bilinear_blend`` here dispatches on the
@@ -39,6 +46,7 @@ import torch
 from mpv_frame_interpolator_tpu_torch.ops import warp as W
 from mpv_frame_interpolator_tpu_torch.ops.cuda import _build
 from mpv_frame_interpolator_tpu_torch.ops.cuda import warp_pair
+from mpv_frame_interpolator_tpu_torch.utils.trace import annotate
 
 counts = _build.LaunchCounts()
 
@@ -47,19 +55,20 @@ bilinear_blend_plain = W.bilinear_blend
 
 def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
                    actual_width: int, scale_shift: int = 0, levels=(0, 255),
-                   occlusion: bool = False, frac=None, vector: bool = True):
+                   occlusion: bool = False, subpel: bool = False,
+                   vector: bool = True):
     """One blended position at 1/64-pel bilinear samples.
 
     f1y/f2y (H, stride) and f1uv/f2uv (H/2, stride) interleaved planes of
     the older and newer frame, uint8 for scale_shift 0 and uint16 for 8;
-    blurred (2, lh, lw) int32 flow; t a one-element float32 tensor on the
+    blurred (2, lh, lw) int32 flow in pels, or with subpel True the
+    sub-pel flow's 1/64-pel field; t a one-element float32 tensor on the
     planes' device; levels (k, w) as ints on the 8-bit scale
-    (``ops/warp.level_ints``); occlusion True for hopperxq; frac None or
-    the (2, lh, lw) int32 sub-pel field; vector False sends every run of
-    a launch on the card through the per-sample step (otherwise the
-    16-byte runs where the planes allow them, ``warp_pair.vector_path``).
-    Returns (y (H, Wa), uv (H/2, Wa) interleaved) of the planes'
-    dtype."""
+    (``ops/warp.level_ints``); occlusion True for hopperxq; vector False
+    sends every run of a launch on the card through the per-sample step
+    (otherwise the 16-byte runs where the planes allow them,
+    ``warp_pair.vector_path``).  Returns (y (H, Wa), uv (H/2, Wa)
+    interleaved) of the planes' dtype."""
     H, pitch, sample = warp_pair.check_args(f1y, f1uv, f2y, f2uv, blurred,
                                             actual_width, scale_shift)
     if actual_width % 2 or actual_width < 6:
@@ -72,29 +81,28 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
         counts.plain += 1
         return bilinear_blend_plain(f1y, f1uv, f2y, f2uv, blurred, t, rs,
                                     actual_width, scale_shift, levels,
-                                    occlusion, frac)
-    dev = f1y.device
-    hc = H // 2
-    _build.require(f1y, "f1y", sample, (H, pitch), dev)
-    _build.require(f2y, "f2y", sample, (H, pitch), dev)
-    _build.require(f1uv, "f1uv", sample, (hc, pitch), dev)
-    _build.require(f2uv, "f2uv", sample, (hc, pitch), dev)
-    _build.require(blurred, "blurred", torch.int32, None, dev)
-    _build.require(t, "t", torch.float32, None, dev)
-    _, lh, lw = blurred.shape
-    if frac is not None:
-        _build.require(frac, "frac", torch.int32, tuple(blurred.shape), dev)
-    k, w = levels
-    y = torch.empty((H, actual_width), dtype=sample, device=dev)
-    uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
-    vec = vector and warp_pair.vector_path((f1y, f1uv, f2y, f2uv, y, uv),
-                                           actual_width)
-    rc = _build.load().mfi_bilinear_blend(
-        f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
-        blurred.data_ptr(), None if frac is None else frac.data_ptr(),
-        t.data_ptr(), y.data_ptr(), uv.data_ptr(), H,
-        actual_width, pitch, lh, lw, rs, scale_shift, k, w, int(occlusion),
-        int(vec), _build.stream_of(f1y))
-    _build.check("bilinear_blend", rc)
-    counts.kernel += 1
+                                    occlusion, subpel)
+    with annotate("mfi.q1"):
+        dev = f1y.device
+        hc = H // 2
+        _build.require(f1y, "f1y", sample, (H, pitch), dev)
+        _build.require(f2y, "f2y", sample, (H, pitch), dev)
+        _build.require(f1uv, "f1uv", sample, (hc, pitch), dev)
+        _build.require(f2uv, "f2uv", sample, (hc, pitch), dev)
+        _build.require(blurred, "blurred", torch.int32, None, dev)
+        _build.require(t, "t", torch.float32, None, dev)
+        _, lh, lw = blurred.shape
+        k, w = levels
+        with annotate("mfi.q1.alloc"):
+            y = torch.empty((H, actual_width), dtype=sample, device=dev)
+            uv = torch.empty((hc, actual_width), dtype=sample, device=dev)
+        vec = vector and warp_pair.vector_path((f1y, f1uv, f2y, f2uv, y, uv),
+                                               actual_width)
+        rc = _build.load().mfi_bilinear_blend(
+            f1y.data_ptr(), f1uv.data_ptr(), f2y.data_ptr(), f2uv.data_ptr(),
+            blurred.data_ptr(), t.data_ptr(), y.data_ptr(), uv.data_ptr(), H,
+            actual_width, pitch, lh, lw, rs, scale_shift, k, w,
+            int(occlusion), int(subpel), int(vec), _build.stream_of(f1y))
+        _build.check("bilinear_blend", rc)
+        counts.kernel += 1
     return y, uv

@@ -351,7 +351,8 @@ def _bilinear_mix(q12: torch.Tensor, q21: torch.Tensor, t: torch.Tensor,
 
 def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
                    actual_width: int, scale_shift: int = 0,
-                   levels=(0, 255), occlusion: bool = False, frac=None):
+                   levels=(0, 255), occlusion: bool = False,
+                   subpel: bool = False):
     """One blended position of the hopperq (occlusion=False) or hopperxq
     (occlusion=True) family: (y (H, Wa), uv (H/2, Wa) interleaved) of the
     planes' dtype (ops/warp._warp_sample, bilinear=True).
@@ -365,21 +366,21 @@ def bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t, rs: int,
     _bilinear_mix and the level maps.  t is a one-element float32
     tensor.
 
-    With `frac`, the (2, lh, lw) int32 sub-pel field in 1/64 pel (the
-    subpel_flow option; the JAX branch with its FX fields), each flow is
-    (flow << 6) + frac, the reverse frac read at the same back-projected
-    cell as the reverse flow, and the positions are p << 6 plus
-    iround(that * t) (chroma: * (t * 0.5)); at frac = 0 they are the
-    positions above."""
+    With `subpel`, `blurred` is the sub-pel flow's (2, lh, lw) int32
+    field b in 1/64 pel (the subpel_flow option; the JAX branch with its
+    FX fields, which takes the engine's split flow = b >> 6, frac = b -
+    (flow << 6) as (flow << 6) + frac, b itself): the reverse value is read
+    at the cell back-projected by b >> 6, and the positions are p << 6
+    plus iround(b * t) (chroma: * (t * 0.5)); at b = flow << 6 they are
+    the positions above."""
     k, w = levels
-    fields = reverse_fields(blurred, rs)
-    if frac is None:
-        units = (64.0, 32.0)
+    if subpel:
+        bscy, bscx = back_cells(blurred >> 6, rs)
+        fields = (blurred[0], blurred[1], blurred[0][bscy, bscx],
+                  blurred[1][bscy, bscx])
     else:
-        bscy, bscx = back_cells(blurred, rs)
-        fracs = (frac[0], frac[1], frac[0][bscy, bscx], frac[1][bscy, bscx])
-        fields = [(f << 6) + q for f, q in zip(fields, fracs)]
-        units = (1.0, 0.5)
+        fields = reverse_fields(blurred, rs)
+    units = (1.0, 0.5) if subpel else (64.0, 32.0)
     t = t.to(torch.float32).reshape(())
     fs21 = 1.0 - t
     H, dev, dtype = f1y.shape[0], f1y.device, f1y.dtype

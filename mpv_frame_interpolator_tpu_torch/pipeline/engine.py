@@ -19,9 +19,10 @@ Per source pair, on the engine's device and without a host sync:
    a zero field.  Under ``subpel_flow`` the same launch turns the
    unblurred offset into the 1/64-pel field (offset << 6) + frac after
    its last step (S1's phases, ``ops/cuda/subpel.py``) and blurs that in
-   its blur phase; hopperq and hopperxq take the floor of the blur and
-   its 1/64-pel remainder, hopper and hopperx the blur rounded to the
-   nearest pel;
+   its blur phase; hopperq and hopperxq hand the blurred 1/64-pel field
+   to the bilinear kernel whole in mode 2 (no tensor op between the two
+   launches; their other modes read its floor), hopper and hopperx the
+   blur rounded to the nearest pel;
 3. the outputs, luma and interleaved chroma, by output mode and model:
 
    * mode 2 (blended), models hopper, blend and repeat, under
@@ -333,50 +334,55 @@ def _flow_stage(geom, scale_shift: int, model: str, f1: DeviceFrame,
                 f2: DeviceFrame, probe, cut, radius: int, ds: int, nbs: int,
                 layers: int, subpel: bool = False):
     """Hierarchical flow of one pair on the prologue's probe: (blurred
-    flow, frac or None), zero where the pair's cut flag `cut` is set (K1's
-    blur phase writes the zeros).  `layers` is the kernel's layer count
-    for the radius.  The blend and repeat families search no flow: their
-    field is zero.  Under `subpel` the unblurred offset is refined to 1/64
-    pel and that field blurred (JAX engine.py:486-515): hopperq and
-    hopperxq take its floor and the 1/64-pel remainder `frac`, hopper and
-    hopperx its rounding to the nearest pel (a zeroed field gives a zero
-    flow and a zero frac)."""
+    field, True when it is in 1/64 pel), zero where the pair's cut flag
+    `cut` is set (K1's blur phase writes the zeros).  `layers` is the
+    kernel's layer count for the radius.  The blend and repeat families
+    search no flow: their field is zero.  Under `subpel` the unblurred
+    offset is refined to 1/64 pel and that field blurred (JAX
+    engine.py:486-515): hopperq and hopperxq take that 1/64-pel field
+    whole (``_warp_stage`` floors it only where a mode reads pels), hopper
+    and hopperx its rounding to the nearest pel."""
     if model not in FLOW_MODELS:
         return torch.zeros((2, geom.low_h, geom.low_w), dtype=torch.int32,
-                           device=f1.y.device), None
+                           device=f1.y.device), False
     args = (geom, f1.y, f1.u, f1.v, f2.y, f2.u, f2.v)
     kw = dict(layers=layers, probe=probe, cut=cut)
     if not subpel:
         _, blurred = flow_ops.flow(*args, radius, ds, nbs, scale_shift, **kw)
-        return blurred, None
+        return blurred, False
     _, b64 = flow_ops.flow(*args, radius, ds, nbs, scale_shift, subpel=True,
                            **kw)
     if model in ("hopperq", "hopperxq"):
-        blurred = b64 >> 6
-        return blurred, b64 - (blurred << 6)
-    return (b64 + 32) >> 6, None
+        return b64, True
+    return (b64 + 32) >> 6, False
 
 
 def _warp_stage(geom, scale_shift: int, levels, mode: int, sampling: str,
-                model: str, planes, blurred, ts, frac=None):
+                model: str, planes, blurred, ts, subpel: bool = False):
     """Every output of the pair: (y, uv), each indexable by position --
     (N, H, Wa) and (N, H/2, Wa) tensors from one pair-blend call, or lists
     of N planes.  `planes` is (f1y, f1uv, f2y, f2uv); `ts` the blend
     positions as the outputs take them (in the engine, the prologue's, with
-    the cut and model "repeat" folded in); `frac` the sub-pel field of the
-    bilinear families (their blended mode reads it) or None."""
+    the cut and model "repeat" folded in); `blurred` the flow, or with
+    `subpel` the bilinear families' blurred 1/64-pel field under
+    ``subpel_flow``: their blended mode hands it to Q1 whole, every other
+    mode reads its floor, the JAX engine's flow ``b64 >> 6``."""
     rs, wa = geom.res_scalar, geom.actual_width
-    args = (*planes, blurred)
     n = ts.shape[0]
     blended = mode == warp_ops.BLENDED_FRAME
+    if blended and model in ("hopperq", "hopperxq"):
+        outs = [bilinear_blend(*planes, blurred, ts[i], rs, wa, scale_shift,
+                               levels, model == "hopperxq", subpel)
+                for i in range(n)]
+        return [y for y, _ in outs], [uv for _, uv in outs]
+    if subpel:
+        blurred = blurred >> 6
+    args = (*planes, blurred)
     if mode == warp_ops.GREY_FLOW:
         y, uv = _k_views.warp_grey(blurred, rs, geom.height, wa, scale_shift,
                                    planes[0].dtype)
         return [y] * n, [uv] * n
-    if blended and model in ("hopperq", "hopperxq"):
-        outs = [bilinear_blend(*args, ts[i], rs, wa, scale_shift, levels,
-                               model == "hopperxq", frac) for i in range(n)]
-    elif blended and model == "hopperx":
+    if blended and model == "hopperx":
         outs = [_blended_from_samples(scale_shift, levels, rs, wa, args,
                                       ts[i], occlusion=True)
                 for i in range(n)]
@@ -952,7 +958,7 @@ class InterpolationEngine:
                 knobs.scene_enabled, knobs.scene_threshold,
                 self.config.cut_policy, model == "repeat",
                 probe=model in FLOW_MODELS, partials=self._partials)
-            blurred, frac = _flow_stage(
+            blurred, subpel = _flow_stage(
                 geom, self._scale_shift, model, f1, f2, pro.probe, pro.cut,
                 radius, knobs.delta_scalar, knobs.neighbor_bias_scalar,
                 self._layers_for(radius), self.config.subpel_flow)
@@ -961,7 +967,7 @@ class InterpolationEngine:
             y, uv = _warp_stage(geom, self._scale_shift, knobs.levels,
                                 knobs.mode, self.config.warp_sampling, model,
                                 (f1.y, f1.uv, f2.y, f2.uv), blurred, pro.ts,
-                                frac)
+                                subpel)
         return y, uv, pro.score
 
     # -- grouped dispatch (the encode path) ------------------------------

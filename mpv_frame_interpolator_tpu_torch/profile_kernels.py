@@ -421,18 +421,19 @@ def main(argv=None) -> int:
     # the items this PR's tree added, after every item both trees have,
     # so that both run those in the same order on the same card state
     if KQ is not None and \
-            "frac" in inspect.signature(KQ.bilinear_blend).parameters:
-        frac = torch.from_numpy(rng.integers(
+            "subpel" in inspect.signature(KQ.bilinear_blend).parameters:
+        # the sub-pel flow's 1/64-pel field, (flow << 6) + frac
+        field = (blurred << 6) + torch.from_numpy(rng.integers(
             0, 64, tuple(blurred.shape)).astype(np.int32)).to(dev)
         out["q1_frac_device_ms"] = device_ms(lambda: KQ.bilinear_blend(
-            f1y, f1uv, f2y, f2uv, blurred, t, rs, W4K, frac=frac))
+            f1y, f1uv, f2y, f2uv, field, t, rs, W4K, subpel=True))
         out["q1_frac_occlusion_device_ms"] = device_ms(
-            lambda: KQ.bilinear_blend(f1y, f1uv, f2y, f2uv, blurred, t,
-                                      rs, W4K, 0, (0, 255), True, frac))
+            lambda: KQ.bilinear_blend(f1y, f1uv, f2y, f2uv, field, t,
+                                      rs, W4K, 0, (0, 255), True, True))
         out["q1_frac_occlusion_p010_device_ms"] = device_ms(
-            lambda: KQ.bilinear_blend(g1y, g1uv, g2y, g2uv, blurred, t,
+            lambda: KQ.bilinear_blend(g1y, g1uv, g2y, g2uv, field, t,
                                       rs, W4K, 8, W.level_ints(16, 235),
-                                      True, frac))
+                                      True, True))
     else:
         out["q1_frac_device_ms"] = out["q1_frac_occlusion_device_ms"] = \
             out["q1_frac_occlusion_p010_device_ms"] = "absent"

@@ -18,9 +18,10 @@ a card each reaches its kernel: the flow is one K1 launch with its blur
 phase (the sub-pel columns' one K1 launch with S1's phases before the
 blur phase); blend (a zero field) and hopper one K2 launch a position;
 hopperx two K5 launches and G1's occlusion variant; hopperq and hopperxq
-one Q1 launch, with the sub-pel field (``frac``) in the ``+subpel``
-columns.  The device defaults to the card and never falls back to the
-CPU; ``--device cpu`` runs the kernels' plain versions.
+one Q1 launch, with K1's blurred 1/64-pel field whole in the
+``+subpel`` columns, as the engine hands it over.  The device defaults to
+the card and never falls back to the CPU; ``--device cpu`` runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -154,14 +155,16 @@ class Report:
         return "\n".join(lines) + "\n"
 
 
-def render(geom, model: str, planes, field, frac, t: float) -> np.ndarray:
+def render(geom, model: str, planes, field, subpel: bool, t: float
+           ) -> np.ndarray:
     """The luma plane the engine writes for `model` at blend position t
     (mode 2, levels 0 / 255, the default sampler), on the planes'
-    device, as a host array."""
+    device, as a host array; `field` the flow, or with `subpel` the
+    sub-pel flow's blurred 1/64-pel field."""
     ts = torch.tensor([t], dtype=torch.float32, device=planes[0].device)
     y, _ = _warp_stage(geom, 0, warp_ops.level_ints(0.0, 255.0),
                        warp_ops.BLENDED_FRAME, "pair", model, planes, field,
-                       ts, frac)
+                       ts, subpel)
     return y[0].cpu().numpy()
 
 
@@ -182,9 +185,8 @@ def report(shift, device="cuda", quiet: bool = False) -> Report:
         _, b64 = flow_ops.flow(m.geom, *planar, m.search_radius,
                                m.delta_scalar, m.neighbor_bias_scalar,
                                m.scale_shift, subpel=True)
-    blur_sub = b64 >> 6
-    fields = {"none": (torch.zeros_like(blur), None), "flow": (blur, None),
-              "subpel": (blur_sub, b64 - (blur_sub << 6))}
+    fields = {"none": (torch.zeros_like(blur), False), "flow": (blur, False),
+              "subpel": (b64, True)}
     sources = (d1.y, d1.uv, d2.y, d2.uv)
     rows, planes = [], {}
     for t in TS:

@@ -22,9 +22,10 @@ call of one group 5):
   read-back (``_collect_timing``);
 * ``mfi.pair``: the pair body (``_pair_outputs``, or ``push``'s launch
   plan, ``pipeline/push_plan.PushPlan.run``);
-* ``mfi.c1``, ``mfi.k1``, ``mfi.k2``, ``mfi.k4``: the card path of the
-  wrappers of C1 (``prologue.pair_prologue``), K1 (``flow_step``'s
-  launch), K2 (``warp_pair.pair_blend``) and K4 (``warp_fused.fused_blend``);
+* ``mfi.c1``, ``mfi.k1``, ``mfi.k2``, ``mfi.k4``, ``mfi.q1``: the card
+  path of the wrappers of C1 (``prologue.pair_prologue``), K1
+  (``flow_step``'s launch), K2 (``warp_pair.pair_blend``), K4
+  (``warp_fused.fused_blend``) and Q1 (``warp_bilinear.bilinear_blend``);
   each holds ``mfi.<k>.alloc``, its output allocations, so the span less
   that child is the card path's checks and its launch.  On ``push``'s
   launch plan, ``mfi.c1``, ``mfi.k1`` and ``mfi.k2`` hold the plan's
@@ -56,8 +57,9 @@ TRACE_FILE = "trace.json"
 
 SPANS = ("mfi.push", "mfi.push_many", "mfi.engine.wait", "mfi.pair",
          "mfi.c1", "mfi.c1.alloc", "mfi.k1", "mfi.k1.alloc", "mfi.k2",
-         "mfi.k2.alloc", "mfi.k4", "mfi.k4.alloc", "mfi.group.fill",
-         "mfi.group.replay", "mfi.group.copy_out", "mfi.group.capture")
+         "mfi.k2.alloc", "mfi.k4", "mfi.k4.alloc", "mfi.q1", "mfi.q1.alloc",
+         "mfi.group.fill", "mfi.group.replay", "mfi.group.copy_out",
+         "mfi.group.capture")
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 

@@ -53,7 +53,7 @@ def _taps(src, rows, cols, fx, fy):
     return top * (64 - fy) + bot * fy
 
 
-def _plane_bilinear_runs(f1, f2, blurred, frac, t, rs, rows, wa, chroma, ss,
+def _plane_bilinear_runs(f1, f2, blurred, subpel, t, rs, rows, wa, chroma, ss,
                          levels, occlusion, vec, chroma_step=2):
     """One plane through Q1's runs: the (rows, wa) output and the (rows,
     runs) interior mask.  chroma_step is the distance between a chroma
@@ -78,20 +78,17 @@ def _plane_bilinear_runs(f1, f2, blurred, frac, t, rs, rows, wa, chroma, ss,
     bx, by = blurred[0].to(i64), blurred[1].to(i64)
     sy, sx = scy[:, None, None], scx[None]
     ox12, oy12 = bx[sy, sx], by[sy, sx]                # (Y, R, G)
-    bsy = (sy - (oy12 >> rs)).clamp(0, lh - 1)
-    bsx = (sx - (ox12 >> rs)).clamp(0, lw - 1)
+    pel = 6 if subpel else 0     # the 1/64-pel field's floor is the pel
+    bsy = (sy - ((oy12 >> pel) >> rs)).clamp(0, lh - 1)
+    bsx = (sx - ((ox12 >> pel) >> rs)).clamp(0, lw - 1)
     ox21, oy21 = bx[bsy, bsx], by[bsy, bsx]
     t = t.to(f32).reshape(())
     fs21 = 1.0 - t
-    if frac is None:
-        unit = 32.0 if chroma else 64.0
-        s12, s21 = t * unit, fs21 * unit
+    if subpel:
+        unit = 0.5 if chroma else 1.0
     else:
-        fx_, fy_ = frac[0].to(i64), frac[1].to(i64)
-        ox12, oy12 = (ox12 << 6) + fx_[sy, sx], (oy12 << 6) + fy_[sy, sx]
-        ox21 = (ox21 << 6) + fx_[bsy, bsx]
-        oy21 = (oy21 << 6) + fy_[bsy, bsx]
-        s12, s21 = (t * 0.5, fs21 * 0.5) if chroma else (t, fs21)
+        unit = 32.0 if chroma else 64.0
+    s12, s21 = t * unit, fs21 * unit
     d = {12: (W.iround(ox12.to(f32) * s12).to(i64),
               W.iround(oy12.to(f32) * s12).to(i64)),
          21: (-W.iround(ox21.to(f32) * s21).to(i64),
@@ -154,7 +151,7 @@ def _plane_bilinear_runs(f1, f2, blurred, frac, t, rs, rows, wa, chroma, ss,
 
 
 def bilinear_runs_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, ss=0,
-                        levels=(0, 255), occlusion=False, frac=None,
+                        levels=(0, 255), occlusion=False, subpel=False,
                         chroma_step=2):
     """Q1 through its runs: (y, uv) of the planes' dtype and the count of
     interior runs of each plane."""
@@ -162,7 +159,7 @@ def bilinear_runs_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, ss=0,
     outs, counts = [], []
     for p1, p2, chroma in ((f1y, f2y, False), (f1uv, f2uv, True)):
         got, interior = _plane_bilinear_runs(
-            p1, p2, blurred, frac, t, rs, p1.shape[0], wa, chroma, ss,
+            p1, p2, blurred, subpel, t, rs, p1.shape[0], wa, chroma, ss,
             levels, occlusion, vec, chroma_step)
         outs.append(got.to(p1.dtype))
         counts.append(int(interior.sum()))
@@ -183,21 +180,22 @@ _TS = [0.0, 0.2, 0.5, 0.8, 1.0, 0.37]
        ragged=st.integers(0, 15), pad=st.sampled_from([0, 16, 6, 32]),
        rows=st.integers(3, 16), far=st.sampled_from([1, 2, 9, 40, 300]),
        levels=st.sampled_from(_LEVELS), t=st.sampled_from(_TS),
-       occlusion=st.booleans(), with_frac=st.booleans())
+       occlusion=st.booleans(), subpel=st.booleans())
 def test_bilinear_runs_equal_the_plain_version(seed, rs, ss, runs, ragged,
                                                pad, rows, far, levels, t,
-                                               occlusion, with_frac):
+                                               occlusion, subpel):
     item = 2 if ss else 1
     width = _even_width(runs, ragged, item)
     rng = np.random.default_rng(seed)
     planes, blurred = _case(rng, 2 * rows, width, width + pad, rs, ss, far)
-    frac = torch.from_numpy(rng.integers(-64, 65, tuple(blurred.shape))
-                            .astype(np.int32)) if with_frac else None
+    if subpel:      # the 1/64-pel field, remainders of both signs
+        blurred = (blurred << 6) + torch.from_numpy(rng.integers(
+            -64, 65, tuple(blurred.shape)).astype(np.int32))
     tt = torch.tensor(t, dtype=torch.float32)
     got, _ = bilinear_runs_model(*planes, blurred, tt, rs, width, ss, levels,
-                                 occlusion, frac)
+                                 occlusion, subpel)
     _equal(got, KQ.bilinear_blend_plain(*planes, blurred, tt, rs, width, ss,
-                                        levels, occlusion, frac))
+                                        levels, occlusion, subpel))
 
 
 @pytest.mark.parametrize("ss", [0, 8])
@@ -208,16 +206,17 @@ def test_interior_bilinear_runs_take_the_vector_path(rs, ss):
     sub-pel field; the result is still the plain version's."""
     rng = np.random.default_rng(10 * rs + ss)
     planes, blurred = _case(rng, 48, 128, 144, rs, ss, 3)
-    frac = torch.from_numpy(rng.integers(-32, 33, tuple(blurred.shape))
-                            .astype(np.int32))
+    field = (blurred << 6) + torch.from_numpy(rng.integers(
+        -32, 33, tuple(blurred.shape)).astype(np.int32))
     levels = W.level_ints(16, 235) if ss else (0, 255)
     t = torch.tensor(0.4)
     item = 2 if ss else 1
-    for f, occlusion in ((None, False), (frac, True)):
-        got, counts = bilinear_runs_model(*planes, blurred, t, rs, 128, ss,
-                                          levels, occlusion, f)
-        _equal(got, KQ.bilinear_blend_plain(*planes, blurred, t, rs, 128, ss,
-                                            levels, occlusion, f))
+    for flow, subpel in ((blurred, False), (field, True)):
+        occlusion = subpel
+        got, counts = bilinear_runs_model(*planes, flow, t, rs, 128, ss,
+                                          levels, occlusion, subpel)
+        _equal(got, KQ.bilinear_blend_plain(*planes, flow, t, rs, 128, ss,
+                                            levels, occlusion, subpel))
         assert sum(counts) > (48 + 24) * (128 * item // RUN) // 2, counts
         assert min(counts) > 0, counts
 
@@ -237,7 +236,7 @@ def test_frame_edges_are_always_edge_bilinear_runs(ss):
                            (planes[1], planes[3], True)):
         rows = p1.shape[0]
         _, interior = _plane_bilinear_runs(
-            p1, p2, blurred, None, torch.tensor(0.5), 0, rows, 64, chroma,
+            p1, p2, blurred, False, torch.tensor(0.5), 0, rows, 64, chroma,
             ss, (0, 255), False, True)
         want = torch.ones((rows, 64 // e), dtype=torch.bool)
         want[[0, -2, -1]], want[:, 0], want[:, -1] = False, False, False

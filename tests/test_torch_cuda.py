@@ -695,7 +695,7 @@ def _iround(x):
 
 
 def q1_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, scale_shift=0,
-             levels=(0, 255), occlusion=False, frac=None):
+             levels=(0, 255), occlusion=False, subpel=False):
     """csrc/warp_bilinear.cu's arithmetic in NumPy, addressed as the kernel's
     per-sample step addresses each output sample: the flow and
     back-projected reverse flow at the sample's cell (the kernel reads them
@@ -704,10 +704,10 @@ def q1_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, scale_shift=0,
     1/64-pel positions from one float32 product each, chroma read from the
     interleaved plane at column 2x + parity of the half-width position x,
     the taps mirrored, the float32 blend in the JAX order, the occlusion
-    correction and the level maps.  With `frac`
-    (the sub-pel field) each flow is (flow << 6) + frac, the reverse frac
-    read at the back-projected cell, scaled by t (chroma t * 0.5).
-    Returns (y, uv) of the planes' dtype."""
+    correction and the level maps.  With `subpel` the field is the
+    sub-pel flow's 1/64-pel field: each value scaled by t (chroma t *
+    0.5), the reverse one read at the cell back-projected by its floor
+    >> 6.  Returns (y, uv) of the planes' dtype."""
     t = np.float32(t)
     fs21 = np.float32(1.0) - t
     inv = np.float32(1.0 / 4096.0)
@@ -725,16 +725,12 @@ def q1_model(f1y, f1uv, f2y, f2uv, blurred, t, rs, wa, scale_shift=0,
             scx, scy = np.minimum(cx >> rs, lw - 1), np.minimum(cy >> rs,
                                                                  lh - 1)
         ox, oy = blurred[0][scy, scx], blurred[1][scy, scx]
-        bscy = np.clip(scy - (oy >> rs), 0, lh - 1)
-        bscx = np.clip(scx - (ox >> rs), 0, lw - 1)
+        pel = 6 if subpel else 0
+        bscy = np.clip(scy - ((oy >> pel) >> rs), 0, lh - 1)
+        bscx = np.clip(scx - ((ox >> pel) >> rs), 0, lw - 1)
         ox21, oy21 = blurred[0][bscy, bscx], blurred[1][bscy, bscx]
-        unit = np.float32(32.0 if chroma else 64.0)
-        if frac is not None:
-            ox, oy = (ox << 6) + frac[0][scy, scx], (oy << 6) + frac[1][
-                scy, scx]
-            ox21 = (ox21 << 6) + frac[0][bscy, bscx]
-            oy21 = (oy21 << 6) + frac[1][bscy, bscx]
-            unit = np.float32(0.5 if chroma else 1.0)
+        unit = np.float32((0.5 if chroma else 1.0) if subpel else
+                          (32.0 if chroma else 64.0))
         s12, s21 = t * unit, fs21 * unit
         bx, by = ((cx >> 1) if chroma else cx) << 6, cy << 6
         dim_x = wa >> 1 if chroma else wa
@@ -842,13 +838,15 @@ def test_bilinear_blend_runs(cuda, scale_shift, levels, h, w, stride, vec8,
     levels = W.level_ints(*levels)
     for lim in (3, 40):
         blurred = torch.from_numpy(_q1_flow(rng, geom, lim)).to(cuda)
-        frac = torch.from_numpy(rng.integers(-32, 33, tuple(blurred.shape))
-                                .astype(np.int32)).to(cuda)
-        for fr, occlusion in ((None, False), (frac, True)):
+        # the 1/64-pel field (flow << 6) + frac, remainders of both signs
+        field = (blurred << 6) + torch.from_numpy(rng.integers(
+            -32, 33, tuple(blurred.shape)).astype(np.int32)).to(cuda)
+        for flow, subpel in ((blurred, False), (field, True)):
+            occlusion = subpel
             for t in (0.0, 0.4, 0.9999, 1.0):
-                args = (f1[0], f1[1], f2[0], f2[1], blurred,
+                args = (f1[0], f1[1], f2[0], f2[1], flow,
                         torch.tensor(t, device=cuda), geom.res_scalar, w,
-                        scale_shift, levels, occlusion, fr)
+                        scale_shift, levels, occlusion, subpel)
                 before = KQ.counts.kernel
                 got = KQ.bilinear_blend(*args)
                 assert KQ.counts.kernel == before + 1
@@ -1030,11 +1028,14 @@ def test_subpel_refine(cuda, dt, luma_shift, h, w, stride, mcr):
                                                 (8, (16.0, 235.0))])
 @pytest.mark.parametrize("occlusion", [False, True])
 @pytest.mark.parametrize("h,w,stride", [(48, 64, 80), (544, 96, 96),
-                                        (64, 34, 48)])
+                                        (64, 34, 48), (2160, 3840, 3840)])
 def test_bilinear_blend_frac(cuda, scale_shift, levels, occlusion, h, w,
                              stride):
-    """Q1 with a sub-pel field (its kFrac instantiation) against its plain
-    version and q1_model; a zero field gives Q1 without one."""
+    """Q1 on the sub-pel flow's 1/64-pel field b (its kFrac instantiation),
+    as the engine hands K1's blur over, with remainders of both signs (so b
+    >> 6 floors), against its plain version on the 16-byte runs and the
+    per-sample step, and against q1_model below 4K; b at whole pels gives
+    Q1 on the flow."""
     rng = np.random.default_rng(h * w + stride + scale_shift + 17)
     dt = np.uint16 if scale_shift else np.uint8
     geom = F.FlowGeometry.create(h, stride, w)
@@ -1044,23 +1045,75 @@ def test_bilinear_blend_frac(cuda, scale_shift, levels, occlusion, h, w,
     host = [p.cpu().numpy() for p in (*f1, *f2)]
     for lim in (3, 400):
         flow = _q1_flow(rng, geom, lim)
-        frac = rng.integers(0, 64, flow.shape).astype(np.int32)
+        field = (flow << 6) + rng.integers(-63, 64, flow.shape).astype(
+            np.int32)
+        assert field.min() < 0 < field.max()
         blurred = torch.from_numpy(flow).to(cuda)
-        frac_d = torch.from_numpy(frac).to(cuda)
+        field_d = torch.from_numpy(field).to(cuda)
         for t in (0.0, 0.2, 0.5, 0.8, 1.0, 0.37):
-            args = (f1[0], f1[1], f2[0], f2[1], blurred,
-                    torch.tensor(t, device=cuda), geom.res_scalar, w,
-                    scale_shift, levels, occlusion)
+            tt = torch.tensor(t, device=cuda)
+            rest = (tt, geom.res_scalar, w, scale_shift, levels, occlusion)
             before = KQ.counts.kernel
-            got = KQ.bilinear_blend(*args, frac_d)
+            got = KQ.bilinear_blend(*f1, *f2, field_d, *rest, True)
             assert KQ.counts.kernel == before + 1
-            _equal(got, KQ.bilinear_blend_plain(*args, frac_d))
-            model = q1_model(*host, flow, t, geom.res_scalar, w,
-                             scale_shift, levels, occlusion, frac)
-            for g, m in zip(got, model):
-                np.testing.assert_array_equal(g.cpu().numpy(), m)
-            _equal(KQ.bilinear_blend(*args, torch.zeros_like(frac_d)),
-                   KQ.bilinear_blend(*args))
+            _equal(got, KQ.bilinear_blend_plain(*f1, *f2, field_d, *rest,
+                                                True))
+            _equal(got, KQ.bilinear_blend(*f1, *f2, field_d, *rest, True,
+                                          vector=False))
+            if h * w < 2160 * 3840:
+                model = q1_model(*host, field, t, geom.res_scalar, w,
+                                 scale_shift, levels, occlusion, True)
+                for g, m in zip(got, model):
+                    np.testing.assert_array_equal(g.cpu().numpy(), m)
+            _equal(KQ.bilinear_blend(*f1, *f2, blurred << 6, *rest, True),
+                   KQ.bilinear_blend(*f1, *f2, blurred, *rest))
+
+
+@pytest.mark.parametrize("pixfmt", ["p010", "nv12"])
+def test_q1_spans_on_the_card(cuda, pixfmt):
+    """A 4K hopperxq ``push`` pair under ``subpel_flow`` (C1, K1 with S1's
+    phases, Q1 x5 through the wrappers) opens ``mfi.q1`` inside
+    ``mfi.pair`` for each position, each around its ``mfi.q1.alloc``;
+    every span is one of ``utils/trace.SPANS``, none on the device; and
+    the pair makes 7 launches, no tensor op between K1 and Q1."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from mpv_frame_interpolator_tpu_torch.utils import trace
+    cfg = synthetic.SyntheticConfig(width=3840, height=2160, fps=24.0,
+                                    pixfmt=pixfmt)
+    ring = [frame_to_device(f, cuda)
+            for f in synthetic.moving_box(cfg, 3)]
+    frames = [dataclasses.replace(ring[i % 3], pts=i / 24.0)
+              for i in range(4)]
+    e = E.InterpolationEngine(E.EngineConfig(
+        device=str(cuda), display_fps=120.0, auto_quality=False,
+        model="hopperxq", subpel_flow=True, black_level=16.0,
+        white_level=235.0))
+    for f in frames[:3]:
+        e.push(f)
+    torch.cuda.synchronize()
+    launches = sum(c.kernel for c in E._KERNEL_COUNTS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        assert len(e.push(frames[3])) == 5
+        torch.cuda.synchronize()
+    assert sum(c.kernel for c in E._KERNEL_COUNTS) - launches == 7
+    spans, on_device = _host_spans(prof)
+    assert not on_device
+    got = [(s[0], _parent(s, spans)) for s in spans]
+    assert {name for name, _ in got} <= set(trace.SPANS)
+    assert got.count(("mfi.q1", "mfi.pair")) == 5
+    assert got.count(("mfi.q1.alloc", "mfi.q1")) == 5
+    assert e.plan_stats["pairs"] == 0
+    from torch.autograd import DeviceType
+    kernels = [ev.name for ev in sorted(
+        prof.events(), key=lambda ev: ev.time_range.start)
+        if ev.device_type != DeviceType.CPU]
+    q1 = [i for i, n in enumerate(kernels) if "bilinear_blend_kernel" in n]
+    k1 = [i for i, n in enumerate(kernels) if "pyramid_kernel" in n]
+    assert len(q1) == 5 and len(k1) == 1
+    # nothing on the card between K1 and the first Q1
+    assert q1[0] == k1[0] + 1, kernels
 
 
 @pytest.mark.parametrize("model,pixfmt,levels,subpel,level,radius", [

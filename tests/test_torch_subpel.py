@@ -9,12 +9,12 @@ the JAX package with the same seeded numpy inputs:
 * ``flow_pyramid(..., subpel=True)`` (on the card one launch: the
   pyramid, S1's phases, the blur) against the JAX pyramid, its
   ``subpel_refine`` and its blur of the 1/64-pel field, 8-bit and P010;
-* Q1's plain version with a sub-pel field against the JAX bilinear
-  branch with its FX fields (``_warp_fields(..., frac)`` and
-  ``_warp_sample(..., bilinear=True)``), NV12 and P010 with levels
+* Q1's plain version on the 1/64-pel field (flow << 6) + frac against
+  the JAX bilinear branch with its FX fields (``_warp_fields(..., frac)``
+  and ``_warp_sample(..., bilinear=True)``), NV12 and P010 with levels
   (16, 235), with and without occlusion, a stride wider than the picture;
-  a zero field changes nothing; ``q1_model`` (the kernel's arithmetic in
-  NumPy) agrees;
+  a field at whole pels gives Q1 on the flow; ``q1_model`` (the kernel's
+  arithmetic in NumPy) agrees;
 * the engine under ``subpel_flow=True`` against the JAX engine for
   hopperq and hopperxq in mode 2 (hopper and hopperx:
   ``tests/test_torch_subpel_engine.py``), with the launches on the CPU:
@@ -168,19 +168,23 @@ def test_bilinear_with_frac_equals_jax(h, w, stride, scale_shift, levels,
             occlusion_aware=occlusion, bilinear=True, sampling="gather")
         want = (np.asarray(y), interleave_chroma(np.asarray(u),
                                                  np.asarray(v)))
-        args = (*(torch.from_numpy(p) for p in planes),
-                torch.from_numpy(blur), torch.tensor(t), geom.res_scalar, w,
-                scale_shift, k_w, occlusion)
-        got = KQ.bilinear_blend(*args, torch.from_numpy(frac))
-        model = q1_model(*planes, blur, t, geom.res_scalar, w, scale_shift,
-                         k_w, occlusion, frac)
+        # the port takes the 1/64-pel field whole: (flow << 6) + frac
+        field = (blur << 6) + frac
+        srcs = [torch.from_numpy(p) for p in planes]
+        rest = (torch.tensor(t), geom.res_scalar, w, scale_shift, k_w,
+                occlusion)
+        got = KQ.bilinear_blend(*srcs, torch.from_numpy(field), *rest, True)
+        model = q1_model(*planes, field, t, geom.res_scalar, w, scale_shift,
+                         k_w, occlusion, True)
         for g, r, m in zip(got, want, model):
             np.testing.assert_array_equal(g.numpy(), r)
             np.testing.assert_array_equal(m, r)
-        # a zero field is no field
-        zero = KQ.bilinear_blend(*args, torch.zeros_like(
-            torch.from_numpy(frac)))
-        for g, r in zip(zero, KQ.bilinear_blend(*args)):
+        # a field at whole pels is the flow
+        whole = KQ.bilinear_blend(*srcs, torch.from_numpy(blur << 6), *rest,
+                                  True)
+        for g, r in zip(whole, KQ.bilinear_blend(*srcs,
+                                                 torch.from_numpy(blur),
+                                                 *rest)):
             assert torch.equal(g, r)
 
 
