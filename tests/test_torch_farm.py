@@ -22,6 +22,8 @@ from mpv_frame_interpolator_tpu_torch.pipeline.cadence import (
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
+from _stream_timing import OVERLOAD, pin_healthy
+
 torch.set_num_threads(1)
 
 KW = dict(scene_detection=False, auto_quality=False, measure_timing=False)
@@ -119,16 +121,20 @@ class TestIndependence:
         farm = StreamFarm(config, n_streams=2)
         try:
             for step in range(3):
+                # stream 0's worker is idle here (drained): safe to poke
+                pin_healthy(farm.engines[0])
                 farm.submit(0, srcs[0][step])
+                farm.drain(0, timeout=120.0)
                 farm.submit(1, srcs[1][step])
             farm.drain_all(timeout=120.0)
             r0 = farm.engines[0].quality.search_radius
             r1 = farm.engines[1].quality.search_radius
             for step in range(3, 6):
                 # the workers are idle here (drained): safe to poke
-                farm.engines[1]._last_calc_duration = 10.0
+                farm.engines[1]._last_calc_duration = OVERLOAD
                 farm.submit(1, srcs[1][step])
                 farm.drain(1, timeout=120.0)
+                pin_healthy(farm.engines[0])
                 farm.submit(0, srcs[0][step])
                 farm.drain(0, timeout=120.0)
             assert farm.engines[1].quality.search_radius <= max(r1 - 3, 5)

@@ -8,7 +8,9 @@ path) against the JAX package on the CPU:
   ``::test_hsv_flow_near_exact`` and ``TestPyramidAllModes``;
 * the engine against the JAX engine on clips with and without a scene
   cut, NV12 and P010: modes 0, 1 and 4 under the "pair" and "pallas"
-  samplers, mode 2 under "pallas" with levels (16.5, 235), mode 3;
+  samplers, mode 2 under "pallas" with levels (16.5, 235), mode 3 (one
+  JAX run a configuration and clip serves both samplers: on the CPU the
+  JAX engine's "pallas" sampler runs its "pair" program);
 * the CLI against the JAX CLI, y4m bytes.
 
 Bit-exact, except mode 3: its colours are float32 math (atan2, trunc),
@@ -173,24 +175,42 @@ def test_blend_kernel_calls_per_position(small_cfg, mode, calls):
 
 # --- the engine against the JAX engine --------------------------------------
 
-def _engines(sampling, **kw):
-    kw.setdefault("auto_quality", False)
-    kw.setdefault("measure_timing", False)
-    ref = jax_engine.InterpolationEngine(jax_engine.EngineConfig(
-        background_precompile=False, warp_sampling=sampling, **kw))
+@pytest.fixture(scope="module")
+def jax_runs():
+    """The JAX engine's runs of this module, by configuration and clip."""
+    return {}
+
+
+def _jax_outputs(runs, cfg, clip, **kw):
+    """The JAX engine's outputs for each frame of a 7-frame clip, run once
+    a module for each configuration.  It runs its "pair" program under
+    both samplers the port is held to here: on the CPU its "pallas"
+    sampler is that program (the Pallas kernels are TPU-only,
+    ``ops/warp.py`` ``use_pallas``, ``engine.py`` ``pair_active``)."""
+    key = (clip, cfg.pixfmt, tuple(sorted(kw.items())))
+    if key not in runs:
+        ref = jax_engine.InterpolationEngine(jax_engine.EngineConfig(
+            background_precompile=False, auto_quality=False,
+            measure_timing=False, warp_sampling="pair", **kw))
+        runs[key] = [[(o.pts, o.to_video_frame()) for o in ref.push(f)]
+                     for f in getattr(synthetic, clip)(cfg, 7)]
+    return runs[key]
+
+
+def _drive(runs, cfg, clip, sampling, hsv=False, **kw):
     port = port_engine.InterpolationEngine(port_engine.EngineConfig(
-        device="cpu", warp_sampling=sampling, **kw))
-    return ref, port
-
-
-def _drive(ref, port, frames, hsv=False):
+        device="cpu", auto_quality=False, measure_timing=False,
+        warp_sampling=sampling, **kw))
+    ref = _jax_outputs(runs, cfg, clip, **kw)
+    frames = list(getattr(synthetic, clip)(cfg, 7))
+    assert len(frames) == len(ref)
     n = 0
-    for f in frames:
-        r_outs, p_outs = ref.push(f), port.push(f)
+    for f, r_outs in zip(frames, ref):
+        p_outs = port.push(f)
         assert len(p_outs) == len(r_outs)
-        for r, p in zip(r_outs, p_outs):
-            assert p.pts == r.pts
-            rf, pf = r.to_video_frame(), p.to_video_frame()
+        for (pts, rf), p in zip(r_outs, p_outs):
+            assert p.pts == pts
+            pf = p.to_video_frame()
             assert pf.y.dtype == rf.y.dtype and pf.y.shape == rf.y.shape
             for a, b in ((pf.y, rf.y), (pf.uv, rf.uv)):
                 if hsv:
@@ -209,31 +229,31 @@ _CLIPS = [("moving_box", "nv12"), ("scene_cut", "nv12"),
 @pytest.mark.parametrize("mode,sampling", [(0, "pair"), (0, "pallas"),
                                            (1, "pair"), (1, "pallas"),
                                            (4, "pair"), (4, "pallas")])
-def test_engine_modes(small_cfg, clip, pixfmt, mode, sampling):
+def test_engine_modes(small_cfg, jax_runs, clip, pixfmt, mode, sampling):
     cfg = dataclasses.replace(small_cfg, pixfmt=pixfmt)
-    ref, port = _engines(sampling, display_fps=60.0, scene_detection=True,
-                         initial_search_radius=16, frame_output_mode=mode)
-    frames = getattr(synthetic, clip)(cfg, 7)
-    assert _drive(ref, port, frames) == 1 + 3 + 2 + 3 + 2 + 3 + 2
+    n = _drive(jax_runs, cfg, clip, sampling, display_fps=60.0,
+               scene_detection=True, initial_search_radius=16,
+               frame_output_mode=mode)
+    assert n == 1 + 3 + 2 + 3 + 2 + 3 + 2
 
 
 @pytest.mark.parametrize("clip,pixfmt", _CLIPS)
-def test_engine_blend_on_the_pallas_sampler(small_cfg, clip, pixfmt):
+def test_engine_blend_on_the_pallas_sampler(small_cfg, jax_runs, clip,
+                                            pixfmt):
     cfg = dataclasses.replace(small_cfg, pixfmt=pixfmt)
-    ref, port = _engines("pallas", display_fps=60.0, scene_detection=True,
-                         initial_search_radius=16, black_level=16.5,
-                         white_level=235.0)
     before = KS.counts.plain
-    n = _drive(ref, port, getattr(synthetic, clip)(cfg, 7))
+    n = _drive(jax_runs, cfg, clip, "pallas", display_fps=60.0,
+               scene_detection=True, initial_search_radius=16,
+               black_level=16.5, white_level=235.0)
     assert KS.counts.plain - before == 2 * (n - 1)
 
 
 @pytest.mark.parametrize("clip,pixfmt", _CLIPS)
-def test_engine_hsv(small_cfg, clip, pixfmt):
+def test_engine_hsv(small_cfg, jax_runs, clip, pixfmt):
     cfg = dataclasses.replace(small_cfg, pixfmt=pixfmt)
-    ref, port = _engines("pair", display_fps=60.0, scene_detection=True,
-                         initial_search_radius=16, frame_output_mode=3)
-    _drive(ref, port, getattr(synthetic, clip)(cfg, 7), hsv=True)
+    _drive(jax_runs, cfg, clip, "pair", hsv=True, display_fps=60.0,
+           scene_detection=True, initial_search_radius=16,
+           frame_output_mode=3)
 
 
 # --- the CLI against the JAX CLI --------------------------------------------

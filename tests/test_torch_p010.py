@@ -3,9 +3,11 @@ on the CPU: the plain K2 (pair blend) with scale_shift 8 and levels
 against the JAX batch warp and its per-position XLA warp, the plain K1
 (flow step) and the whole flow on uint16 planes with luma_shift 8, the
 scene-cut score with bit_shift 8, the engine on P010 clips under the
-"pair" and "fused" samplers, and the CLI's y4m bytes.  Bit-exact; the
-only tolerance is the cut score (one ulp: the JAX package sums in float32
-in XLA's order), with the cut decision exact."""
+"pair" and "fused" samplers (one JAX run a clip serves both: on the CPU
+the JAX engine's "fused" sampler runs its "pair" program), and the CLI's
+y4m bytes.  Bit-exact; the only tolerance is the cut score (one ulp: the
+JAX package sums in float32 in XLA's order), with the cut decision
+exact."""
 
 import dataclasses
 
@@ -110,12 +112,16 @@ def test_pair_blend_levels(scale_shift, black, white):
         np.testing.assert_array_equal(
             got_uv[n], _interleave(np.asarray(ru[n]), np.asarray(rv[n])))
 
-    fields = W._warp_fields(geom, jnp.asarray(blurred))
-    for n, t in enumerate(TS):
-        sy, su, sv = W._warp_sample(
+    # op by op, the levels' lax.cond included: dispatched on its own, a
+    # cond compiles its branches anew on every call
+    with jax.disable_jit():
+        fields = W._warp_fields(geom, jnp.asarray(blurred))
+        per_position = [W._warp_sample(
             geom, W.BLENDED_FRAME, scale_shift,
             jnp.uint16 if scale_shift else jnp.uint8, *jf1, *jf2, fields,
             jnp.float32(t), jnp.float32(black), jnp.float32(white))
+            for t in TS]
+    for n, (sy, su, sv) in enumerate(per_position):
         np.testing.assert_array_equal(got_y[n], np.asarray(sy))
         np.testing.assert_array_equal(
             got_uv[n], _interleave(np.asarray(su), np.asarray(sv)))
@@ -210,44 +216,64 @@ def test_cut_score_bit_shift(rs):
             assert (a > np.float32(threshold)) == (b > np.float32(threshold))
 
 
-def _engines(**kw):
-    ref = jax_engine.InterpolationEngine(jax_engine.EngineConfig(
-        background_precompile=False, auto_quality=False,
-        measure_timing=False, **kw))
-    port = port_engine.InterpolationEngine(port_engine.EngineConfig(
-        device="cpu", auto_quality=False, measure_timing=False, **kw))
-    return ref, port
+_KW = dict(auto_quality=False, measure_timing=False, display_fps=60.0,
+           initial_search_radius=16, black_level=16.5, white_level=235.0)
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """The JAX engine's runs of this module, by clip."""
+    return {}
+
+
+def _jax_run(runs, cfg, clip):
+    """The JAX engine on a P010 clip, run once a module for each clip: for
+    each frame its outputs (pts, frame, computed or passed through) and
+    its cut score.  It runs its "pair" program under both samplers the
+    port is held to here: on the CPU its "fused" sampler is that program
+    (the fused kernel is TPU-only, ``engine.py`` ``fused_active``)."""
+    if clip not in runs:
+        ref = jax_engine.InterpolationEngine(jax_engine.EngineConfig(
+            background_precompile=False, warp_sampling="pair", **_KW))
+        gen = (synthetic.scene_cut(cfg, 7, cut_at=4) if clip == "scene_cut"
+               else synthetic.moving_box(cfg, 6))
+        steps = []
+        for frame in gen:
+            outs = ref.push(frame)
+            steps.append((frame, [(r.pts, r.to_video_frame()) for r in outs],
+                          bool(outs) and outs[0]._index is not None,
+                          ref.last_cut_score()))
+        runs[clip] = steps, ref.scene.threshold
+    return runs[clip]
 
 
 @pytest.mark.parametrize("sampling", ["pair", "fused"])
 @pytest.mark.parametrize("clip", ["moving_box", "scene_cut"])
-def test_engine_p010(clip, sampling):
+def test_engine_p010(jax_runs, clip, sampling):
     cfg = synthetic.SyntheticConfig(width=64, height=48, fps=24.0,
                                     pixfmt="p010")
-    ref, port = _engines(display_fps=60.0, initial_search_radius=16,
-                         black_level=16.5, white_level=235.0,
-                         warp_sampling=sampling)
-    gen = (synthetic.scene_cut(cfg, 7, cut_at=4) if clip == "scene_cut"
-           else synthetic.moving_box(cfg, 6))
+    steps, threshold = _jax_run(jax_runs, cfg, clip)
+    port = port_engine.InterpolationEngine(port_engine.EngineConfig(
+        device="cpu", warp_sampling=sampling, **_KW))
     n = cuts = 0
     high = False
-    for frame in gen:
-        r_outs, p_outs = ref.push(frame), port.push(frame)
+    for frame, r_outs, computed, score in steps:
+        p_outs = port.push(frame)
         assert len(r_outs) == len(p_outs)
-        for r, p in zip(r_outs, p_outs):
-            assert p.pts == r.pts
-            rf, pf = r.to_video_frame(), p.to_video_frame()
+        for (pts, rf), p in zip(r_outs, p_outs):
+            assert p.pts == pts
+            pf = p.to_video_frame()
             assert dataclasses.asdict(pf.fmt) == dataclasses.asdict(rf.fmt)
             assert pf.y.dtype == pf.uv.dtype == np.uint16
             np.testing.assert_array_equal(pf.y, rf.y)
             np.testing.assert_array_equal(pf.uv, rf.uv)
             high |= int(pf.y.max()) > 255
             n += 1
-        if r_outs and r_outs[0]._index is not None:
-            a = np.float32(ref.last_cut_score())
+        if computed:
+            a = np.float32(score)
             b = np.float32(port.last_cut_score())
             assert abs(a - b) <= np.spacing(max(abs(a), abs(b))), (a, b)
-            cuts += a > np.float32(ref.scene.threshold)
+            cuts += a > np.float32(threshold)
     assert high, "P010 outputs must use the 16-bit range"
     assert port.scene_cuts() == cuts
     assert (cuts > 0) == (clip == "scene_cut")

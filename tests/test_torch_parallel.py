@@ -20,6 +20,8 @@ from mpv_frame_interpolator_tpu_torch.pipeline.cadence import (
 from mpv_frame_interpolator_tpu_torch.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
+from _stream_timing import OVERLOAD, pin_healthy
+
 torch.set_num_threads(1)
 
 KW = dict(scene_detection=False, auto_quality=False, measure_timing=False,
@@ -174,11 +176,13 @@ class TestMultiStreamQuality:
             initial_search_radius=8, too_slow_patience=1000), n_streams=2)
         srcs = sources(2, 6, fps=8.0)
         for step in range(3):
+            pin_healthy(ms.engines[0])
             ms.push_batch([srcs[0][step], srcs[1][step]])
         r0 = ms.engines[0].quality.search_radius
         r1 = ms.engines[1].quality.search_radius
         for step in range(3, 6):
-            ms.engines[1]._last_calc_duration = 10.0
+            pin_healthy(ms.engines[0])
+            ms.engines[1]._last_calc_duration = OVERLOAD
             ms.push_batch([srcs[0][step], srcs[1][step]])
         assert ms.engines[1].quality.search_radius <= max(r1 - 3, 5)
         assert ms.engines[0].quality.search_radius >= r0
@@ -191,9 +195,11 @@ class TestMultiStreamQuality:
             degrade_rungs=()), n_streams=2)
         srcs = sources(2, 10, fps=8.0)
         for step in range(2):
+            pin_healthy(ms.engines[0])
             ms.push_batch([srcs[0][step], srcs[1][step]])
         for step in range(2, 9):
-            ms.engines[1]._last_calc_duration = 10.0   # persistent overload
+            pin_healthy(ms.engines[0])
+            ms.engines[1]._last_calc_duration = OVERLOAD   # persistent overload
             outs = ms.push_batch([srcs[0][step], srcs[1][step]])
         assert ms.engines[1].cadence.state == InterpolationState.TOO_SLOW
         assert ms.engines[0].cadence.state == InterpolationState.ACTIVE

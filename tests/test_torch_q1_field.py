@@ -25,6 +25,7 @@ between K1 and Q1:
 The card's own checks (the kernel on b against the plain version, the
 spans of a 4K pair) are in ``tests/test_torch_cuda.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,13 +84,16 @@ def _jax_split(planes, field, t, width, scale_shift, levels, occlusion,
     flow, frac = (x.numpy() for x in _split(field))
     a = [jnp.asarray(x) for x in (f1y, f1uv[:, 0::2], f1uv[:, 1::2], f2y,
                                   f2uv[:, 0::2], f2uv[:, 1::2])]
-    fields = JW._warp_fields(geom, jnp.asarray(flow), jnp.asarray(frac),
-                             full_res=True)
-    y, u, v = JW._warp_sample(
-        geom, JW.BLENDED_FRAME, scale_shift, jnp.uint16 if scale_shift
-        else jnp.uint8, *a, fields, jnp.float32(float(t)),
-        jnp.float32(levels[0]), jnp.float32(levels[1]),
-        occlusion_aware=occlusion, bilinear=True, sampling="gather")
+    # op by op, the levels' lax.cond included: dispatched on its own, a
+    # cond compiles its branches anew on every call (~5 compiles a call)
+    with jax.disable_jit():
+        fields = JW._warp_fields(geom, jnp.asarray(flow), jnp.asarray(frac),
+                                 full_res=True)
+        y, u, v = JW._warp_sample(
+            geom, JW.BLENDED_FRAME, scale_shift, jnp.uint16 if scale_shift
+            else jnp.uint8, *a, fields, jnp.float32(float(t)),
+            jnp.float32(levels[0]), jnp.float32(levels[1]),
+            occlusion_aware=occlusion, bilinear=True, sampling="gather")
     uv = interleave_chroma(np.asarray(u), np.asarray(v))
     return torch.from_numpy(np.array(y)), torch.from_numpy(uv)
 
